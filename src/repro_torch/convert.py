@@ -1,0 +1,97 @@
+"""Carry state of the JAX package across to the port.
+
+The system runs no model, so what crosses over is characterization state:
+transform plans, characterization tables (with their wire-size proxy), the
+latency regression and padded controller tables.  Each function takes that
+state as plain NumPy arrays and Python scalars -- nothing of the JAX package
+is imported -- and returns the port's object, so both packages can run the
+closed loop from one and the same characterization.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.characterization import (CharacterizationTable,
+                                               LatencyRegression)
+from repro_torch.core.controller import ControllerTables
+from repro_torch.core.grid_engine import WireSizeProxy
+from repro_torch.core.knobs import KnobSetting
+from repro_torch.device import resolve_device
+from repro_torch.kernels.frame_knobs import TransformPlan
+
+__all__ = ["plan_from_numpy", "table_from_numpy", "regression_from_numpy",
+           "controller_tables_from_numpy"]
+
+
+def plan_from_numpy(*, cs, scale, blur_ks, art_modes, in_h, in_w, packed_h,
+                    out_h, out_w, n_planes, ry, rx, bys, bxs, art_ids,
+                    blur_ids) -> TransformPlan:
+    """A ``TransformPlan`` from the fields of one (resolution, colorspace)
+    plan: the dense operators as f32 arrays, the ids as i32 arrays.  The
+    band form is derived from the dense operators."""
+    return TransformPlan(
+        cs=int(cs), scale=float(scale), blur_ks=tuple(int(k) for k in blur_ks),
+        art_modes=tuple(int(a) for a in art_modes), in_h=int(in_h),
+        in_w=int(in_w), packed_h=int(packed_h), out_h=int(out_h),
+        out_w=int(out_w), n_planes=int(n_planes),
+        ry=np.asarray(ry, np.float32), rx=np.asarray(rx, np.float32),
+        bys=np.asarray(bys, np.float32), bxs=np.asarray(bxs, np.float32),
+        art_ids=np.asarray(art_ids, np.int32),
+        blur_ids=np.asarray(blur_ids, np.int32))
+
+
+def table_from_numpy(*, settings, sizes_sorted, best_acc, best_idx,
+                     acc_by_setting, size_by_setting, proxy_coeffs=None,
+                     proxy_median_rel_err: float = 0.0,
+                     proxy_max_rel_err: float = 0.0,
+                     min_accuracy: float = 0.90, source: str = "offline",
+                     activity: float | None = None,
+                     residual_spread: float | None = None
+                     ) -> CharacterizationTable:
+    """A ``CharacterizationTable`` from its arrays.  ``settings`` is an
+    [n, 5] integer array of knob codes (resolution, colorspace, blur,
+    artifact, diff); ``proxy_coeffs`` ([3, 2, 8], or None for a table
+    without a wire-size proxy) and the two error figures rebuild its
+    ``WireSizeProxy``."""
+    codes = np.asarray(settings, np.int64).reshape(-1, 5)
+    proxy = None
+    if proxy_coeffs is not None:
+        proxy = WireSizeProxy(np.asarray(proxy_coeffs, np.float64),
+                              float(proxy_median_rel_err),
+                              float(proxy_max_rel_err))
+    return CharacterizationTable(
+        settings=tuple(KnobSetting(*(int(c) for c in row)) for row in codes),
+        sizes_sorted=np.asarray(sizes_sorted),
+        best_acc=np.asarray(best_acc),
+        best_idx=np.asarray(best_idx),
+        acc_by_setting=np.asarray(acc_by_setting),
+        size_by_setting=np.asarray(size_by_setting),
+        proxy=proxy, min_accuracy=float(min_accuracy), source=str(source),
+        activity=None if activity is None else float(activity),
+        residual_spread=(None if residual_spread is None
+                         else float(residual_spread)))
+
+
+def regression_from_numpy(*, slope: float, intercept: float
+                          ) -> LatencyRegression:
+    """The latency regression ``latency = slope * bytes + intercept``."""
+    return LatencyRegression(float(slope), float(intercept))
+
+
+def controller_tables_from_numpy(*, sizes_sorted, best_acc, best_idx,
+                                 n_valid, codes,
+                                 device: "str | torch.device | None" = None
+                                 ) -> ControllerTables:
+    """``ControllerTables`` from already padded arrays (``sizes_sorted``
+    +inf and ``best_idx`` -1 beyond ``n_valid``, ``codes`` [capacity, 5]),
+    with or without a leading lane axis, on ``device`` (default
+    ``"cuda"``)."""
+    dev = resolve_device(device)
+    return ControllerTables(   # torch.tensor copies: the port owns them
+        torch.tensor(np.asarray(sizes_sorted, np.float32), device=dev),
+        torch.tensor(np.asarray(best_acc, np.float32), device=dev),
+        torch.tensor(np.asarray(best_idx, np.int32), device=dev),
+        torch.tensor(np.asarray(n_valid, np.int32), device=dev),
+        torch.tensor(np.asarray(codes, np.int32), device=dev))

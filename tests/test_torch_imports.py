@@ -1,0 +1,103 @@
+"""Package boundaries of the port: ``repro_torch`` imports neither ``jax`` nor
+anything of ``repro``; its entry points run on CUDA unless asked for the
+CPU, and raise without a CUDA device instead of carrying on elsewhere."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core import api as TA  # noqa: E402
+from repro_torch.core import characterization as TCh  # noqa: E402
+from repro_torch.core import controller as TC  # noqa: E402
+from repro_torch.core import drift as TD  # noqa: E402
+from repro_torch.core import grid_engine as TG  # noqa: E402
+from repro_torch.core.broker import MezSystem  # noqa: E402
+from repro_torch.core.channel import calibrated_channel  # noqa: E402
+from repro_torch.data.camera import CameraConfig, SyntheticCamera  # noqa: E402
+from repro_torch.kernels import frame_knobs as FK  # noqa: E402
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def port_modules():
+    return sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in PKG.rglob("*.py"))
+
+
+def test_imports_without_jax_or_repro():
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"for name in {port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'repro' or m.startswith('repro.')]\n"
+        "assert all(sys.modules[m] is None for m in bad), bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("path", sorted(PKG.rglob("*.py")),
+                         ids=lambda p: str(p.relative_to(PKG)))
+def test_source_has_no_jax_or_repro_import(path):
+    bad = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
+    assert not bad.findall(path.read_text())
+
+
+@pytest.fixture
+def no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the defaults run there")
+
+
+def _camera():
+    return SyntheticCamera(CameraConfig(dynamics="simple", seed=1))
+
+
+ENTRY_POINTS = {
+    "run_grid": lambda: TG.run_grid(_camera().background,
+                                    [_camera().next_frame()[1]]),
+    "refresh_tables": lambda: TG.refresh_tables(
+        _camera().background, [_camera().next_frame()[1]] * 4),
+    "characterize": lambda: TCh.characterize(_camera, clip_len=2,
+                                             engine="batched"),
+    "MezSystem": lambda: MezSystem(calibrated_channel(seed=0)),
+    "DriftMonitor": lambda: TD.DriftMonitor(["cam0"]),
+    "ControllerTables": lambda: TC.ControllerTables.from_arrays(
+        np.ones(3), np.ones(3), np.arange(3)),
+    "frame_knob_grid": lambda: FK.frame_knob_grid(
+        torch.zeros((1, 4, 4, 3), dtype=torch.uint8),
+        torch.zeros((1, 4, 4, 3), dtype=torch.uint8),
+        FK.build_transform_plan(4, 4, scale=1.0, cs=0, blur_ks=(0,))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_need_cuda_or_an_explicit_cpu(no_cuda, name):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ENTRY_POINTS[name]()
+
+
+def test_mesh_is_not_ported():
+    system = MezSystem(calibrated_channel(seed=0), device="cpu")
+    system.add_camera("cam0")
+    sess = system.edge.open_session("app")
+    spec = TA.SubscribeSpec("app", "cam0", 0.0, 1.0, 0.1, 0.9)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        system.edge.create_subscription(
+            sess, (spec,), options=TA.SubscriptionOptions(fleet=True, mesh=1))
