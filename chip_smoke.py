@@ -31,11 +31,21 @@ each, with their wall seconds:
                 (every lane must move to another setting), then
                 ``update_qos(latency=0.060, recharacterize=True)`` on a
                 second subscription to cam0 (the live re-sweep);
-  profile       device time per activity of the kernel's largest group.
+  profile       device time per activity of the kernel's largest group;
+  serve         the model zoo's serving path, ``qwen3-1.7b`` at its
+                published widths: the flash and decode attention kernels
+                against their plain versions at the serving shapes (float32
+                and bfloat16, timed beside the bound, the plain version and
+                SDPA), the whole model in float32 with the kernels against
+                the naive attention (prefill and 8 teacher-forced decode
+                steps), the timed ``serve(batch=8, prompt_len=1024,
+                gen=256)`` in bfloat16 with the kernels' launches counted,
+                and one traced decode step.
 
-Then a ``kernels`` line (every kernel: launches on the main path, error
-against its plain version, its time beside its bound and the plain
-version's), the card's ``name, power.limit``, and as the last line
+Then a ``kernels`` line (every kernel: launches on its main path, error
+against its plain version, its time beside its bound, the plain version's
+and the library call's), the card's ``name, power.limit``, and as the last
+line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line; without a CUDA device, or outside a checkout, it exits 2.
 """
@@ -62,9 +72,36 @@ TABLE_FLOOR = 0.0
 RETARGET_LATENCY = 0.030    # mid-stream bound that setting cannot meet
 N_CAMS, N_FRAMES = 5, 20    # the paper's testbed: 5 camera nodes
 REPS = 5                    # timed calls per group, after one warm-up
+ATTN_REPS = 10              # calls per device timing of attention
+SPIN_CYCLES = 200_000_000   # ~0.1 s of spin at the H100's clocks
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
 PAYLOAD_TOL, MISMATCH_TOL, FEAT_RTOL = 1, 1e-3, 1e-3
+
+# -- the serve phase ------------------------------------------------------------
+SERVE_ARCH = "qwen3-1.7b"
+SERVE_REDUCED = False       # the published widths (a CPU rehearsal: True)
+SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 256
+# kernel checks at the serving shapes: flash (B, S) causal, QH/KH/D of the
+# config; decode over the serve's cache (S_max = 1024 + 256 + 256) at these
+# lengths (1152: the mean length of the serve's decode steps)
+FLASH_SHAPES = ((8, 1024), (8, 1000))
+DECODE_S_MAX = 1536
+DECODE_LENGTHS = (1, 1024, 1152, 1279, 1536)
+# max |kernel - plain| on unit-normal inputs, per (kernel, dtype).  bf16:
+# one rounding of the f32 result apart, at the largest |o| each kernel
+# gives -- flash's early causal rows average a few values (|o| up to ~4,
+# where one bf16 step is 1.6e-2-3.1e-2 rounds to 2e-2); decode over >= 1024
+# rows keeps |o| below ~0.5 (one step <= 2e-3), and at length 1 both are
+# exact.  f32: summation order only.
+ATTN_TOL = {("flash_attention", "float32"): 2e-5,
+            ("flash_attention", "bfloat16"): 2e-2,
+            ("decode_attention", "float32"): 2e-5,
+            ("decode_attention", "bfloat16"): 2e-3}
+# the whole model in float32, kernels against naive attention
+CHECK_BATCH, CHECK_PROMPT, CHECK_STEPS = 4, 1000, 8
+LOGIT_RTOL = 1e-3           # of max |logit|, at each step
 
 
 def emit(phase: str, **fields) -> None:
@@ -94,6 +131,35 @@ def cuda_ms(fn, reps: int) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> tuple[float, bool]:
+    """Device time of one call of ``fn``: ``reps`` calls enqueued behind a
+    spin kernel (``torch.cuda._sleep``) that keeps the card busy while the
+    host enqueues them, timed with CUDA events around the calls, median of
+    3 such runs (after one untimed warm-up call).  The wrapper's host time,
+    which dominates a CUDA-event timing of one call whose device work is
+    short, is hidden as long as the enqueueing ends before the spin does;
+    returns (ms per call, whether it did in every run)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times, hidden = [], True
+    for _ in range(3):
+        spin0, start, stop = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(3))
+        spin0.record()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start.record()
+        t0 = time.monotonic()
+        for _ in range(reps):
+            fn()
+        host_ms = (time.monotonic() - t0) * 1e3
+        stop.record()
+        stop.synchronize()
+        hidden = hidden and host_ms < spin0.elapsed_time(start)
+        times.append(start.elapsed_time(stop) / reps)
+    return statistics.median(times), hidden
 
 
 def bound_ms(plan, n_frames: int, with_art: bool) -> tuple[float, str]:
@@ -295,6 +361,286 @@ def phase_profile(dev) -> list[dict]:
             for k, (c, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])]
 
 
+def attn_bound_ms(kind: str, dtype, b: int, s: int, qh: int, kh: int,
+                  d: int) -> tuple[float, str]:
+    """Least time of one attention call on the card: inputs read once and
+    the output written once over the memory rate, against 4 FLOP per (q
+    head, key, column) pair -- the two products -- over the peak rate of
+    the inputs' type (bf16 tensor cores; float32 outside them).  ``kind``
+    "flash": causal prefill over ``s`` tokens (s (s + 1) / 2 pairs per q
+    head); "decode": one query against the ``s`` valid cache rows."""
+    import torch
+    esz = torch.finfo(dtype).bits // 8
+    if kind == "flash":
+        nbytes = esz * (2 * b * s * qh * d + 2 * b * s * kh * d)
+        pairs = s * (s + 1) // 2
+    else:
+        nbytes = esz * (2 * b * qh * d + 2 * b * s * kh * d)
+        pairs = s
+    flops = 4.0 * b * qh * d * pairs
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def timed(fn, plain, library) -> dict:
+    """Device ms per call (``device_ms`` over ``ATTN_REPS`` calls) of the
+    kernel's wrapper, its plain version and the library call, and the
+    wrapper's whole call time (CUDA events around one call, median of
+    ``REPS``: its host time included).  Raises when the spin did not hide
+    the host."""
+    out = {}
+    for key, f in (("", fn), ("plain_", plain), ("library_", library)):
+        ms, hidden = device_ms(f, ATTN_REPS)
+        if not hidden:
+            raise AssertionError(f"{key}ms: the host outlasted the spin")
+        out[f"{key}ms"] = ms
+    out["call_ms"] = cuda_ms(fn, REPS)
+    return out
+
+
+def phase_attention(dev, cfg) -> list[dict]:
+    """Both attention kernels against their plain versions at the serving
+    shapes, in float32 and bfloat16 on seeded unit-normal inputs; each
+    timed (``timed``) beside its plain version, SDPA (timed here only,
+    called nowhere in the port) and its bound.  Raises when an error passes
+    its tolerance."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    qh, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rows = []
+
+    def record(row, got, want):
+        err = float((got.float() - want.float()).abs().max())
+        tol = ATTN_TOL[row["kernel"], row["dtype"]]
+        row["max_abs_err"] = err
+        print(json.dumps({"attention": row}), flush=True)
+        if not err <= tol:
+            raise AssertionError(f"{row['kernel']} {row['dtype']} "
+                                 f"{row['shape']}: max |d| {err} > {tol}")
+        rows.append(row)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for b, s in FLASH_SHAPES:
+            q = torch.randn((b, s, qh, d), generator=g, device=dev).to(dtype)
+            k = torch.randn((b, s, kh, d), generator=g, device=dev).to(dtype)
+            v = torch.randn((b, s, kh, d), generator=g, device=dev).to(dtype)
+            got = FA.flash_attention(q, k, v, causal=True)
+            want = FA.flash_attention_plain(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            b_ms, b_by = attn_bound_ms("flash", dtype, b, s, qh, kh, d)
+            row = dict(
+                kernel="flash_attention", dtype=name,
+                shape=f"B={b} S={s} QH={qh} KH={kh} D={d} causal",
+                **timed(lambda: FA.flash_attention(q, k, v, causal=True),
+                        lambda: FA.flash_attention_plain(q, k, v,
+                                                         causal=True),
+                        lambda: F.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True, enable_gqa=True)),
+                bound_ms=b_ms, bound_by=b_by)
+            record(row, got, want)
+            del q, k, v, qt, kt, vt, got, want
+        b = SERVE_BATCH
+        shape = (b, DECODE_S_MAX, kh, d)
+        kc = torch.randn(shape, generator=g, device=dev).to(dtype)
+        vc = torch.randn(shape, generator=g, device=dev).to(dtype)
+        q = torch.randn((b, 1, qh, d), generator=g, device=dev).to(dtype)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
+        for length in DECODE_LENGTHS:
+            got = DA.decode_attention(q, kc, vc, length)
+            want = DA.decode_attention_plain(q, kc, vc, length)
+            torch.cuda.synchronize()
+            kv_len = kt[:, :, :length], vt[:, :, :length]
+            b_ms, b_by = attn_bound_ms("decode", dtype, b, length, qh, kh, d)
+            row = dict(
+                kernel="decode_attention", dtype=name, length=length,
+                shape=f"B={b} S_max={DECODE_S_MAX} QH={qh} KH={kh} D={d} "
+                      f"length={length}",
+                **timed(lambda: DA.decode_attention(q, kc, vc, length),
+                        lambda: DA.decode_attention_plain(q, kc, vc, length),
+                        lambda: F.scaled_dot_product_attention(
+                            qt, *kv_len, enable_gqa=True)),
+                bound_ms=b_ms, bound_by=b_by)
+            record(row, got, want)
+            del kv_len
+        del kc, vc, q, qt, kt, vt
+    torch.cuda.empty_cache()
+    return rows
+
+
+def phase_model_check(dev) -> dict:
+    """The whole model at its published widths in float32, one seed: the
+    prefill and ``CHECK_STEPS`` teacher-forced decode steps through the
+    kernels (``attention_impl="kernel"``) and through the naive attention,
+    on the same weights and tokens.  Last-position logits of the real
+    vocabulary (the padded columns hold the mask value) must agree within
+    ``LOGIT_RTOL`` of their max |logit| at each step and pick the same
+    greedy token everywhere."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.serve import prepare
+    from repro_torch.models.registry import build_model
+    model, params, pb, _, g = prepare(
+        SERVE_ARCH, batch=CHECK_BATCH, prompt_len=CHECK_PROMPT,
+        gen=CHECK_STEPS, reduced=SERVE_REDUCED, param_dtype="float32",
+        device=dev)
+    forced = torch.randint(0, model.cfg.vocab_size,
+                           (CHECK_BATCH, CHECK_STEPS), generator=g,
+                           device=dev, dtype=torch.int32)
+
+    vocab = model.cfg.vocab_size
+
+    def run(m):
+        cache = m.init_cache(CHECK_BATCH, CHECK_PROMPT + CHECK_STEPS,
+                             device=dev)
+        with torch.no_grad():
+            logits, cache = m.prefill(params, pb, cache)
+            out = [logits[:, -1, :vocab].float()]
+            for t in range(CHECK_STEPS):
+                logits, cache = m.decode_step(params, forced[:, t:t + 1],
+                                              cache)
+                out.append(logits[:, -1, :vocab].float())
+        torch.cuda.synchronize()
+        return torch.stack(out, 1)          # [B, 1 + steps, V]
+
+    t0 = time.monotonic()
+    got = run(model)
+    naive = build_model(dataclasses.replace(model.cfg,
+                                            attention_impl="naive"))
+    want = run(naive)
+    scale = want.abs().amax(-1)             # [B, steps]
+    rel = float(((got - want).abs().amax(-1) / scale).max())
+    max_abs = float((got - want).abs().max())
+    same = bool((got.argmax(-1) == want.argmax(-1)).all())
+    out = dict(dtype="float32", batch=CHECK_BATCH, prompt_len=CHECK_PROMPT,
+               steps=CHECK_STEPS, max_rel_err=rel, limit=LOGIT_RTOL,
+               max_abs_err=max_abs, max_abs_logit=float(scale.max()),
+               greedy_identical=same, finite=bool(torch.isfinite(got).all()),
+               seconds=time.monotonic() - t0)
+    del model, params, got, want
+    torch.cuda.empty_cache()
+    if not (out["finite"] and rel <= LOGIT_RTOL and same):
+        raise AssertionError(f"full-width float32 check failed: {out}")
+    return out
+
+
+def phase_serve_timed(dev) -> dict:
+    """``serve`` at the published widths in the config's bfloat16, after
+    an untimed warm-up call at the same batch and prompt length (so the
+    timed prefill meets a warm allocator and the GEMM shapes it has run
+    before), with both attention kernels' launches counted from zero just
+    before it."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import serve
+    cfg = get_config(SERVE_ARCH)
+    n_layers = (cfg.reduced() if SERVE_REDUCED else cfg).num_layers
+    serve(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=2,
+          reduced=SERVE_REDUCED, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention.launches = 0
+    DA.decode_attention.launches = 0
+    t0 = time.monotonic()
+    out = serve(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+                gen=SERVE_GEN, reduced=SERVE_REDUCED, device=dev)
+    seconds = time.monotonic() - t0
+    launches = {"flash_attention": FA.flash_attention.launches,
+                "decode_attention": DA.decode_attention.launches}
+    want = {"flash_attention": n_layers,
+            "decode_attention": n_layers * SERVE_GEN}
+    toks = out["tokens"]
+    res = dict(seconds=seconds, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+               gen=SERVE_GEN, prefill_ms=out["prefill_s"] * 1e3,
+               decode_p50_ms=out["decode_p50_ms"],
+               decode_p95_ms=out["decode_p95_ms"],
+               tokens_per_s=out["tokens_per_s"], cache_len=out["cache_len"],
+               launches=launches,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9,
+               distinct_tokens=int(len(set(toks.ravel().tolist()))))
+    if launches != want:
+        raise AssertionError(f"serve launched {launches}, want {want}")
+    if toks.shape != (SERVE_BATCH, SERVE_GEN + 1) \
+            or out["cache_len"] != SERVE_PROMPT + SERVE_GEN:
+        raise AssertionError(f"serve returned tokens {toks.shape}, "
+                             f"cache_len {out['cache_len']}")
+    return res
+
+
+def phase_decode_trace(dev) -> dict:
+    """Device time per activity of one bfloat16 decode step at the serving
+    shape (cache at the prompt's length), traced with ``torch.profiler``,
+    beside the step's host-clock time."""
+    import torch
+    from repro_torch.launch.serve import prepare
+    model, params, pb, cache, _ = prepare(
+        SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
+        gen=SERVE_GEN, reduced=SERVE_REDUCED, device=dev)
+    with torch.no_grad():
+        logits, cache = model.prefill(params, pb, cache)
+        tok = logits[:, -1].argmax(-1, keepdim=True).int()
+        for _ in range(3):                  # warm
+            logits, cache = model.decode_step(params, tok, cache)
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            logits, cache = model.decode_step(params, tok, cache)
+            torch.cuda.synchronize()
+            step_ms = (time.monotonic() - t0) * 1e3
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t = per.setdefault(e.name(), [0, 0.0])
+            t[0] += 1
+            t[1] += (e.end_ns() - e.start_ns()) / 1e6
+    busy_s, n_act = device_busy_s(prof)
+    del model, params, cache
+    torch.cuda.empty_cache()
+    top = sorted(per.items(), key=lambda kv: -kv[1][1])
+    return dict(step_ms_traced=step_ms, device_busy_ms=busy_s * 1e3,
+                device_activities=n_act,
+                device_ms_total=sum(ms for _, (_, ms) in top),
+                activities=[{"activity": k[:120], "count": c, "ms": ms}
+                            for k, (c, ms) in top[:25]])
+
+
+def phase_serve(dev) -> tuple[list[dict], dict]:
+    """The serve phase's four steps; returns (attention rows, timed serve)
+    and emits one line per step."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(SERVE_ARCH)
+    if SERVE_REDUCED:
+        cfg = cfg.reduced()
+    t0 = time.monotonic()
+    rows = phase_attention(dev, cfg)
+    emit("serve_kernels", seconds=time.monotonic() - t0, cases=len(rows),
+         max_abs_err={f"{k}/{dt}": max(r["max_abs_err"] for r in rows
+                                       if r["kernel"] == k
+                                       and r["dtype"] == dt)
+                      for k in ("flash_attention", "decode_attention")
+                      for dt in ("float32", "bfloat16")})
+    emit("serve_check", **phase_model_check(dev))
+    timed = phase_serve_timed(dev)
+    emit("serve", **timed)
+    t0 = time.monotonic()
+    trace = phase_decode_trace(dev)
+    emit("serve_trace", seconds=time.monotonic() - t0, **trace)
+    torch.cuda.empty_cache()
+    return rows, timed
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found -- run from the root "
@@ -323,9 +669,12 @@ def run(dev) -> None:
     import torch
     t0 = time.monotonic()
     from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import frame_knobs as FK
     paths = build.build()
-    FK._load_lib()
+    for mod in (FK, FA, DA):
+        mod._load_lib()
     ptxas = [ln.strip() for pth in paths.values()
              for ln in Path(str(pth) + ".log").read_text().splitlines()
              if "registers" in ln or "spill" in ln]
@@ -519,6 +868,35 @@ def run(dev) -> None:
     emit("profile", seconds=time.monotonic() - t0,
          group="res 0, BGR, knob4, 15 settings x 16 frames", stages=stages)
 
+    # -- the serving path: qwen3-1.7b at its published widths ---------------
+    attn_rows, timed = phase_serve(dev)
+    serve_kernels = []
+    for name, src, replaces, pick in (
+            ("flash_attention", "flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:74",
+             lambda r: r["shape"].startswith(
+                 f"B={SERVE_BATCH} S={SERVE_PROMPT} ")),
+            ("decode_attention", "decode_attention.cu",
+             "src/repro/kernels/decode_attention.py:61",
+             lambda r: r.get("length") == DECODE_LENGTHS[2])):
+        mine = [r for r in attn_rows if r["kernel"] == name]
+        main_row = next(r for r in mine
+                        if r["dtype"] == "bfloat16" and pick(r))
+        serve_kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces,
+            "launches": timed["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine
+                               if r["dtype"] == "bfloat16"),
+            "max_abs_err_float32": max(r["max_abs_err"] for r in mine
+                                       if r["dtype"] == "float32"),
+            **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+            "shape": main_row["shape"] + " bfloat16 (the serve's "
+                     + ("prefill" if name == "flash_attention" else
+                        "mean decode length") + ")"})
+
     # the main path's kernel work: one characterize sweep and one re-sweep
     main = [r for r in rows if r["case"] in ("characterize", "resweep")]
     big = max(main, key=lambda r: r["payload_mb"])
@@ -537,8 +915,8 @@ def run(dev) -> None:
         "shape": f"the main path's 30 calls at 1080x1920, knob4 on: 15 "
                  f"groups x 16 frames (characterize) + 15 groups x 32 "
                  f"frames (re-sweep); largest group "
-                 f"{big['ms']:.3f} ms vs bound {big['bound_ms']:.3f} ms"}]}),
-        flush=True)
+                 f"{big['ms']:.3f} ms vs bound {big['bound_ms']:.3f} ms"},
+        *serve_kernels]}), flush=True)
 
 
 if __name__ == "__main__":

@@ -1,11 +1,12 @@
 """Carry state of the JAX package across to the port.
 
-The system runs no model, so what crosses over is characterization state:
-transform plans, characterization tables (with their wire-size proxy), the
-latency regression and padded controller tables.  Each function takes that
-state as plain NumPy arrays and Python scalars -- nothing of the JAX package
-is imported -- and returns the port's object, so both packages can run the
-closed loop from one and the same characterization.
+Two kinds of state cross over.  For the closed loop: transform plans,
+characterization tables (with their wire-size proxy), the latency regression
+and padded controller tables, so both packages can run the loop from one
+and the same characterization.  For the model zoo: a model's parameter tree
+(``model_params_from_numpy``), so both packages can serve with the same
+weights.  Each function takes plain NumPy arrays and Python scalars --
+nothing of the JAX package is imported -- and returns the port's object.
 """
 
 from __future__ import annotations
@@ -20,9 +21,10 @@ from repro_torch.core.grid_engine import WireSizeProxy
 from repro_torch.core.knobs import KnobSetting
 from repro_torch.device import resolve_device
 from repro_torch.kernels.frame_knobs import TransformPlan
+from repro_torch.models import transformer
 
 __all__ = ["plan_from_numpy", "table_from_numpy", "regression_from_numpy",
-           "controller_tables_from_numpy"]
+           "controller_tables_from_numpy", "model_params_from_numpy"]
 
 
 def plan_from_numpy(*, cs, scale, blur_ks, art_modes, in_h, in_w, packed_h,
@@ -95,3 +97,48 @@ def controller_tables_from_numpy(*, sizes_sorted, best_acc, best_idx,
         torch.tensor(np.asarray(best_idx, np.int32), device=dev),
         torch.tensor(np.asarray(n_valid, np.int32), device=dev),
         torch.tensor(np.asarray(codes, np.int32), device=dev))
+
+
+def _tensor_from_numpy(a, *, device: "str | torch.device" = "cpu"
+                      ) -> torch.Tensor:
+    """A copy of ``a`` on ``device``.  A bfloat16 array (``ml_dtypes``, as
+    ``np.asarray`` gives one of a bfloat16 JAX array) crosses bit for bit
+    through a uint16 view."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a.copy())
+    return t.to(device)
+
+
+def model_params_from_numpy(cfg, tree: dict, *,
+                            device: "str | torch.device | None" = None
+                            ) -> dict:
+    """The port's parameter dict of ``cfg`` (a ``repro_torch`` ModelConfig)
+    from a JAX ``init_params`` tree with every leaf as a NumPy array.
+
+    Both packages keep one layout: stacked ``[L, ...]`` layers, projections
+    as ``[d_in, d_out]`` (``y = x @ W``), the embedding ``[V, D]`` that a
+    tied head reads as ``embed.T``.  So every leaf crosses as it is, with
+    no transpose; its key set and shape are checked against
+    ``transformer.param_shapes(cfg)`` and anything else raises
+    ``ValueError``.  Dtypes are kept.  ``device`` defaults to ``"cuda"``."""
+    dev = resolve_device(device)
+
+    def walk(shapes: dict, node: dict, path: str) -> dict:
+        if set(shapes) != set(node):
+            raise ValueError(f"{path or 'params'}: keys {sorted(node)}, "
+                             f"want {sorted(shapes)}")
+        out = {}
+        for k, want in shapes.items():
+            if isinstance(want, dict):
+                out[k] = walk(want, node[k], f"{path}{k}/")
+                continue
+            a = np.asarray(node[k])
+            if tuple(a.shape) != tuple(want):
+                raise ValueError(f"{path}{k}: shape {a.shape}, want {want}")
+            out[k] = _tensor_from_numpy(a, device=dev)
+        return out
+
+    return walk(transformer.param_shapes(cfg), tree, "")

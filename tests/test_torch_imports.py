@@ -13,6 +13,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch import convert  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import api as TA  # noqa: E402
 from repro_torch.core import characterization as TCh  # noqa: E402
 from repro_torch.core import controller as TC  # noqa: E402
@@ -22,6 +24,9 @@ from repro_torch.core.broker import MezSystem  # noqa: E402
 from repro_torch.core.channel import calibrated_channel  # noqa: E402
 from repro_torch.data.camera import CameraConfig, SyntheticCamera  # noqa: E402
 from repro_torch.kernels import frame_knobs as FK  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models.registry import build_model, make_batch  # noqa: E402
+from repro_torch.models.transformer import param_shapes  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -84,13 +89,33 @@ ENTRY_POINTS = {
         torch.zeros((1, 4, 4, 3), dtype=torch.uint8),
         torch.zeros((1, 4, 4, 3), dtype=torch.uint8),
         FK.build_transform_plan(4, 4, scale=1.0, cs=0, blur_ks=(0,))),
+    "serve": lambda: serve("qwen3-1.7b", batch=1, prompt_len=4, gen=1),
+    "Model.init_params": lambda: build_model(
+        get_config("qwen3-1.7b").reduced()).init_params(torch.Generator()),
+    "Model.init_cache": lambda: build_model(
+        get_config("qwen3-1.7b").reduced()).init_cache(1, 4),
+    "make_batch": lambda: make_batch(get_config("qwen3-1.7b").reduced(), 1,
+                                     4, generator=torch.Generator()),
+    "model_params_from_numpy": lambda: convert.model_params_from_numpy(
+        get_config("qwen3-1.7b").reduced(), _zeros_tree(param_shapes(
+            get_config("qwen3-1.7b").reduced()))),
 }
+
+
+def _zeros_tree(shapes):
+    return {k: _zeros_tree(v) if isinstance(v, dict)
+            else np.zeros(v, np.float32) for k, v in shapes.items()}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
 def test_entry_points_need_cuda_or_an_explicit_cpu(no_cuda, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ENTRY_POINTS[name]()
+
+
+def test_serve_runs_on_the_cpu_when_asked():
+    out = serve("qwen3-1.7b", batch=2, prompt_len=6, gen=2, device="cpu")
+    assert out["tokens"].shape == (2, 3) and out["cache_len"] == 8
 
 
 def test_mesh_is_not_ported():
