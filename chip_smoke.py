@@ -40,7 +40,17 @@ each, with their wall seconds:
                 the naive attention (prefill and 8 teacher-forced decode
                 steps), the timed ``serve(batch=8, prompt_len=1024,
                 gen=256)`` in bfloat16 with the kernels' launches counted,
-                and one traced decode step.
+                and one traced decode step;
+  serve_rwkv    the SSM family's serving path, ``rwkv6-1.6b`` at its
+                published widths: the wkv scan kernel against its plain
+                version (prefill, decode and ragged shapes, float32 and
+                bfloat16, timed beside the bound and the plain version),
+                the whole model in float32 with the kernel against the
+                chunked plain scan (prefill and 8 teacher-forced decode
+                steps), the timed ``serve(batch=8, prompt_len=1024,
+                gen=256)`` in bfloat16 with the kernel's launches counted
+                (one per layer per prefill and per decode step), and one
+                traced decode step.
 
 Then a ``kernels`` line (every kernel: launches on its main path, error
 against its plain version, its time beside its bound, the plain version's
@@ -102,6 +112,27 @@ ATTN_TOL = {("flash_attention", "float32"): 2e-5,
 # the whole model in float32, kernels against naive attention
 CHECK_BATCH, CHECK_PROMPT, CHECK_STEPS = 4, 1000, 8
 LOGIT_RTOL = 1e-3           # of max |logit|, at each step
+
+# -- the serve_rwkv phase -------------------------------------------------------
+RWKV_ARCH = "rwkv6-1.6b"
+RWKV_REDUCED = False        # the published widths (a CPU rehearsal: True)
+RWKV_BATCH, RWKV_PROMPT, RWKV_GEN = 8, 1024, 256
+# kernel checks, (B, S, random state0): the serve's prefill from a zero and
+# from a random state, a decode step, a length no chunk of 64 divides, and
+# one token of one sequence; H and K of the config
+WKV_SHAPES = ((8, 1024, False), (8, 1024, True), (8, 1, True),
+              (8, 1000, True), (1, 1, True))
+# the kernel against wkv_plain, as a share of the plain result's max |.|.
+# float32: the kernel multiplies expf(logw) step by step where the plain
+# version takes exp of differences of cumulative sums over its chunk, so
+# the two round apart by a few float32 ulps per step over <= 1024 steps;
+# bfloat16 y: one rounding of the float32 result apart, one bf16 step
+# (2^-7 of |y|); the state stays float32 in both.
+WKV_TOL = {"float32": 1e-4, "bfloat16": 2.0 ** -7, "state": 1e-4}
+WKV_PLAIN_CHUNK = 64        # [B, 64, 64, H, K] f32: ~270 MB at B=8
+# the whole model in float32, the kernel against the chunked plain scan
+# (chunk min(512, 256) = 256: ~2 GB temporaries)
+RWKV_CHECK_BATCH, RWKV_CHECK_PROMPT = 4, 256
 
 
 def emit(phase: str, **fields) -> None:
@@ -475,11 +506,13 @@ def phase_attention(dev, cfg) -> list[dict]:
     return rows
 
 
-def phase_model_check(dev) -> dict:
+def phase_model_check(dev, arch: str, *, reduced: bool, batch: int,
+                      prompt: int, ref_impl: str, tweak=None) -> dict:
     """The whole model at its published widths in float32, one seed: the
     prefill and ``CHECK_STEPS`` teacher-forced decode steps through the
-    kernels (``attention_impl="kernel"``) and through the naive attention,
-    on the same weights and tokens.  Last-position logits of the real
+    kernels (``attention_impl="kernel"``) and through ``ref_impl`` (the
+    plain versions), on the same weights and tokens.  ``tweak(params, g)``
+    may redraw parameters first.  Last-position logits of the real
     vocabulary (the padded columns hold the mask value) must agree within
     ``LOGIT_RTOL`` of their max |logit| at each step and pick the same
     greedy token everywhere."""
@@ -488,18 +521,18 @@ def phase_model_check(dev) -> dict:
     from repro_torch.launch.serve import prepare
     from repro_torch.models.registry import build_model
     model, params, pb, _, g = prepare(
-        SERVE_ARCH, batch=CHECK_BATCH, prompt_len=CHECK_PROMPT,
-        gen=CHECK_STEPS, reduced=SERVE_REDUCED, param_dtype="float32",
-        device=dev)
+        arch, batch=batch, prompt_len=prompt, gen=CHECK_STEPS,
+        reduced=reduced, param_dtype="float32", device=dev)
+    if tweak is not None:
+        tweak(params, g)
     forced = torch.randint(0, model.cfg.vocab_size,
-                           (CHECK_BATCH, CHECK_STEPS), generator=g,
+                           (batch, CHECK_STEPS), generator=g,
                            device=dev, dtype=torch.int32)
 
     vocab = model.cfg.vocab_size
 
     def run(m):
-        cache = m.init_cache(CHECK_BATCH, CHECK_PROMPT + CHECK_STEPS,
-                             device=dev)
+        cache = m.init_cache(batch, prompt + CHECK_STEPS, device=dev)
         with torch.no_grad():
             logits, cache = m.prefill(params, pb, cache)
             out = [logits[:, -1, :vocab].float()]
@@ -512,15 +545,15 @@ def phase_model_check(dev) -> dict:
 
     t0 = time.monotonic()
     got = run(model)
-    naive = build_model(dataclasses.replace(model.cfg,
-                                            attention_impl="naive"))
-    want = run(naive)
+    want = run(build_model(dataclasses.replace(model.cfg,
+                                               attention_impl=ref_impl)))
     scale = want.abs().amax(-1)             # [B, steps]
     rel = float(((got - want).abs().amax(-1) / scale).max())
     max_abs = float((got - want).abs().max())
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
-    out = dict(dtype="float32", batch=CHECK_BATCH, prompt_len=CHECK_PROMPT,
-               steps=CHECK_STEPS, max_rel_err=rel, limit=LOGIT_RTOL,
+    out = dict(arch=arch, dtype="float32", reference=ref_impl, batch=batch,
+               prompt_len=prompt, steps=CHECK_STEPS, max_rel_err=rel,
+               limit=LOGIT_RTOL,
                max_abs_err=max_abs, max_abs_logit=float(scale.max()),
                greedy_identical=same, finite=bool(torch.isfinite(got).all()),
                seconds=time.monotonic() - t0)
@@ -531,35 +564,49 @@ def phase_model_check(dev) -> dict:
     return out
 
 
-def phase_serve_timed(dev) -> dict:
+def serve_kernels(arch: str, n_layers: int, gen: int) -> dict:
+    """The kernels the serving path of ``arch`` launches: name -> (the
+    wrapper that counts its launches, the launches one ``serve`` of
+    ``gen`` decode steps must make)."""
+    from repro_torch.configs import get_config
+    if get_config(arch).family == "ssm":
+        from repro_torch.kernels import linear_scan as LS
+        # every layer's time-mix, at prefill and at each decode step
+        return {"wkv_linear_scan": (LS.wkv_linear_scan,
+                                    n_layers * (1 + gen))}
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    return {"flash_attention": (FA.flash_attention, n_layers),
+            "decode_attention": (DA.decode_attention, n_layers * gen)}
+
+
+def phase_serve_timed(dev, arch: str, *, reduced: bool, batch: int,
+                      prompt: int, gen: int) -> dict:
     """``serve`` at the published widths in the config's bfloat16, after
     an untimed warm-up call at the same batch and prompt length (so the
     timed prefill meets a warm allocator and the GEMM shapes it has run
-    before), with both attention kernels' launches counted from zero just
+    before), with the path's kernels' launches counted from zero just
     before it."""
     import torch
     from repro_torch.configs import get_config
-    from repro_torch.kernels import decode_attention as DA
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.serve import serve
-    cfg = get_config(SERVE_ARCH)
-    n_layers = (cfg.reduced() if SERVE_REDUCED else cfg).num_layers
-    serve(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT, gen=2,
-          reduced=SERVE_REDUCED, device=dev)
+    cfg = get_config(arch)
+    n_layers = (cfg.reduced() if reduced else cfg).num_layers
+    kernels = serve_kernels(arch, n_layers, gen)
+    serve(arch, batch=batch, prompt_len=prompt, gen=2, reduced=reduced,
+          device=dev)
     torch.cuda.reset_peak_memory_stats()
-    FA.flash_attention.launches = 0
-    DA.decode_attention.launches = 0
+    for fn, _ in kernels.values():
+        fn.launches = 0
     t0 = time.monotonic()
-    out = serve(SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-                gen=SERVE_GEN, reduced=SERVE_REDUCED, device=dev)
+    out = serve(arch, batch=batch, prompt_len=prompt, gen=gen,
+                reduced=reduced, device=dev)
     seconds = time.monotonic() - t0
-    launches = {"flash_attention": FA.flash_attention.launches,
-                "decode_attention": DA.decode_attention.launches}
-    want = {"flash_attention": n_layers,
-            "decode_attention": n_layers * SERVE_GEN}
+    launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    want = {name: n for name, (_, n) in kernels.items()}
     toks = out["tokens"]
-    res = dict(seconds=seconds, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-               gen=SERVE_GEN, prefill_ms=out["prefill_s"] * 1e3,
+    res = dict(arch=arch, seconds=seconds, batch=batch, prompt_len=prompt,
+               gen=gen, prefill_ms=out["prefill_s"] * 1e3,
                decode_p50_ms=out["decode_p50_ms"],
                decode_p95_ms=out["decode_p95_ms"],
                tokens_per_s=out["tokens_per_s"], cache_len=out["cache_len"],
@@ -569,35 +616,24 @@ def phase_serve_timed(dev) -> dict:
                distinct_tokens=int(len(set(toks.ravel().tolist()))))
     if launches != want:
         raise AssertionError(f"serve launched {launches}, want {want}")
-    if toks.shape != (SERVE_BATCH, SERVE_GEN + 1) \
-            or out["cache_len"] != SERVE_PROMPT + SERVE_GEN:
+    if toks.shape != (batch, gen + 1) or out["cache_len"] != prompt + gen:
         raise AssertionError(f"serve returned tokens {toks.shape}, "
                              f"cache_len {out['cache_len']}")
     return res
 
 
-def phase_decode_trace(dev) -> dict:
-    """Device time per activity of one bfloat16 decode step at the serving
-    shape (cache at the prompt's length), traced with ``torch.profiler``,
-    beside the step's host-clock time."""
+def traced(fn, n_top: int) -> dict:
+    """One call of ``fn`` traced with ``torch.profiler``: its host-clock ms
+    (ending in a synchronise), the card's busy ms (``device_busy_s``) and
+    share of it, and device ms per activity name, the ``n_top`` largest."""
     import torch
-    from repro_torch.launch.serve import prepare
-    model, params, pb, cache, _ = prepare(
-        SERVE_ARCH, batch=SERVE_BATCH, prompt_len=SERVE_PROMPT,
-        gen=SERVE_GEN, reduced=SERVE_REDUCED, device=dev)
-    with torch.no_grad():
-        logits, cache = model.prefill(params, pb, cache)
-        tok = logits[:, -1].argmax(-1, keepdim=True).int()
-        for _ in range(3):                  # warm
-            logits, cache = model.decode_step(params, tok, cache)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        fn()
         torch.cuda.synchronize()
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.monotonic()
-            logits, cache = model.decode_step(params, tok, cache)
-            torch.cuda.synchronize()
-            step_ms = (time.monotonic() - t0) * 1e3
+        host_ms = (time.monotonic() - t0) * 1e3
     per = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
@@ -605,14 +641,44 @@ def phase_decode_trace(dev) -> dict:
             t[0] += 1
             t[1] += (e.end_ns() - e.start_ns()) / 1e6
     busy_s, n_act = device_busy_s(prof)
-    del model, params, cache
-    torch.cuda.empty_cache()
     top = sorted(per.items(), key=lambda kv: -kv[1][1])
-    return dict(step_ms_traced=step_ms, device_busy_ms=busy_s * 1e3,
+    return dict(ms_traced=host_ms, device_busy_ms=busy_s * 1e3,
+                device_busy_share=busy_s * 1e3 / host_ms,
                 device_activities=n_act,
                 device_ms_total=sum(ms for _, (_, ms) in top),
                 activities=[{"activity": k[:120], "count": c, "ms": ms}
-                            for k, (c, ms) in top[:25]])
+                            for k, (c, ms) in top[:n_top]])
+
+
+def phase_decode_trace(dev, arch: str, *, reduced: bool, batch: int,
+                       prompt: int, gen: int) -> dict:
+    """Device time per activity of the bfloat16 prefill at the serving
+    shape and of one decode step after it (cache at the prompt's length),
+    each traced with ``torch.profiler`` beside its host-clock time.  The
+    timed serve before it ran the same shapes in this process, so the
+    traced prefill meets warm GEMM plans."""
+    import torch
+    from repro_torch.launch.serve import prepare
+    model, params, pb, cache, _ = prepare(
+        arch, batch=batch, prompt_len=prompt, gen=gen, reduced=reduced,
+        device=dev)
+    out = {}
+    with torch.no_grad():
+        def prefill():
+            out["prefill"] = model.prefill(params, pb, cache)
+
+        torch.cuda.synchronize()
+        pre = traced(prefill, 12)
+        logits, cache = out["prefill"]
+        tok = logits[:, -1].argmax(-1, keepdim=True).int()
+        for _ in range(3):                  # warm
+            logits, cache = model.decode_step(params, tok, cache)
+        torch.cuda.synchronize()
+        step = traced(lambda: model.decode_step(params, tok, cache), 25)
+    del model, params, cache, out
+    torch.cuda.empty_cache()
+    return dict(arch=arch, step_ms_traced=step.pop("ms_traced"), **step,
+                prefill=pre)
 
 
 def phase_serve(dev) -> tuple[list[dict], dict]:
@@ -631,12 +697,191 @@ def phase_serve(dev) -> tuple[list[dict], dict]:
                                        and r["dtype"] == dt)
                       for k in ("flash_attention", "decode_attention")
                       for dt in ("float32", "bfloat16")})
-    emit("serve_check", **phase_model_check(dev))
-    timed = phase_serve_timed(dev)
+    emit("serve_check", **phase_model_check(
+        dev, SERVE_ARCH, reduced=SERVE_REDUCED, batch=CHECK_BATCH,
+        prompt=CHECK_PROMPT, ref_impl="naive"))
+    kw = dict(reduced=SERVE_REDUCED, batch=SERVE_BATCH, prompt=SERVE_PROMPT,
+              gen=SERVE_GEN)
+    timed = phase_serve_timed(dev, SERVE_ARCH, **kw)
     emit("serve", **timed)
     t0 = time.monotonic()
-    trace = phase_decode_trace(dev)
+    trace = phase_decode_trace(dev, SERVE_ARCH, **kw)
     emit("serve_trace", seconds=time.monotonic() - t0, **trace)
+    torch.cuda.empty_cache()
+    return rows, timed
+
+
+def wkv_bound_ms(dtype, b: int, s: int, h: int, kd: int) -> tuple[float, str]:
+    """Least time of one wkv scan on the card from an incoming state (as
+    the model calls it): r, k, v (the inputs' type), logw, u and the state
+    (float32) read once, y (the inputs' type) and the final state
+    (float32) written once,
+    over the memory rate; against 4 FLOP per (b, t, h, k, v) -- the y
+    contraction and the state update -- over the peak rate of the inputs'
+    type (bf16 tensor cores; float32 outside them), as ``attn_bound_ms``
+    counts."""
+    import torch
+    esz = torch.finfo(dtype).bits // 8
+    n = b * s * h * kd
+    state = b * h * kd * kd * 4
+    nbytes = 4 * n * esz + 4 * n + 4 * h * kd + 2 * state
+    flops = 4.0 * n * kd
+    peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else F32_FLOP_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / peak * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def plain_chunk(s: int) -> int:
+    """The largest chunk <= ``WKV_PLAIN_CHUNK`` that divides ``s`` (the
+    plain version's rule; the kernel takes any length)."""
+    return max(c for c in range(1, WKV_PLAIN_CHUNK + 1) if s % c == 0)
+
+
+def phase_wkv_kernels(dev, cfg) -> list[dict]:
+    """The wkv scan kernel against ``wkv_plain`` at ``WKV_SHAPES`` (H and K
+    of ``cfg``), float32 and bfloat16 r/k/v, on seeded inputs: r, k, v, u
+    unit normal, ``logw = -exp(N(0, 1) - 1)``, state0 zero or unit
+    normal.  Errors on y and on the final state as a share of the plain
+    result's max |.|, against ``WKV_TOL``.  The serve's prefill (random
+    state: the model always passes its state) and decode shapes are timed
+    beside the plain version and the bound: the kernel's device time
+    behind a spin kernel (``device_ms``); the plain version's the same way
+    at decode and with CUDA events per call at prefill, where its ~16
+    chunks of einsums keep the card busy far longer than the host takes to
+    queue them.  No PyTorch call computes this function, so there is no
+    library time."""
+    import torch
+    from repro_torch.kernels import linear_scan as LS
+    h, kd = cfg.num_heads, cfg.head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).removeprefix("torch.")
+        for b, s, with_state in WKV_SHAPES:
+            r, k, v, lw = (torch.randn((b, s, h, kd), generator=g,
+                                       device=dev) for _ in range(4))
+            r, k, v = r.to(dtype), k.to(dtype), v.to(dtype)
+            logw = -torch.exp(lw - 1.0)
+            u = torch.randn((h, kd), generator=g, device=dev)
+            s0 = (torch.randn((b, h, kd, kd), generator=g, device=dev)
+                  if with_state else None)
+            chunk = plain_chunk(s)
+            y, st = LS.wkv_linear_scan(r, k, v, logw, u, state0=s0)
+            yw, stw = LS.wkv_plain(r, k, v, logw, u, state0=s0, chunk=chunk)
+            torch.cuda.synchronize()
+            y_abs = float((y.float() - yw.float()).abs().max())
+            y_rel = y_abs / float(yw.float().abs().max())
+            st_rel = float((st - stw).abs().max() / stw.abs().max())
+            row = dict(kernel="wkv_linear_scan", dtype=name, b=b, s=s,
+                       state0="random" if with_state else "zero",
+                       shape=f"B={b} S={s} H={h} K={kd} state0="
+                             f"{'random' if with_state else 'zero'}",
+                       plain_chunk=chunk, max_abs_err=y_abs,
+                       max_rel_err=y_rel, state_max_rel_err=st_rel)
+            del y, st, yw, stw
+            if with_state and (b, s) in ((RWKV_BATCH, RWKV_PROMPT),
+                                         (RWKV_BATCH, 1)):
+                ms, hidden = device_ms(lambda: LS.wkv_linear_scan(
+                    r, k, v, logw, u, state0=s0), ATTN_REPS)
+                if not hidden:
+                    raise AssertionError("wkv ms: the host outlasted the "
+                                         "spin")
+
+                def plain():
+                    return LS.wkv_plain(r, k, v, logw, u, state0=s0,
+                                        chunk=chunk)
+
+                if s == 1:
+                    plain_ms, hidden = device_ms(plain, ATTN_REPS)
+                    if not hidden:
+                        raise AssertionError("wkv plain_ms: the host "
+                                             "outlasted the spin")
+                else:
+                    plain_ms = cuda_ms(plain, REPS)
+                b_ms, b_by = wkv_bound_ms(dtype, b, s, h, kd)
+                row.update(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                           bound_by=b_by, library_ms=None,
+                           call_ms=cuda_ms(lambda: LS.wkv_linear_scan(
+                               r, k, v, logw, u, state0=s0), REPS))
+            print(json.dumps({"wkv": row}), flush=True)
+            if not (y_rel <= WKV_TOL[name]
+                    and st_rel <= WKV_TOL["state"]):
+                raise AssertionError(f"wkv_linear_scan {name} "
+                                     f"{row['shape']}: y {y_rel}, state "
+                                     f"{st_rel} of max, limits "
+                                     f"{WKV_TOL[name]}, {WKV_TOL['state']}")
+            rows.append(row)
+            del r, k, v, lw, logw, u, s0
+    torch.cuda.empty_cache()
+    return rows
+
+
+def rwkv_tweak(params: dict, g) -> None:
+    """Redraw the two RWKV-6 parameters the random init leaves idle (the
+    bonus ``u`` starts at zero, the decay base ``w0`` at a constant -6):
+    u = 0.5 * N(0, 1), w0 ~ U(-4, 0), so the full-width check exercises
+    the bonus term and decays from ~0.98 to ~0.37."""
+    import torch
+    lay = params["layers"]
+    lay["u"] = 0.5 * torch.randn(lay["u"].shape, generator=g,
+                                 device=lay["u"].device)
+    lay["w0"] = -4.0 * torch.rand(lay["w0"].shape, generator=g,
+                                  device=lay["w0"].device)
+
+
+def wkv_kernel_row(rows: list[dict], timed: dict) -> dict:
+    """The ``kernels`` line's row of the wkv scan: launches from the timed
+    serve, the worst errors of the checks, and the times at the serve's
+    prefill shape in bfloat16 (``decode_*``: one decode step's)."""
+    pre, dec = (next(r for r in rows if r["dtype"] == "bfloat16"
+                     and "ms" in r and r["s"] == s)
+                for s in (RWKV_PROMPT, 1))
+    return {
+        "name": "wkv_linear_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv_linear_scan.cu",
+        "replaces": "src/repro/kernels/linear_scan.py:73",
+        "launches": timed["launches"]["wkv_linear_scan"],
+        "max_abs_err": max(r["max_abs_err"] for r in rows
+                           if r["dtype"] == "bfloat16"),
+        "max_abs_err_float32": max(r["max_abs_err"] for r in rows
+                                   if r["dtype"] == "float32"),
+        "max_rel_err": max(r["max_rel_err"] for r in rows),
+        **{k: pre[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                               "library_ms")},
+        **{f"decode_{k}": dec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by")},
+        "shape": pre["shape"] + " bfloat16 (the serve's prefill); decode_*: "
+                 + dec["shape"] + " bfloat16 (one decode step)"}
+
+
+def phase_serve_rwkv(dev) -> tuple[list[dict], dict]:
+    """The serve_rwkv phase's four steps; returns (wkv rows, timed serve)
+    and emits one line per step."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(RWKV_ARCH)
+    if RWKV_REDUCED:
+        cfg = cfg.reduced()
+    t0 = time.monotonic()
+    rows = phase_wkv_kernels(dev, cfg)
+    emit("rwkv_kernels", seconds=time.monotonic() - t0, cases=len(rows),
+         max_rel_err={dt: max(r["max_rel_err"] for r in rows
+                              if r["dtype"] == dt)
+                      for dt in ("float32", "bfloat16")},
+         state_max_rel_err=max(r["state_max_rel_err"] for r in rows),
+         limits=WKV_TOL)
+    emit("rwkv_check", **phase_model_check(
+        dev, RWKV_ARCH, reduced=RWKV_REDUCED, batch=RWKV_CHECK_BATCH,
+        prompt=RWKV_CHECK_PROMPT, ref_impl="chunked", tweak=rwkv_tweak))
+    kw = dict(reduced=RWKV_REDUCED, batch=RWKV_BATCH, prompt=RWKV_PROMPT,
+              gen=RWKV_GEN)
+    timed = phase_serve_timed(dev, RWKV_ARCH, **kw)
+    emit("serve_rwkv", **timed)
+    t0 = time.monotonic()
+    trace = phase_decode_trace(dev, RWKV_ARCH, **kw)
+    emit("serve_rwkv_trace", seconds=time.monotonic() - t0, **trace)
     torch.cuda.empty_cache()
     return rows, timed
 
@@ -672,8 +917,9 @@ def run(dev) -> None:
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import frame_knobs as FK
+    from repro_torch.kernels import linear_scan as LS
     paths = build.build()
-    for mod in (FK, FA, DA):
+    for mod in (FK, FA, DA, LS):
         mod._load_lib()
     ptxas = [ln.strip() for pth in paths.values()
              for ln in Path(str(pth) + ".log").read_text().splitlines()
@@ -870,6 +1116,8 @@ def run(dev) -> None:
 
     # -- the serving path: qwen3-1.7b at its published widths ---------------
     attn_rows, timed = phase_serve(dev)
+    # -- the SSM family's serving path: rwkv6-1.6b at its published widths --
+    wkv_kernel = wkv_kernel_row(*phase_serve_rwkv(dev))
     serve_kernels = []
     for name, src, replaces, pick in (
             ("flash_attention", "flash_attention.cu",
@@ -903,7 +1151,7 @@ def run(dev) -> None:
     print(json.dumps({"kernels": [{
         "name": "frame_knob_grid", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/frame_knob_grid.cu",
-        "replaces": "src/repro/kernels/frame_knobs.py:364",
+        "replaces": "src/repro/kernels/frame_knobs.py:438",
         "launches": main_launches, "max_abs_err": worst[0],
         "mismatch_fraction": worst[1],
         "ms": sum(r["ms"] for r in main),
@@ -916,7 +1164,7 @@ def run(dev) -> None:
                  f"groups x 16 frames (characterize) + 15 groups x 32 "
                  f"frames (re-sweep); largest group "
                  f"{big['ms']:.3f} ms vs bound {big['bound_ms']:.3f} ms"},
-        *serve_kernels]}), flush=True)
+        *serve_kernels, wkv_kernel]}), flush=True)
 
 
 if __name__ == "__main__":

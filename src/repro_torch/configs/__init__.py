@@ -3,19 +3,20 @@ model architectures the port serves so far (``get_config``)."""
 
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_1_7b
+from repro_torch.configs import qwen3_1_7b, rwkv6_1_6b
 from repro_torch.configs.base import ModelConfig, dtype_of
 
 __all__ = ["ARCHS", "PENDING_ARCHS", "get_config", "ModelConfig", "dtype_of"]
 
 ARCHS: dict[str, ModelConfig] = {
     "qwen3-1.7b": qwen3_1_7b.CONFIG,
+    "rwkv6-1.6b": rwkv6_1_6b.CONFIG,
 }
 
 # The JAX package's other architectures: their families are not ported yet.
 PENDING_ARCHS = ("zamba2-7b", "phi3-medium-14b", "internlm2-1.8b",
                  "llama3-8b", "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b",
-                 "rwkv6-1.6b", "qwen2-vl-72b", "seamless-m4t-large-v2")
+                 "qwen2-vl-72b", "seamless-m4t-large-v2")
 
 
 def get_config(arch: str) -> ModelConfig:

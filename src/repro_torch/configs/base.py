@@ -1,15 +1,17 @@
-"""Model configuration of the port: the fields the dense serving path reads.
+"""Model configuration of the port: the fields the serving paths read.
 
 A copy of ``ModelConfig`` from the JAX package's ``configs/base.py``, cut to
-what the dense family (embedding, GQA attention with RoPE and qk-norm,
-SwiGLU/GELU FFN, tied or separate head) and its serving loop read.  The
-fields of the other families (MoE, SSM, hybrid, enc-dec) come with their
-ports (ROADMAP Queue 1 item 11); ``family`` and ``mrope_sections`` stay so
-the model can refuse what it lacks.  ``ShapeCell``
-and ``SHAPE_CELLS`` wait for the dry-run's port.
+what the ported families and their serving loop read: the dense family
+(embedding, GQA attention with RoPE and qk-norm, SwiGLU/GELU FFN, tied or
+separate head) and the SSM family (RWKV-6: the two LoRA ranks).  The
+fields of the other families (MoE, hybrid, enc-dec) come with their ports
+(ROADMAP Queue 1 item 11); ``family`` and ``mrope_sections`` stay so the
+model can refuse what it lacks.  ``ShapeCell`` and ``SHAPE_CELLS`` wait for
+the dry-run's port.
 
 ``attention_impl`` takes ``"naive" | "chunked" | "kernel"``: ``"kernel"``
-is the port's hand-written CUDA attention, which takes the place of the JAX
+is the port's hand-written CUDA kernels (attention for the dense family,
+the wkv scan for the SSM family), which take the place of the JAX
 package's Pallas kernels, so the JAX value ``"pallas"`` converts to it.
 """
 
@@ -51,11 +53,15 @@ class ModelConfig:
     attention_impl: str = "chunked"  # naive | chunked | kernel
     attention_chunk: int = 512
 
+    # RWKV6
+    rwkv_decay_lora: int = 64        # rank of the data-dependent decay MLP
+    rwkv_mix_lora: int = 32          # rank of the token-shift mix MLPs
+
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
     norm_type: str = "rms"           # rms | layer
-    act: str = "swiglu"              # swiglu | gelu
+    act: str = "swiglu"              # swiglu | gelu | relu_sq
     tie_embeddings: bool = False
 
     def __post_init__(self):
@@ -93,6 +99,8 @@ class ModelConfig:
             head_dim=16,
             d_ff=96,
             vocab_size=512,
+            rwkv_decay_lora=8,
+            rwkv_mix_lora=4,
             attention_chunk=32,
             param_dtype="float32",
             compute_dtype="float32",

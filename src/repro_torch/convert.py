@@ -5,8 +5,10 @@ characterization tables (with their wire-size proxy), the latency regression
 and padded controller tables, so both packages can run the loop from one
 and the same characterization.  For the model zoo: a model's parameter tree
 (``model_params_from_numpy``), so both packages can serve with the same
-weights.  Each function takes plain NumPy arrays and Python scalars --
-nothing of the JAX package is imported -- and returns the port's object.
+weights, and an RWKV recurrent state (``rwkv_state_from_numpy``), so both
+can decode from the same state.  Each function takes plain NumPy arrays
+and Python scalars -- nothing of the JAX package is imported -- and
+returns the port's object.
 """
 
 from __future__ import annotations
@@ -21,10 +23,12 @@ from repro_torch.core.grid_engine import WireSizeProxy
 from repro_torch.core.knobs import KnobSetting
 from repro_torch.device import resolve_device
 from repro_torch.kernels.frame_knobs import TransformPlan
-from repro_torch.models import transformer
+from repro_torch.models.registry import build_model
+from repro_torch.models.rwkv6 import RWKVState
 
 __all__ = ["plan_from_numpy", "table_from_numpy", "regression_from_numpy",
-           "controller_tables_from_numpy", "model_params_from_numpy"]
+           "controller_tables_from_numpy", "model_params_from_numpy",
+           "rwkv_state_from_numpy"]
 
 
 def plan_from_numpy(*, cs, scale, blur_ks, art_modes, in_h, in_w, packed_h,
@@ -121,8 +125,8 @@ def model_params_from_numpy(cfg, tree: dict, *,
     Both packages keep one layout: stacked ``[L, ...]`` layers, projections
     as ``[d_in, d_out]`` (``y = x @ W``), the embedding ``[V, D]`` that a
     tied head reads as ``embed.T``.  So every leaf crosses as it is, with
-    no transpose; its key set and shape are checked against
-    ``transformer.param_shapes(cfg)`` and anything else raises
+    no transpose; its key set and shape are checked against the family
+    module's ``param_shapes(cfg)`` and anything else raises
     ``ValueError``.  Dtypes are kept.  ``device`` defaults to ``"cuda"``."""
     dev = resolve_device(device)
 
@@ -141,4 +145,25 @@ def model_params_from_numpy(cfg, tree: dict, *,
             out[k] = _tensor_from_numpy(a, device=dev)
         return out
 
-    return walk(transformer.param_shapes(cfg), tree, "")
+    return walk(build_model(cfg).module.param_shapes(cfg), tree, "")
+
+
+def rwkv_state_from_numpy(*, wkv, shift_tm, shift_cm, length,
+                          device: "str | torch.device | None" = None
+                          ) -> RWKVState:
+    """The port's ``RWKVState`` from the fields of a JAX ``RWKVState`` as
+    NumPy arrays: ``wkv`` ``[L, B, H, K, K]``, the two shifts ``[L, B, D]``
+    (dtypes kept: float32 before a prefill, the compute dtype after) and
+    ``length`` (a scalar array or int, kept on the host).  ``device``
+    defaults to ``"cuda"``."""
+    dev = resolve_device(device)
+    wkv = _tensor_from_numpy(wkv, device=dev)
+    tm = _tensor_from_numpy(shift_tm, device=dev)
+    cm = _tensor_from_numpy(shift_cm, device=dev)
+    if wkv.dim() != 5 or tm.shape != cm.shape \
+            or tuple(tm.shape) != tuple(wkv.shape[:2]) + (tm.shape[-1],):
+        raise ValueError(f"RWKVState: wkv [L,B,H,K,K] and shifts [L,B,D] "
+                         f"expected, got {tuple(wkv.shape)}, "
+                         f"{tuple(tm.shape)}, {tuple(cm.shape)}")
+    return RWKVState(wkv=wkv.float(), shift_tm=tm, shift_cm=cm,
+                     length=int(length))

@@ -1,12 +1,15 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens
-against a preallocated KV cache.
+against the model's cache (a preallocated KV cache for the dense family,
+the recurrent state for the SSM family).
 
 The port of the JAX package's ``launch/serve.py``: the same loop (prefill
 once, then ``gen`` decode steps for the whole batch, greedy or sampled),
 the same cache size (``prompt_len + gen + DECODE_SLACK``) and the same
 returned dict.  On a CUDA device the model runs with
-``attention_impl="kernel"``: prefill goes through the hand-written flash
-attention kernel and every decode step through the decode kernel.  Times
+``attention_impl="kernel"``: for the dense family prefill goes through the
+hand-written flash attention kernel and every decode step through the
+decode kernel; for the SSM family (``rwkv6-1.6b``) every layer's time-mix,
+at prefill and at each decode step, goes through the wkv scan kernel.  Times
 end in ``torch.cuda.synchronize()`` on the card, so they cover the device
 work and not only its enqueueing; as in the JAX package, a decode step's
 time is the step alone, and the token pick after it is outside the span.
@@ -15,6 +18,8 @@ Usage (on the card; add ``--device cpu`` to run the reduced config on the
 CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b \
       --batch 4 --prompt-len 64 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+      --device cpu
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import (DECODE_SLACK, Model, build_model,
                                          make_batch)
+from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.models.transformer import KVCache
 
 __all__ = ["serve", "prepare", "generate"]
@@ -45,9 +51,11 @@ def prepare(arch: str, *, batch: int = 4, prompt_len: int = 64,
             attention_impl: str | None = None,
             param_dtype: str | None = None,
             device: "str | torch.device | None" = None
-            ) -> tuple[Model, dict, dict, KVCache, torch.Generator]:
+            ) -> tuple[Model, dict, dict, "KVCache | RWKVState",
+                       torch.Generator]:
     """The model, random parameters, a random prompt batch and an empty
-    cache of ``prompt_len + gen + DECODE_SLACK`` rows, all drawn from one
+    cache of ``prompt_len + gen + DECODE_SLACK`` rows (the SSM family's
+    state has no rows and ignores the length), all drawn from one
     generator seeded with ``seed`` on the device (returned for sampling).
 
     ``attention_impl`` defaults to ``"kernel"`` on CUDA and to the config's
@@ -74,7 +82,8 @@ def prepare(arch: str, *, batch: int = 4, prompt_len: int = 64,
 
 
 @torch.no_grad()
-def generate(model: Model, params: dict, batch: dict, cache: KVCache, *,
+def generate(model: Model, params: dict, batch: dict,
+             cache: "KVCache | RWKVState", *,
              gen: int, temperature: float = 0.0,
              generator: torch.Generator | None = None) -> dict:
     """Prefill ``batch`` into ``cache``, then ``gen`` decode steps, greedy

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 __all__ = ["rms_norm", "layer_norm", "init_norm", "init_linear", "swiglu",
            "gelu_mlp", "rope", "apply_rope", "mask_padded_vocab",
-           "NEG_INF"]
+           "layer_params", "NEG_INF"]
 
 NEG_INF = -2.3819763e38  # large finite negative, bf16-safe (the JAX value)
 
@@ -135,6 +135,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # -----------------------------------------------------------------------------
 # Utilities
 # -----------------------------------------------------------------------------
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` tensors
+    of ``params["layers"]`` (one level of nested dicts, as the norms')."""
+    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
+                else v[i]) for k, v in params["layers"].items()}
 
 
 def mask_padded_vocab(logits: torch.Tensor, real_vocab: int) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Architecture registry: family -> model module, and random batches.
 
 The port of the JAX package's ``models/registry.py`` for the families the
-port has (dense).  ``Model`` is the uniform facade over the family module
-(``init_params``, ``forward``, ``init_cache``, ``prefill``,
+port has (dense, ssm).  ``Model`` is the uniform facade over the family
+module (``init_params``, ``forward``, ``init_cache``, ``prefill``,
 ``decode_step``); ``make_batch`` draws random token batches from a
 ``torch.Generator``.  ``input_specs`` / ``cache_spec`` wait for the
 dry-run's port.
@@ -17,7 +17,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import rwkv6, transformer
 
 __all__ = ["Model", "build_model", "make_batch", "DECODE_SLACK"]
 
@@ -28,6 +28,7 @@ DECODE_SLACK = 256
 
 _FAMILY_MODULES: dict[str, ModuleType] = {
     "dense": transformer,
+    "ssm": rwkv6,
 }
 
 
@@ -54,20 +55,22 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model facade of ``cfg``'s family; families the port lacks raise
+    """The model facade of ``cfg``'s family; families the port lacks, and
+    what the family's module lacks (its ``check_supported``), raise
     ``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
     if cfg.family not in _FAMILY_MODULES:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
             f"11)")
-    transformer.check_supported(cfg)
-    return Model(cfg=cfg, module=_FAMILY_MODULES[cfg.family])
+    module = _FAMILY_MODULES[cfg.family]
+    module.check_supported(cfg)
+    return Model(cfg=cfg, module=module)
 
 
 def make_batch(cfg: ModelConfig, b: int, s: int, *,
                generator: torch.Generator,
                device: "torch.device | str | None" = None) -> dict:
-    """A random prompt batch of the dense family: ``tokens`` i32 ``[b, s]``
+    """A random prompt batch: ``tokens`` i32 ``[b, s]``
     in ``[0, vocab_size)``, drawn from ``generator`` on ``device`` (default
     ``"cuda"``).  Training batches (``labels``) wait for the training
     port."""

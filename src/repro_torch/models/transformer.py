@@ -36,8 +36,9 @@ from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import decode_attention, gqa_attention
 from repro_torch.models.layers import (apply_rope, gelu_mlp, init_linear,
-                                       layer_norm, mask_padded_vocab,
-                                       rms_norm, rope, swiglu)
+                                       layer_norm, layer_params,
+                                       mask_padded_vocab, rms_norm, rope,
+                                       swiglu)
 
 __all__ = ["init_params", "param_shapes", "forward", "init_cache", "prefill",
            "decode_step", "KVCache", "attention_block", "check_supported"]
@@ -48,7 +49,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
-            f"11); the port serves the dense family")
+            f"11); models.transformer serves the dense family")
     if cfg.mrope_sections is not None:
         raise NotImplementedError(
             "M-RoPE waits for the VLM family (ROADMAP Queue 1 item 11)")
@@ -127,12 +128,6 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
 # -----------------------------------------------------------------------------
 # blocks
 # -----------------------------------------------------------------------------
-
-
-def _layer(params: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked tensors."""
-    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
-                else v[i]) for k, v in params["layers"].items()}
 
 
 def _norm(x, p, cfg):
@@ -226,7 +221,7 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     cos, sin = rope(_positions(batch, s, b, h.device), cfg.head_dim,
                     theta=cfg.rope_theta)
     for i in range(cfg.num_layers):
-        h = _block(_layer(params, i), h, cfg, cos, sin)
+        h = _block(layer_params(params, i), h, cfg, cos, sin)
     return _logits(params, h, cfg)
 
 
@@ -265,7 +260,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: KVCache
     cos, sin = rope(_positions(batch, s, b, h.device), cfg.head_dim,
                     theta=cfg.rope_theta)
     for i in range(cfg.num_layers):
-        p = _layer(params, i)
+        p = layer_params(params, i)
         attn_in = _norm(h, p["attn_norm"], cfg)
         q, k, v = _qkv(p, attn_in, cfg, cos, sin)
         cache.k[i, :, :s] = k.to(cache.k.dtype)
@@ -290,7 +285,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     pos = torch.full((b, s), cache.length, device=h.device)
     cos, sin = rope(pos, cfg.head_dim, theta=cfg.rope_theta)
     for i in range(cfg.num_layers):
-        h = _block(_layer(params, i), h, cfg, cos, sin,
+        h = _block(layer_params(params, i), h, cfg, cos, sin,
                    cache=(cache.k[i], cache.v[i], cache.length))
     logits = _logits(params, h, cfg)
     return logits, KVCache(k=cache.k, v=cache.v, length=cache.length + s)

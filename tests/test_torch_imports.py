@@ -24,7 +24,9 @@ from repro_torch.core.broker import MezSystem  # noqa: E402
 from repro_torch.core.channel import calibrated_channel  # noqa: E402
 from repro_torch.data.camera import CameraConfig, SyntheticCamera  # noqa: E402
 from repro_torch.kernels import frame_knobs as FK  # noqa: E402
+from repro_torch.kernels import linear_scan as LS  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import rwkv6 as TR  # noqa: E402
 from repro_torch.models.registry import build_model, make_batch  # noqa: E402
 from repro_torch.models.transformer import param_shapes  # noqa: E402
 
@@ -99,6 +101,15 @@ ENTRY_POINTS = {
     "model_params_from_numpy": lambda: convert.model_params_from_numpy(
         get_config("qwen3-1.7b").reduced(), _zeros_tree(param_shapes(
             get_config("qwen3-1.7b").reduced()))),
+    "serve rwkv6": lambda: serve("rwkv6-1.6b", batch=1, prompt_len=4, gen=1),
+    "rwkv6.init_params": lambda: TR.init_params(
+        torch.Generator(), get_config("rwkv6-1.6b").reduced()),
+    "rwkv6.init_cache": lambda: TR.init_cache(
+        get_config("rwkv6-1.6b").reduced(), 1, 4),
+    "rwkv_state_from_numpy": lambda: convert.rwkv_state_from_numpy(
+        wkv=np.zeros((2, 1, 4, 16, 16), np.float32),
+        shift_tm=np.zeros((2, 1, 64), np.float32),
+        shift_cm=np.zeros((2, 1, 64), np.float32), length=0),
 }
 
 
@@ -116,6 +127,20 @@ def test_entry_points_need_cuda_or_an_explicit_cpu(no_cuda, name):
 def test_serve_runs_on_the_cpu_when_asked():
     out = serve("qwen3-1.7b", batch=2, prompt_len=6, gen=2, device="cpu")
     assert out["tokens"].shape == (2, 3) and out["cache_len"] == 8
+
+
+def test_rwkv_serve_runs_on_the_cpu_when_asked():
+    out = serve("rwkv6-1.6b", batch=2, prompt_len=6, gen=2, device="cpu")
+    assert out["tokens"].shape == (2, 3) and out["cache_len"] == 8
+
+
+def test_wkv_kernel_route_raises_off_cpu_and_cuda():
+    """A tensor on neither the CPU nor a CUDA device never takes the plain
+    route under ``impl="kernel"``: the wrapper raises."""
+    x = torch.zeros((1, 1, 1, 16), device="meta")
+    with pytest.raises(RuntimeError, match="one CUDA device"):
+        LS.wkv(x, x, x, x, torch.zeros((1, 16), device="meta"),
+               impl="kernel")
 
 
 def test_mesh_is_not_ported():

@@ -274,7 +274,7 @@ def test_padded_vocab_never_wins(port_model):
     assert (logits[..., 500:] == TL.NEG_INF).all()
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "ssm"])
+@pytest.mark.parametrize("family", ["moe", "vlm", "hybrid"])
 def test_other_families_raise(family):
     cfg = dataclasses.replace(port_cfg("naive"), family=family)
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
@@ -304,7 +304,7 @@ def test_config_matches_jax_published_widths():
         == "kernel"
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "rwkv6-1.6b",
+@pytest.mark.parametrize("arch", ["llama3-8b", "zamba2-7b",
                                   "phi3.5-moe-42b-a6.6b"])
 def test_unported_archs_raise(arch):
     with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
