@@ -50,7 +50,30 @@ each, with their wall seconds:
                 steps), the timed ``serve(batch=8, prompt_len=1024,
                 gen=256)`` in bfloat16 with the kernel's launches counted
                 (one per layer per prefill and per decode step), and one
-                traced decode step.
+                traced decode step;
+  quant_kernels the approximate collective's quantize and dequantize
+                kernels against their plain versions, bit for bit, at every
+                gradient leaf shape of the full-width ``qwen3-1.7b`` step
+                (float32 and bfloat16, bits 8 and 4) and on edge cases (an
+                all-zero tile, .5 ties, +-absmax), timed for the largest
+                leaf and for the step's 13 + 13 launches beside the bound;
+  train_check   one full-width bfloat16 step's gradients, computed once,
+                then the rest of the step twice from the same parameters
+                and optimizer state -- the round trip through the kernels
+                and through the plain versions: the compressed gradients
+                and every new parameter must be bitwise identical;
+  train         ``train("qwen3-1.7b", reduced=False, steps=10, batch=8,
+                seq=4096, grad_bits=8, checkpoint_every=4,
+                inject_failure_at=6)``: step times, tokens/s, peak memory,
+                the losses (finite), the recovery from step 4's checkpoint
+                and the kernels' launches (13 + 13 per executed step);
+  train_trace   one traced full-width training step: the card's busy
+                share, the top activities and the two kernels' share;
+  collective    ``compressed_mean`` on a one-rank NCCL group over the
+                largest gradient leaf (bitwise the plain round trip at
+                bits 8 and 4, the exact mean at 16), and the
+                ``CollectiveController`` over a 60-step contention sequence
+                with decisions identical to the host ``LatencyController``.
 
 Then a ``kernels`` line (every kernel: launches on its main path, error
 against its plain version, its time beside its bound, the plain version's
@@ -63,6 +86,7 @@ line; without a CUDA device, or outside a checkout, it exits 2.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -133,6 +157,18 @@ WKV_PLAIN_CHUNK = 64        # [B, 64, 64, H, K] f32: ~270 MB at B=8
 # the whole model in float32, the kernel against the chunked plain scan
 # (chunk min(512, 256) = 256: ~2 GB temporaries)
 RWKV_CHECK_BATCH, RWKV_CHECK_PROMPT = 4, 256
+
+# -- the training phases ------------------------------------------------------
+TRAIN_ARCH = "qwen3-1.7b"
+TRAIN_REDUCED = False       # the published widths (a CPU rehearsal: True)
+# the JAX package's train_4k cell (configs/base.py: seq 4096, global batch
+# 256), its batch cut to 8 for one card; 4 microbatches of 2 (the config's)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_BITS = 8, 4096, 10, 8
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 6
+CHECK_SEQ = 1024            # train_check: the leaves' shapes at any length
+GRAD_MIN_SIZE = 1024        # launch/train.py's make_grad_compressor(min_size)
+QUANT_BLOCK = (256, 512)
+COLLECTIVE_STEPS = 60       # tests/test_runtime.py's contention sequence
 
 
 def emit(phase: str, **fields) -> None:
@@ -622,10 +658,12 @@ def phase_serve_timed(dev, arch: str, *, reduced: bool, batch: int,
     return res
 
 
-def traced(fn, n_top: int) -> dict:
+def traced(fn, n_top: int, kernels: tuple[str, ...] = ()) -> dict:
     """One call of ``fn`` traced with ``torch.profiler``: its host-clock ms
     (ending in a synchronise), the card's busy ms (``device_busy_s``) and
-    share of it, and device ms per activity name, the ``n_top`` largest."""
+    share of it, and device ms per activity name, the ``n_top`` largest;
+    ``kernel_ms``: the device ms and count of the activities whose name
+    holds each of ``kernels`` as a whole word."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -642,12 +680,18 @@ def traced(fn, n_top: int) -> dict:
             t[1] += (e.end_ns() - e.start_ns()) / 1e6
     busy_s, n_act = device_busy_s(prof)
     top = sorted(per.items(), key=lambda kv: -kv[1][1])
-    return dict(ms_traced=host_ms, device_busy_ms=busy_s * 1e3,
-                device_busy_share=busy_s * 1e3 / host_ms,
-                device_activities=n_act,
-                device_ms_total=sum(ms for _, (_, ms) in top),
-                activities=[{"activity": k[:120], "count": c, "ms": ms}
-                            for k, (c, ms) in top[:n_top]])
+    out = dict(ms_traced=host_ms, device_busy_ms=busy_s * 1e3,
+               device_busy_share=busy_s * 1e3 / host_ms,
+               device_activities=n_act,
+               device_ms_total=sum(ms for _, (_, ms) in top),
+               activities=[{"activity": k[:120], "count": c, "ms": ms}
+                           for k, (c, ms) in top[:n_top]])
+    for name in kernels:
+        # a whole word: "quantize_tiles" is not "dequantize_tiles"
+        hits = [v for k, v in top if re.search(rf"\b{name}\b", k)]
+        out.setdefault("kernel_ms", {})[name] = {
+            "count": sum(c for c, _ in hits), "ms": sum(ms for _, ms in hits)}
+    return out
 
 
 def phase_decode_trace(dev, arch: str, *, reduced: bool, batch: int,
@@ -885,6 +929,483 @@ def phase_serve_rwkv(dev) -> tuple[list[dict], dict]:
     torch.cuda.empty_cache()
     return rows, timed
 
+def grad_leaves(cfg) -> list[tuple[str, tuple[int, int], int]]:
+    """The gradient leaves the step's hook quantizes (at least
+    ``GRAD_MIN_SIZE`` elements): (key, the padded 2-D shape
+    ``approx_comm._pad_2d`` gives it, its element count)."""
+    import math
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.tree import tree_items
+    tile = QUANT_BLOCK[0] * QUANT_BLOCK[1]
+    out = []
+    for key, shape in tree_items(param_shapes(cfg)):
+        n = math.prod(shape)
+        if n >= GRAD_MIN_SIZE:
+            rows = -(-n // tile) * QUANT_BLOCK[0]
+            out.append((key, (rows, QUANT_BLOCK[1]), n))
+    return out
+
+
+def quant_bound_ms(dtype, rows: int, cols: int) -> tuple[float, str]:
+    """Least time of one quantize or dequantize call on the card: the input
+    read once and the output written once (``x`` in ``dtype``, q one byte,
+    one float32 scale per tile: the same bytes either way) over the memory
+    rate, against 4 float32 operations per element (a compare, a divide, a
+    round, a clip) over the float32 rate."""
+    import torch
+    n = rows * cols
+    esz = torch.finfo(dtype).bits // 8
+    tiles = (rows // min(QUANT_BLOCK[0], rows)) * (
+        cols // min(QUANT_BLOCK[1], cols))
+    nbytes = n * esz + n + 4 * tiles
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 4.0 * n / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def quant_input(dev, g, rows: int, cols: int, dtype):
+    """Gradient-like ``[rows, cols]``: unit normal times one scale per
+    256-row band, from 1e-8 to 1e4."""
+    import torch
+    bands = max(1, rows // QUANT_BLOCK[0])
+    x = torch.randn((bands, rows // bands, cols), generator=g, device=dev)
+    x *= 10.0 ** (torch.rand((bands, 1, 1), generator=g, device=dev) * 12
+                  - 8)
+    return x.reshape(rows, cols).to(dtype)
+
+
+def quant_edge_input(dev):
+    """[512, 1024]: an all-zero tile; .5 ties at absmax 127 (scale exactly
+    1 at bits 8); .5 ties at absmax 7 (scale 1 at bits 4); values at
+    +-absmax."""
+    import torch
+    x = torch.zeros((512, 1024), device=dev)
+    n = 256 * 512
+    ar = torch.arange(n, device=dev)
+    x[:256, 512:] = ((ar % 254) - 127 + 0.5).float().reshape(256, 512)
+    x[0, 512] = 127.0
+    x[256:, :512] = ((ar % 14) - 7 + 0.5).float().reshape(256, 512)
+    x[256, 0] = -7.0
+    col = torch.arange(512, device=dev) % 3
+    x[256:, 512:] = torch.where(col == 0, 3.25,
+                                torch.where(col == 1, -3.25, 0.0))
+    return x
+
+
+def quant_check(x, bits: int) -> int:
+    """Both kernels against their plain versions on ``x``; raises unless
+    q, the scales and the dequantized output (in x's dtype and in float32)
+    are bitwise equal.  Returns the number of elements compared."""
+    import torch
+    from repro_torch.kernels import quantize as Q
+    q, s = Q.quantize_blocks(x, block=QUANT_BLOCK, bits=bits)
+    qp, sp = Q.quantize_blocks_plain(x, block=QUANT_BLOCK, bits=bits)
+    torch.cuda.synchronize()
+    if not (torch.equal(q, qp) and torch.equal(s, sp)):
+        dq = int((q.int() - qp.int()).abs().max())
+        raise AssertionError(f"quantize_blocks {tuple(x.shape)} {x.dtype} "
+                             f"bits {bits}: q or scales differ from plain "
+                             f"(max |dq| {dq})")
+    del qp, sp
+    for out in {x.dtype, torch.float32}:
+        d = Q.dequantize_blocks(q, s, block=QUANT_BLOCK, out_dtype=out)
+        dp = Q.dequantize_blocks_plain(q, s, block=QUANT_BLOCK, out_dtype=out)
+        torch.cuda.synchronize()
+        if not torch.equal(d, dp):
+            raise AssertionError(f"dequantize_blocks {tuple(x.shape)} {out} "
+                                 f"bits {bits}: differs from plain")
+        del d, dp
+    return x.numel()
+
+
+def phase_quant_kernels(dev, cfg) -> dict:
+    """The quantize pair against the plain versions at every gradient leaf
+    shape of ``cfg``'s step (float32: what a step of several microbatches
+    feeds; bfloat16: a one-microbatch step), bits 8 and 4, and on the edge
+    cases; then device times (``device_ms`` behind the spin kernel) of the
+    largest leaf and of the step's 13 + 13 launches (float32, bits 8), the
+    plain versions' (CUDA events per call), and the bounds."""
+    import torch
+    from repro_torch.kernels import quantize as Q
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    leaves = grad_leaves(cfg)
+    shapes = sorted({shape for _, shape, _ in leaves})
+    cases = elements = 0
+    for rows, cols in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = quant_input(dev, g, rows, cols, dtype)
+            for bits in (8, 4):
+                elements += quant_check(x, bits)
+                cases += 1
+            del x
+            torch.cuda.empty_cache()
+    edge = quant_edge_input(dev)
+    for bits in (8, 4):
+        for dtype in (torch.float32, torch.bfloat16):
+            elements += quant_check(edge.to(dtype), bits)
+            cases += 1
+    q, s = Q.quantize_blocks(edge, block=QUANT_BLOCK, bits=8)
+    if float(s[0, 0]) != float(torch.tensor(1e-12)) or q[:256, :512].any():
+        raise AssertionError("the all-zero tile: scale or q wrong")
+    del edge, q, s
+
+    def timed_pair(xs):
+        """The kernels' device ms behind the spin kernel; the plain
+        versions' with CUDA events per call (their many full-size passes
+        and allocations keep the card busy far longer than the host takes
+        to queue them, and the spin cannot hide a whole step's worth)."""
+        qs = [Q.quantize_blocks(x, block=QUANT_BLOCK) for x in xs]
+        out = {}
+        for key, fn in (
+                ("quantize", lambda: [Q.quantize_blocks(x, block=QUANT_BLOCK)
+                                      for x in xs]),
+                ("dequantize", lambda: [Q.dequantize_blocks(
+                    q, s, block=QUANT_BLOCK) for q, s in qs])):
+            ms, hidden = device_ms(fn, ATTN_REPS)
+            if not hidden:
+                raise AssertionError(f"{key}: the host outlasted the spin")
+            out[f"{key}_ms"] = ms
+        out["quantize_plain_ms"] = cuda_ms(lambda: [Q.quantize_blocks_plain(
+            x, block=QUANT_BLOCK) for x in xs], REPS)
+        out["dequantize_plain_ms"] = cuda_ms(lambda: [
+            Q.dequantize_blocks_plain(q, s, block=QUANT_BLOCK)
+            for q, s in qs], REPS)
+        bounds = [quant_bound_ms(torch.float32, *x.shape) for x in xs]
+        out["bound_ms"] = sum(b for b, _ in bounds)
+        out["bound_by"] = max(("bytes", "operations"), key=lambda k: sum(
+            b for b, by in bounds if by == k))
+        out["quantize_call_ms"] = cuda_ms(lambda: Q.quantize_blocks(
+            xs[0], block=QUANT_BLOCK), REPS)
+        return out
+
+    big_key, big_shape, _ = max(leaves, key=lambda l: l[2])
+    big = timed_pair([quant_input(dev, g, *big_shape, torch.float32)])
+    torch.cuda.empty_cache()
+    step = timed_pair([quant_input(dev, g, *shape, torch.float32)
+                       for _, shape, _ in leaves])
+    torch.cuda.empty_cache()
+    return dict(cases=cases, elements=elements, max_abs_err=0,
+                leaves=len(leaves), leaf_shapes=[list(x) for x in shapes],
+                largest_leaf=dict(key=big_key, shape=list(big_shape), **big),
+                step=dict(launches_each=len(leaves), **step))
+
+
+def plain_roundtrip(x, bits: int):
+    """``approx_comm._quant_roundtrip`` through the plain quantize pair on
+    any device: the yardstick the kernels' round trip is held to."""
+    import torch
+    from repro_torch.core.approx_comm import _pad_2d
+    from repro_torch.kernels import quantize as Q
+    x2d, n = _pad_2d(x, QUANT_BLOCK)
+    q, s = Q.quantize_blocks_plain(x2d, block=QUANT_BLOCK, bits=bits)
+    out = x.dtype if x.dtype in Q.KERNEL_DTYPES else torch.float32
+    xd = Q.dequantize_blocks_plain(q, s, block=QUANT_BLOCK, out_dtype=out)
+    return xd.reshape(-1)[:n].view(x.shape).to(x.dtype)
+
+
+def plain_hook(bits: int):
+    """The step's gradient hook (``make_grad_compressor(bits,
+    min_size=GRAD_MIN_SIZE)``) through ``plain_roundtrip``."""
+    from repro_torch.tree import tree_map
+
+    def hook(grads):
+        return tree_map(lambda g: plain_roundtrip(g, bits)
+                        if g.numel() >= GRAD_MIN_SIZE else g, grads)
+    return hook
+
+
+def phase_train_check(dev, cfg) -> dict:
+    """One full-width step's gradients (bfloat16 parameters, the config's
+    microbatches, so float32 accumulated gradients), computed once; then
+    the rest of the step twice, each from the same parameters and a fresh
+    optimizer state: the hook through the kernels, then through the plain
+    versions.  Raises unless the compressed gradients and every new
+    parameter are bitwise identical."""
+    import torch
+    from repro_torch.core.approx_comm import make_grad_compressor
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch.steps import (apply_grads, compute_grads,
+                                          microbatch_count)
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.tree import tree_items, tree_map
+    t0 = time.monotonic()
+    model = build_model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = model.init_params(g, device=dev)
+    batch = make_batch(cfg, TRAIN_BATCH, CHECK_SEQ, generator=g, device=dev,
+                       train=True)
+    mb = microbatch_count(cfg, TRAIN_BATCH)
+    loss, grads = compute_grads(model, params, batch, mb)
+    torch.cuda.synchronize()
+    grad_s = time.monotonic() - t0
+    opt = AdamWConfig()
+    n0 = (Q.quantize_blocks.launches, Q.dequantize_blocks.launches)
+    p_k, _, cg_k = apply_grads(opt, tree_map(torch.clone, params),
+                               init_opt_state(params, device=dev), grads,
+                               make_grad_compressor(TRAIN_BITS,
+                                                    min_size=GRAD_MIN_SIZE))
+    torch.cuda.synchronize()
+    launches = (Q.quantize_blocks.launches - n0[0],
+                Q.dequantize_blocks.launches - n0[1])
+    torch.cuda.empty_cache()
+    p_p, _, cg_p = apply_grads(opt, params, init_opt_state(params,
+                                                           device=dev),
+                               grads, plain_hook(TRAIN_BITS))
+    torch.cuda.synchronize()
+    n_leaves = len(grad_leaves(cfg))
+    diffs = [k for (k, a), (_, b) in zip(tree_items(cg_k), tree_items(cg_p))
+             if not torch.equal(a, b)]
+    pdiffs = [k for (k, a), (_, b) in zip(tree_items(p_k), tree_items(p_p))
+              if not torch.equal(a, b)]
+    out = dict(arch=cfg.name, batch=TRAIN_BATCH, seq=CHECK_SEQ,
+               microbatches=mb, grad_dtype=str(
+                   tree_items(grads)[0][1].dtype).removeprefix("torch."),
+               loss=float(loss), grad_seconds=grad_s,
+               seconds=time.monotonic() - t0, launches=list(launches),
+               leaves=n_leaves, compressed_grads_identical=not diffs,
+               params_identical=not pdiffs,
+               finite=bool(all(torch.isfinite(v).all()
+                               for _, v in tree_items(p_k))))
+    del model, params, grads, p_k, p_p, cg_k, cg_p, batch
+    torch.cuda.empty_cache()
+    if diffs or pdiffs or launches != (n_leaves, n_leaves) \
+            or not out["finite"]:
+        raise AssertionError(f"train_check failed: {out}; compressed "
+                             f"grads differ at {diffs}, params at {pdiffs}")
+    return out
+
+
+def phase_train(dev) -> dict:
+    """The timed training run through the port's entry point, with the
+    quantize kernels' launches counted from zero just before it."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch.train import train
+    cfg = get_config(TRAIN_ARCH)
+    if TRAIN_REDUCED:
+        cfg = cfg.reduced()
+    n_leaves = len(grad_leaves(cfg))
+    ckpt = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    Q.quantize_blocks.launches = Q.dequantize_blocks.launches = 0
+    t0 = time.monotonic()
+    try:
+        out = train(TRAIN_ARCH, reduced=TRAIN_REDUCED, steps=TRAIN_STEPS,
+                    batch=TRAIN_BATCH, seq=TRAIN_SEQ, grad_bits=TRAIN_BITS,
+                    checkpoint_every=TRAIN_CKPT_EVERY,
+                    inject_failure_at=TRAIN_FAIL_AT,
+                    checkpoint_dir=str(ckpt), log_every=1, device=dev)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    seconds = time.monotonic() - t0
+    launches = {"quantize_blocks": Q.quantize_blocks.launches,
+                "dequantize_blocks": Q.dequantize_blocks.launches}
+    steps_run = len(out["step_s"])
+    step_s = np.asarray(out["step_s"])
+    res = dict(arch=TRAIN_ARCH, reduced=TRAIN_REDUCED, batch=TRAIN_BATCH,
+               seq=TRAIN_SEQ, grad_bits=TRAIN_BITS, seconds=seconds,
+               steps_executed=steps_run, losses=out["losses"],
+               step_p50_s=float(np.percentile(step_s, 50)),
+               step_p95_s=float(np.percentile(step_s, 95)),
+               step_s=out["step_s"],
+               tokens_per_s=float(TRAIN_BATCH * TRAIN_SEQ * steps_run
+                                  / step_s.sum()),
+               checkpoint_s=out["checkpoint_s"],
+               recoveries=out["recoveries"], launches=launches,
+               launches_per_step=n_leaves,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9, device=out["device"])
+    want_steps = TRAIN_FAIL_AT + TRAIN_STEPS - TRAIN_CKPT_EVERY
+    if not np.isfinite(out["losses"]).all():
+        raise AssertionError(f"non-finite loss: {out['losses']}")
+    if out["recoveries"] != [(TRAIN_FAIL_AT, TRAIN_CKPT_EVERY)] \
+            or steps_run != want_steps or len(out["losses"]) != want_steps:
+        raise AssertionError(f"recovery: {out['recoveries']}, {steps_run} "
+                             f"steps, want a replay from step "
+                             f"{TRAIN_CKPT_EVERY} and {want_steps} steps")
+    if launches != {k: n_leaves * want_steps for k in launches}:
+        raise AssertionError(f"train launched {launches}, want "
+                             f"{n_leaves * want_steps} of each")
+    return res
+
+
+def phase_train_trace(dev) -> dict:
+    """One full-width training step at the train phase's shape, traced
+    with ``torch.profiler`` after one warm step: busy share, the top
+    activities, and the quantize kernels' device time."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx_comm import make_grad_compressor
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    cfg = get_config(TRAIN_ARCH)
+    if TRAIN_REDUCED:
+        cfg = cfg.reduced()
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = build_model(cfg).init_params(g, device=dev)
+    state = init_opt_state(params, device=dev)
+    batch = make_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, generator=g, device=dev,
+                       train=True)
+    step = build_train_step(cfg, AdamWConfig(), make_grad_compressor(
+        TRAIN_BITS, min_size=GRAD_MIN_SIZE))
+    box = {"p": params, "s": state}
+
+    def one():
+        box["p"], box["s"], _ = step(box["p"], box["s"], batch)
+
+    one()
+    torch.cuda.synchronize()
+    tr = traced(one, 16, kernels=("quantize_tiles", "dequantize_tiles"))
+    total = tr["device_ms_total"]
+    tr["kernel_share_of_device_ms"] = {
+        k: v["ms"] / total if total else None
+        for k, v in tr["kernel_ms"].items()}
+    del box, params, state, batch
+    torch.cuda.empty_cache()
+    return dict(arch=TRAIN_ARCH, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                step_ms_traced=tr.pop("ms_traced"), **tr)
+
+
+def phase_collective(dev, cfg) -> dict:
+    """``compressed_mean`` on a one-rank NCCL group over a tensor of the
+    largest gradient leaf's shape: bitwise the plain round trip at bits 8
+    and 4, the exact mean at 16, with its time; then the
+    ``CollectiveController`` against a host ``LatencyController`` over the
+    contention sequence of ``tests/test_runtime.py``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import approx_comm as AC
+    from repro_torch.core.characterization import LatencyRegression
+    from repro_torch.core.controller import (ControllerConfig,
+                                             LatencyController)
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.tree import tree_items
+    key, shape = max(tree_items(param_shapes(cfg)),
+                     key=lambda kv: torch.Size(kv[1]).numel())
+    store_path = ROOT / "build" / "chip_smoke_store"
+    store_path.parent.mkdir(parents=True, exist_ok=True)
+    store_path.unlink(missing_ok=True)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    x = torch.randn(shape, generator=g, device=dev) * 1e-3
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, store=dist.FileStore(str(store_path), 1),
+                            rank=0, world_size=1)
+    out = dict(leaf=key, shape=list(shape), backend=backend)
+    try:
+        for bits in (8, 4):
+            got = AC.compressed_mean(x, bits)
+            want = plain_roundtrip(x, bits)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(f"compressed_mean bits {bits} differs "
+                                     f"from the plain round trip")
+            out[f"bits{bits}_ms"] = cuda_ms(
+                lambda: AC.compressed_mean(x, bits), REPS)
+            del got, want
+        exact = AC.compressed_mean(x, 16)
+        torch.cuda.synchronize()
+        if not torch.equal(exact, x):
+            raise AssertionError("compressed_mean at 16 bits is not the "
+                                 "exact mean")
+        out["bits16_ms"] = cuda_ms(lambda: AC.compressed_mean(x, 16), REPS)
+    finally:
+        dist.destroy_process_group()
+        store_path.unlink(missing_ok=True)
+    del x
+    grad_bytes, fidelity, bw = 4e6, {16: 1.0, 8: 0.999, 4: 0.985}, 3e9
+    target = 1.5 * grad_bytes / bw
+    ctl = AC.CollectiveController(grad_bytes, fidelity,
+                                  latency_target=target, fidelity_floor=0.98,
+                                  slope=1.0 / bw, device=dev)
+    host = LatencyController(
+        ControllerConfig(target, 0.98, error_threshold=0.05 * target),
+        AC.fidelity_table(grad_bytes, fidelity),
+        LatencyRegression(slope=1.0 / bw, intercept=1e-4))
+    bits, used = 16, []
+    t0 = time.monotonic()
+    for step in range(COLLECTIVE_STEPS):
+        contention = 8.0 if 20 <= step < 40 else 1.0
+        lat = AC.collective_bytes_for(grad_bytes, bits) / (
+            bw / contention) + 1e-4
+        d, dh = ctl.update(lat), host.update(lat)
+        if (d.setting_index, d.acted, d.feasible) != (
+                dh.setting_index, dh.acted, dh.feasible):
+            raise AssertionError(f"controller step {step}: device {d} vs "
+                                 f"host {dh}")
+        bits = d.bits
+        used.append(bits)
+    out["controller"] = dict(steps=COLLECTIVE_STEPS, identical_to_host=True,
+                             ms_per_update=(time.monotonic() - t0) * 1e3
+                             / COLLECTIVE_STEPS,
+                             bits_used=sorted(set(used)),
+                             min_bits_under_contention=min(used[20:40]),
+                             final_bits=used[-1])
+    if not (min(used[20:40]) < 16 and used[-1] == 16):
+        raise AssertionError(f"the controller did not compress under "
+                             f"contention and relax after: {used}")
+    return out
+
+
+def phase_training(dev) -> tuple[dict, dict]:
+    """The training phases in order; returns (quant_kernels result, train
+    result) and emits one line per phase."""
+    import torch
+    from repro_torch.configs import get_config
+    cfg = get_config(TRAIN_ARCH)
+    if TRAIN_REDUCED:
+        cfg = cfg.reduced()
+    t0 = time.monotonic()
+    quant = phase_quant_kernels(dev, cfg)
+    emit("quant_kernels", seconds=time.monotonic() - t0, **quant)
+    emit("train_check", **phase_train_check(dev, cfg))
+    run = phase_train(dev)
+    emit("train", **run)
+    t0 = time.monotonic()
+    trace = phase_train_trace(dev)
+    emit("train_trace", seconds=time.monotonic() - t0, **trace)
+    t0 = time.monotonic()
+    coll = phase_collective(dev, cfg)
+    emit("collective", seconds=time.monotonic() - t0, **coll)
+    torch.cuda.empty_cache()
+    return quant, run
+
+
+def quant_kernel_rows(quant: dict, run: dict) -> list[dict]:
+    """The ``kernels`` line's rows of the quantize pair: launches from the
+    timed training run; device ms, plain ms and the bound of the step's 13
+    launches each (float32, bits 8), the largest leaf's beside them."""
+    big, step = quant["largest_leaf"], quant["step"]
+    rows = []
+    for name, src_line in (("quantize_blocks", 44), ("dequantize_blocks", 70)):
+        key = name.split("_")[0]
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/quantize_blocks.cu",
+            "replaces": f"src/repro/kernels/quantize.py:{src_line}",
+            "launches": run["launches"][name],
+            "max_abs_err": quant["max_abs_err"],
+            "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
+            "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
+            "library_ms": None,
+            "largest_leaf_ms": big[f"{key}_ms"],
+            "largest_leaf_plain_ms": big[f"{key}_plain_ms"],
+            "largest_leaf_bound_ms": big["bound_ms"],
+            "shape": f"the step's {step['launches_each']} launches on "
+                     f"float32 [rows, 512] gradients, bits 8; largest "
+                     f"leaf {big['key']} {big['shape']}"})
+    return rows
+
 
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
@@ -918,8 +1439,9 @@ def run(dev) -> None:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import frame_knobs as FK
     from repro_torch.kernels import linear_scan as LS
+    from repro_torch.kernels import quantize as Q
     paths = build.build()
-    for mod in (FK, FA, DA, LS):
+    for mod in (FK, FA, DA, LS, Q):
         mod._load_lib()
     ptxas = [ln.strip() for pth in paths.values()
              for ln in Path(str(pth) + ".log").read_text().splitlines()
@@ -1118,6 +1640,8 @@ def run(dev) -> None:
     attn_rows, timed = phase_serve(dev)
     # -- the SSM family's serving path: rwkv6-1.6b at its published widths --
     wkv_kernel = wkv_kernel_row(*phase_serve_rwkv(dev))
+    # -- training qwen3-1.7b with the approximate collective's round trip --
+    quant, train_run = phase_training(dev)
     serve_kernels = []
     for name, src, replaces, pick in (
             ("flash_attention", "flash_attention.cu",
@@ -1164,7 +1688,8 @@ def run(dev) -> None:
                  f"groups x 16 frames (characterize) + 15 groups x 32 "
                  f"frames (re-sweep); largest group "
                  f"{big['ms']:.3f} ms vs bound {big['bound_ms']:.3f} ms"},
-        *serve_kernels, wkv_kernel]}), flush=True)
+        *serve_kernels, wkv_kernel,
+        *quant_kernel_rows(quant, train_run)]}), flush=True)
 
 
 if __name__ == "__main__":

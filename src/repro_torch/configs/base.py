@@ -1,10 +1,12 @@
-"""Model configuration of the port: the fields the serving paths read.
+"""Model configuration of the port: the fields the serving and training
+paths read.
 
 A copy of ``ModelConfig`` from the JAX package's ``configs/base.py``, cut to
-what the ported families and their serving loop read: the dense family
-(embedding, GQA attention with RoPE and qk-norm, SwiGLU/GELU FFN, tied or
-separate head) and the SSM family (RWKV-6: the two LoRA ranks).  The
-fields of the other families (MoE, hybrid, enc-dec) come with their ports
+what the ported families, their serving loop and the training step read:
+the dense family (embedding, GQA attention with RoPE and qk-norm,
+SwiGLU/GELU FFN, tied or separate head), the SSM family (RWKV-6: the two
+LoRA ranks) and the training fields (``remat``, ``train_microbatches``).
+The fields of the other families (MoE, hybrid, enc-dec) come with their ports
 (ROADMAP Queue 1 item 11); ``family`` and ``mrope_sections`` stay so the
 model can refuse what it lacks.  ``ShapeCell`` and ``SHAPE_CELLS`` wait for
 the dry-run's port.
@@ -13,6 +15,11 @@ the dry-run's port.
 is the port's hand-written CUDA kernels (attention for the dense family,
 the wkv scan for the SSM family), which take the place of the JAX
 package's Pallas kernels, so the JAX value ``"pallas"`` converts to it.
+
+``remat`` takes ``"none" | "full" | "dots"``: ``"full"`` recomputes each
+block in the backward pass (``torch.utils.checkpoint``, as ``jax.checkpoint``
+does); ``"dots"`` (JAX's policy that saves the matmul outputs) has no
+counterpart yet, and the model refuses it.
 """
 
 from __future__ import annotations
@@ -21,12 +28,13 @@ import dataclasses
 
 import torch
 
-__all__ = ["ModelConfig", "dtype_of", "ATTENTION_IMPLS"]
+__all__ = ["ModelConfig", "dtype_of", "ATTENTION_IMPLS", "REMAT_POLICIES"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 
 ATTENTION_IMPLS = ("naive", "chunked", "kernel")
+REMAT_POLICIES = ("none", "full", "dots")
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -63,6 +71,11 @@ class ModelConfig:
     norm_type: str = "rms"           # rms | layer
     act: str = "swiglu"              # swiglu | gelu | relu_sq
     tie_embeddings: bool = False
+    remat: str = "none"              # none | full | dots
+
+    # gradient accumulation: split the global batch into this many
+    # microbatches per train step (activation memory ~ 1/M)
+    train_microbatches: int = 1
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -73,6 +86,9 @@ class ModelConfig:
             raise ValueError(f"unknown attention impl "
                              f"{self.attention_impl!r}; one of "
                              f"{ATTENTION_IMPLS}")
+        if self.remat not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat policy {self.remat!r}; one of "
+                             f"{REMAT_POLICIES}")
 
     @property
     def padded_vocab(self) -> int:
@@ -84,7 +100,8 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test configuration: same family and wiring, tiny dims --
-        the JAX package's ``reduced()`` for the fields kept here."""
+        the JAX package's ``reduced()`` for the fields kept here (``remat``
+        and ``train_microbatches`` are kept, as there)."""
         kv = max(1, min(self.num_kv_heads, 2))
         heads = max(kv * 2, 4)
         mrope = (2, 3, 3) if self.mrope_sections is not None else None

@@ -5,8 +5,8 @@ Source: the published ``config.json`` of Qwen/Qwen3-1.7B on the Hugging Face
 Hub (num_hidden_layers 28, hidden_size 2048, num_attention_heads 16,
 num_key_value_heads 8, head_dim 128, intermediate_size 6144, vocab_size
 151936, rope_theta 1000000, tie_word_embeddings true, torch_dtype
-bfloat16).  The training-only fields of the JAX package's copy (remat,
-microbatches) have no counterpart in the port.
+bfloat16).  Training, as the JAX package's copy: full remat (each block
+recomputed in the backward pass) and 4 microbatches per step.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -27,4 +27,6 @@ CONFIG = ModelConfig(
     tie_embeddings=True,
     param_dtype="bfloat16",
     compute_dtype="bfloat16",
+    remat="full",
+    train_microbatches=4,
 )

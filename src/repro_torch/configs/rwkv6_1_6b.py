@@ -5,8 +5,9 @@ Source: the JAX package's ``configs/rwkv6_1_6b.py``, after the RWKV-6
 "Finch" 1.6B model of arXiv:2404.05892 (24 layers, d_model 2048, head size
 64, channel-mix width 3.5 x d_model = 7168, vocab 65536, decay LoRA rank
 64, token-shift mix LoRA rank 32), layer norm, squared-ReLU channel mix,
-bfloat16.  The training-only fields of the JAX package's copy (remat,
-microbatches) have no counterpart in the port.
+bfloat16.  The training fields are the JAX package's copy's (full remat,
+4 microbatches); training the SSM family is not ported yet (ROADMAP Queue 1
+item 11), so nothing reads them here.
 """
 
 from repro_torch.configs.base import ModelConfig
@@ -27,4 +28,6 @@ CONFIG = ModelConfig(
     norm_type="layer",
     param_dtype="bfloat16",
     compute_dtype="bfloat16",
+    remat="full",
+    train_microbatches=4,
 )

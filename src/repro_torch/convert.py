@@ -28,7 +28,7 @@ from repro_torch.models.rwkv6 import RWKVState
 
 __all__ = ["plan_from_numpy", "table_from_numpy", "regression_from_numpy",
            "controller_tables_from_numpy", "model_params_from_numpy",
-           "rwkv_state_from_numpy"]
+           "rwkv_state_from_numpy", "opt_state_from_numpy"]
 
 
 def plan_from_numpy(*, cs, scale, blur_ks, art_modes, in_h, in_w, packed_h,
@@ -167,3 +167,20 @@ def rwkv_state_from_numpy(*, wkv, shift_tm, shift_cm, length,
                          f"{tuple(tm.shape)}, {tuple(cm.shape)}")
     return RWKVState(wkv=wkv.float(), shift_tm=tm, shift_cm=cm,
                      length=int(length))
+
+
+def opt_state_from_numpy(cfg, tree: dict, *,
+                         device: "str | torch.device | None" = None) -> dict:
+    """The port's AdamW state of ``cfg``'s model from a JAX
+    ``init_opt_state`` / ``adamw_update`` state with every leaf as a NumPy
+    array: ``m`` and ``v`` (parameter-shaped trees, checked as
+    ``model_params_from_numpy`` checks a parameter tree; float32 kept) and
+    ``count`` (an int32 0-d tensor).  ``device`` defaults to ``"cuda"``."""
+    dev = resolve_device(device)
+    if set(tree) != {"m", "v", "count"}:
+        raise ValueError(f"opt state: keys {sorted(tree)}, want "
+                         f"['count', 'm', 'v']")
+    return {"m": model_params_from_numpy(cfg, tree["m"], device=dev),
+            "v": model_params_from_numpy(cfg, tree["v"], device=dev),
+            "count": torch.tensor(int(np.asarray(tree["count"])),
+                                  dtype=torch.int32, device=dev)}

@@ -1,1 +1,2 @@
-"""Synthetic camera streams with ground truth."""
+"""Synthetic camera streams with ground truth (``camera``), and the host
+data pipeline of training (``pipeline``)."""

@@ -1,1 +1,2 @@
-"""Drivers of the port: the batched serving loop (``serve``)."""
+"""Entry points of the port: the batched serving loop (``serve``), the
+training step (``steps``) and the fault-tolerant trainer (``train``)."""

@@ -1,2 +1,3 @@
 """The port's model zoo: the dense transformer family (``transformer``),
-its layers and attention, and the registry facade."""
+the SSM family (``rwkv6``), their layers and attention, and the registry
+facade."""

@@ -9,7 +9,9 @@ implementations (``impl`` of ``gqa_attention``):
                the JAX package scans): O(S * chunk) score memory.
   kernel       ``repro_torch.kernels.flash_attention``: the hand-written
                CUDA kernel on the card, its plain version on the CPU.  It
-               takes the place of the JAX package's ``"pallas"``.
+               takes the place of the JAX package's ``"pallas"``.  It has
+               no backward: under autograd it raises (on the CPU too,
+               rather than quietly differentiating the plain version).
 
 Decode (``decode_attention``): ``"einsum"`` is the JAX package's ``"jnp"``
 path (grouped einsums, masking by cache length); ``"kernel"`` is
@@ -99,6 +101,12 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kh = k.shape[2]
     scale = scale if scale is not None else d ** -0.5
     if impl == "kernel":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                "attention_impl='kernel' has no backward (the flash kernel, "
+                "like the JAX package's, is forward only): train with "
+                "'chunked', as the JAX package's train path does")
         return _flash_kernel.flash_attention(q, k, v, causal=causal,
                                              scale=scale)
     qg = _group_q(q, kh)

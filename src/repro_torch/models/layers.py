@@ -22,9 +22,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.tree import tree_leaves
+
 __all__ = ["rms_norm", "layer_norm", "init_norm", "init_linear", "swiglu",
            "gelu_mlp", "rope", "apply_rope", "mask_padded_vocab",
-           "layer_params", "NEG_INF"]
+           "unbind_layers", "NEG_INF"]
 
 NEG_INF = -2.3819763e38  # large finite negative, bf16-safe (the JAX value)
 
@@ -137,11 +139,19 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 # -----------------------------------------------------------------------------
 
 
-def layer_params(params: dict, i: int) -> dict:
-    """Layer ``i``'s parameters: views into the stacked ``[L, ...]`` tensors
-    of ``params["layers"]`` (one level of nested dicts, as the norms')."""
-    return {k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
-                else v[i]) for k, v in params["layers"].items()}
+def unbind_layers(params: dict) -> list[dict]:
+    """Every layer's parameters: views from one ``unbind(0)`` of each
+    stacked ``[L, ...]`` tensor of ``params["layers"]`` (one level of
+    nested dicts, as the norms').  Under autograd the backward of an
+    ``unbind`` stacks the layers' gradients into one ``[L, ...]`` tensor
+    per leaf, where indexing each layer would scatter every layer's
+    gradient into a zero tensor of the whole stack and sum them."""
+    cols = {k: ({kk: vv.unbind(0) for kk, vv in v.items()}
+                if isinstance(v, dict) else v.unbind(0))
+            for k, v in params["layers"].items()}
+    n = tree_leaves(params["layers"])[0].shape[0]
+    return [{k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
+                 else v[i]) for k, v in cols.items()} for i in range(n)]
 
 
 def mask_padded_vocab(logits: torch.Tensor, real_vocab: int) -> torch.Tensor:

@@ -2,10 +2,10 @@
 
 The port of the JAX package's ``models/registry.py`` for the families the
 port has (dense, ssm).  ``Model`` is the uniform facade over the family
-module (``init_params``, ``forward``, ``init_cache``, ``prefill``,
-``decode_step``); ``make_batch`` draws random token batches from a
-``torch.Generator``.  ``input_specs`` / ``cache_spec`` wait for the
-dry-run's port.
+module (``init_params``, ``forward``, ``loss_fn``, ``init_cache``,
+``prefill``, ``decode_step``); ``make_batch`` draws random token batches,
+with labels for training, from a ``torch.Generator``.  ``input_specs`` /
+``cache_spec`` wait for the dry-run's port.
 """
 
 from __future__ import annotations
@@ -44,6 +44,16 @@ class Model:
     def forward(self, params, batch):
         return self.module.forward(params, batch, self.cfg)
 
+    def loss_fn(self, params, batch):
+        """The family's training loss; a family without one raises
+        ``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
+        fn = getattr(self.module, "loss_fn", None)
+        if fn is None:
+            raise NotImplementedError(
+                f"training the {self.cfg.family!r} family is not ported yet "
+                f"(ROADMAP Queue 1 item 11)")
+        return fn(params, batch, self.cfg)
+
     def init_cache(self, batch: int, max_len: int, **kw):
         return self.module.init_cache(self.cfg, batch, max_len, **kw)
 
@@ -69,11 +79,16 @@ def build_model(cfg: ModelConfig) -> Model:
 
 def make_batch(cfg: ModelConfig, b: int, s: int, *,
                generator: torch.Generator,
-               device: "torch.device | str | None" = None) -> dict:
-    """A random prompt batch: ``tokens`` i32 ``[b, s]``
-    in ``[0, vocab_size)``, drawn from ``generator`` on ``device`` (default
-    ``"cuda"``).  Training batches (``labels``) wait for the training
-    port."""
-    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=generator,
-                           device=resolve_device(device), dtype=torch.int32)
-    return {"tokens": tokens}
+               device: "torch.device | str | None" = None,
+               train: bool = False) -> dict:
+    """A random batch: ``tokens`` i32 ``[b, s]`` in ``[0, vocab_size)``
+    and, with ``train``, ``labels`` drawn the same way (as the JAX
+    package's ``make_batch``), from ``generator`` on ``device`` (default
+    ``"cuda"``)."""
+    dev = resolve_device(device)
+    out = {}
+    for name in ("tokens", "labels") if train else ("tokens",):
+        out[name] = torch.randint(0, cfg.vocab_size, (b, s),
+                                  generator=generator, device=dev,
+                                  dtype=torch.int32)
+    return out

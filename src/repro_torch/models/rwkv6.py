@@ -52,8 +52,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.kernels.linear_scan import wkv
-from repro_torch.models.layers import (init_linear, layer_norm, layer_params,
-                                       mask_padded_vocab)
+from repro_torch.models.layers import (init_linear, layer_norm,
+                                       mask_padded_vocab, unbind_layers)
 
 __all__ = ["init_params", "param_shapes", "forward", "init_cache", "prefill",
            "decode_step", "RWKVState", "check_supported"]
@@ -254,10 +254,9 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
 def _run(params: dict, h: torch.Tensor, cfg: ModelConfig, cache: RWKVState
          ) -> tuple[torch.Tensor, RWKVState]:
     tms, cms = [], []
-    for i in range(cfg.num_layers):
-        h, new_wkv, tm, cm = _block(layer_params(params, i), h, cfg,
-                                    cache.wkv[i], cache.shift_tm[i],
-                                    cache.shift_cm[i])
+    for i, p in enumerate(unbind_layers(params)):
+        h, new_wkv, tm, cm = _block(p, h, cfg, cache.wkv[i],
+                                    cache.shift_tm[i], cache.shift_cm[i])
         cache.wkv[i].copy_(new_wkv)
         tms.append(tm)
         cms.append(cm)

@@ -2,8 +2,10 @@
 
 The port of the JAX package's ``models/transformer.py`` for
 ``family == "dense"``: GQA attention with RoPE and optional per-head
-qk-norm (qwen3), a SwiGLU or GELU FFN, tied or separate head, and the
-serving pair ``prefill`` / ``decode_step`` over a preallocated KV cache.
+qk-norm (qwen3), a SwiGLU or GELU FFN, tied or separate head, the training
+loss ``loss_fn`` (each block recomputed in the backward pass under
+``remat == "full"``), and the serving pair ``prefill`` / ``decode_step``
+over a preallocated KV cache.
 MoE, VLM (M-RoPE, patch embeddings) and the other families raise
 ``NotImplementedError`` (ROADMAP Queue 1 item 11).  The JAX ``shard(...)``
 constraints are no-ops without a mesh; the port has no mesh, so they are
@@ -31,17 +33,18 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import decode_attention, gqa_attention
 from repro_torch.models.layers import (apply_rope, gelu_mlp, init_linear,
-                                       layer_norm, layer_params,
-                                       mask_padded_vocab, rms_norm, rope,
-                                       swiglu)
+                                       layer_norm, mask_padded_vocab,
+                                       rms_norm, rope, swiglu, unbind_layers)
 
-__all__ = ["init_params", "param_shapes", "forward", "init_cache", "prefill",
-           "decode_step", "KVCache", "attention_block", "check_supported"]
+__all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
+           "prefill", "decode_step", "KVCache", "attention_block",
+           "check_supported"]
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -53,6 +56,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.mrope_sections is not None:
         raise NotImplementedError(
             "M-RoPE waits for the VLM family (ROADMAP Queue 1 item 11)")
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs, recompute the rest) has "
+            "no torch counterpart yet (ROADMAP Queue 1 item 11); use 'full' "
+            "or 'none'")
 
 
 # -----------------------------------------------------------------------------
@@ -209,20 +217,41 @@ def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 # -----------------------------------------------------------------------------
-# forward (prefill without cache)
+# forward (training / prefill without cache)
 # -----------------------------------------------------------------------------
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """-> logits ``[B, S, V]`` (the JAX ``forward``'s first output; the
-    dense family has no auxiliary loss)."""
+    dense family has no auxiliary loss).  With ``cfg.remat == "full"`` and
+    grad enabled each block runs under ``torch.utils.checkpoint`` (its
+    activations are recomputed in the backward pass, as under
+    ``jax.checkpoint``)."""
     h = _embed_inputs(params, batch, cfg)
     b, s, _ = h.shape
     cos, sin = rope(_positions(batch, s, b, h.device), cfg.head_dim,
                     theta=cfg.rope_theta)
-    for i in range(cfg.num_layers):
-        h = _block(layer_params(params, i), h, cfg, cos, sin)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    for p in unbind_layers(params):
+        if remat:
+            h = checkpoint(_block, p, h, cfg, cos, sin, use_reentrant=False)
+        else:
+            h = _block(p, h, cfg, cos, sin)
     return _logits(params, h, cfg)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy over the token positions (the JAX
+    ``loss_fn``): logits cast to float32, log-softmax, the negative
+    log-likelihood of ``labels`` averaged over the positions with
+    ``labels >= 0``.  The dense family adds no router loss."""
+    logits = forward(params, batch, cfg)
+    labels = batch["labels"].long()
+    logits = logits[:, -labels.shape[1]:].float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 # -----------------------------------------------------------------------------
@@ -259,8 +288,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: KVCache
     b, s, _ = h.shape
     cos, sin = rope(_positions(batch, s, b, h.device), cfg.head_dim,
                     theta=cfg.rope_theta)
-    for i in range(cfg.num_layers):
-        p = layer_params(params, i)
+    for i, p in enumerate(unbind_layers(params)):
         attn_in = _norm(h, p["attn_norm"], cfg)
         q, k, v = _qkv(p, attn_in, cfg, cos, sin)
         cache.k[i, :, :s] = k.to(cache.k.dtype)
@@ -284,8 +312,8 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
                            f"{cache.k.shape[2]}")
     pos = torch.full((b, s), cache.length, device=h.device)
     cos, sin = rope(pos, cfg.head_dim, theta=cfg.rope_theta)
-    for i in range(cfg.num_layers):
-        h = _block(layer_params(params, i), h, cfg, cos, sin,
+    for i, p in enumerate(unbind_layers(params)):
+        h = _block(p, h, cfg, cos, sin,
                    cache=(cache.k[i], cache.v[i], cache.length))
     logits = _logits(params, h, cfg)
     return logits, KVCache(k=cache.k, v=cache.v, length=cache.length + s)

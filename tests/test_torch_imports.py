@@ -1,6 +1,7 @@
 """Package boundaries of the port: ``repro_torch`` imports neither ``jax`` nor
-anything of ``repro``; its entry points run on CUDA unless asked for the
-CPU, and raise without a CUDA device instead of carrying on elsewhere."""
+anything of ``repro`` (nor ``ml_dtypes``, which the card's machine lacks);
+its entry points run on CUDA unless asked for the CPU, and raise without a
+CUDA device instead of carrying on elsewhere."""
 
 import os
 import pathlib
@@ -15,7 +16,9 @@ torch = pytest.importorskip("torch")
 
 from repro_torch import convert  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.core import api as TA  # noqa: E402
+from repro_torch.core import approx_comm as TAC  # noqa: E402
 from repro_torch.core import characterization as TCh  # noqa: E402
 from repro_torch.core import controller as TC  # noqa: E402
 from repro_torch.core import drift as TD  # noqa: E402
@@ -26,9 +29,11 @@ from repro_torch.data.camera import CameraConfig, SyntheticCamera  # noqa: E402
 from repro_torch.kernels import frame_knobs as FK  # noqa: E402
 from repro_torch.kernels import linear_scan as LS  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import rwkv6 as TR  # noqa: E402
 from repro_torch.models.registry import build_model, make_batch  # noqa: E402
 from repro_torch.models.transformer import param_shapes  # noqa: E402
+from repro_torch.optim.adamw import init_opt_state  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -64,6 +69,24 @@ def test_imports_without_jax_or_repro():
 def test_source_has_no_jax_or_repro_import(path):
     bad = re.compile(r"^\s*(from|import)\s+(jax|repro)(\.|\s|$)", re.M)
     assert not bad.findall(path.read_text())
+
+
+def test_imports_without_ml_dtypes():
+    """bfloat16 leaves cross to NumPy as uint16 bits: nothing of the port
+    needs ``ml_dtypes``, which the card's machine does not have."""
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['ml_dtypes'] = None\n"
+        f"for name in {port_modules()!r}:\n"
+        "    importlib.import_module(name)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+    bad = re.compile(r"^\s*(from|import)\s+ml_dtypes(\.|\s|$)", re.M)
+    assert not any(bad.findall(p.read_text()) for p in PKG.rglob("*.py"))
 
 
 @pytest.fixture
@@ -106,11 +129,32 @@ ENTRY_POINTS = {
         torch.Generator(), get_config("rwkv6-1.6b").reduced()),
     "rwkv6.init_cache": lambda: TR.init_cache(
         get_config("rwkv6-1.6b").reduced(), 1, 4),
+    "train": lambda: train("qwen3-1.7b", steps=1, batch=1, seq=8),
+    "init_opt_state": lambda: init_opt_state({"w": torch.zeros(3)}),
+    "Checkpointer.restore": lambda: _restore_without_device(),
+    "CollectiveController": lambda: TAC.CollectiveController(
+        4e6, {16: 1.0, 8: 0.999, 4: 0.985}, latency_target=0.002,
+        slope=1 / 3e9),
+    "opt_state_from_numpy": lambda: convert.opt_state_from_numpy(
+        get_config("qwen3-1.7b").reduced(), {
+            "m": _zeros_tree(param_shapes(get_config("qwen3-1.7b")
+                                          .reduced())),
+            "v": _zeros_tree(param_shapes(get_config("qwen3-1.7b")
+                                          .reduced())),
+            "count": np.zeros((), np.int32)}),
     "rwkv_state_from_numpy": lambda: convert.rwkv_state_from_numpy(
         wkv=np.zeros((2, 1, 4, 16, 16), np.float32),
         shift_tm=np.zeros((2, 1, 64), np.float32),
         shift_cm=np.zeros((2, 1, 64), np.float32), length=0),
 }
+
+
+def _restore_without_device():
+    import tempfile
+    with tempfile.TemporaryDirectory() as d:
+        ck = Checkpointer(d)
+        ck.save(1, {"w": torch.zeros(3)})
+        ck.restore({"w": torch.zeros(3)})
 
 
 def _zeros_tree(shapes):
@@ -132,6 +176,11 @@ def test_serve_runs_on_the_cpu_when_asked():
 def test_rwkv_serve_runs_on_the_cpu_when_asked():
     out = serve("rwkv6-1.6b", batch=2, prompt_len=6, gen=2, device="cpu")
     assert out["tokens"].shape == (2, 3) and out["cache_len"] == 8
+
+
+def test_train_runs_on_the_cpu_when_asked():
+    out = train("qwen3-1.7b", steps=2, batch=2, seq=16, device="cpu")
+    assert out["device"] == "cpu" and len(out["losses"]) == 2
 
 
 def test_wkv_kernel_route_raises_off_cpu_and_cuda():
