@@ -73,7 +73,20 @@ each, with their wall seconds:
                 largest gradient leaf (bitwise the plain round trip at
                 bits 8 and 4, the exact mean at 16), and the
                 ``CollectiveController`` over a 60-step contention sequence
-                with decisions identical to the host ``LatencyController``.
+                with decisions identical to the host ``LatencyController``;
+  frame_knobs_kernel  the camera node's knob kernel against its plain
+                version, bit for bit, at 1080x1920 (N=25, uint8 and float32,
+                blur 1/5/8/10/15, identical frames, N=1), each timed behind
+                the spin kernel beside the plain version and the bound;
+  camera_node   the camera node's device path at the testbed's size: five
+                1080p complex cameras append 200 frames each into device
+                rings of 150 BGR frames (4.67 GB), half from the host and
+                half from the card, plus one refused out-of-order append
+                each; point and range queries bit-equal to the frames
+                appended; each camera's 26-frame window through
+                ``ops.frame_knobs`` as gray planes (5 launches), held to
+                the plain version; append, query and kernel times, peak
+                memory.
 
 Then a ``kernels`` line (every kernel: launches on its main path, error
 against its plain version, its time beside its bound, the plain version's
@@ -169,6 +182,18 @@ CHECK_SEQ = 1024            # train_check: the leaves' shapes at any length
 GRAD_MIN_SIZE = 1024        # launch/train.py's make_grad_compressor(min_size)
 QUANT_BLOCK = (256, 512)
 COLLECTIVE_STEPS = 60       # tests/test_runtime.py's contention sequence
+
+# -- the camera node ----------------------------------------------------------
+# configs/mez_edge.py's testbed at the paper's camera size: N_CAMS cameras,
+# each with a device ring of 150 BGR uint8 frames (30 s at 5 fps; 5 x 150 x
+# 6.22 MB = 4.67 GB on the card), 200 appends a camera (the ring wraps), a
+# 26-frame subscriber window read out of each ring, and its 25 consecutive
+# gray pairs through frame_knobs with the path's blur width
+# (benchmarks/compute.py's blur_k=5)
+CAM_CAPACITY, CAM_DISTINCT, CAM_APPENDS, CAM_WINDOW = 150, 30, 200, 26
+KNOBS_N, KNOBS_BLUR = CAM_WINDOW - 1, 5
+KNOBS_BLURS = (1, 5, 8, 10, 15)     # no blur, and knobs.BLUR_KERNELS' widths
+QUERY_REPS = 50                     # point queries timed on one ring
 
 
 def emit(phase: str, **fields) -> None:
@@ -1407,6 +1432,295 @@ def quant_kernel_rows(quant: dict, run: dict) -> list[dict]:
     return rows
 
 
+def distinct_bytes(*tensors) -> int:
+    """Bytes of device memory that ``tensors`` span together: overlapping
+    views (the path's ``gray[1:]`` and ``gray[:-1]``) count once."""
+    spans = sorted((t.data_ptr(), t.data_ptr() + t.nbytes) for t in tensors)
+    total, end = 0, 0
+    for lo, hi in spans:
+        total += max(0, hi - max(lo, end))
+        end = max(end, hi)
+    return total
+
+
+def knobs_bound_ms(f, p, k: int) -> tuple[float, str]:
+    """Least time of one ``frame_knobs`` call on the card: the memory that
+    frames and prev span read once (planes they share count once), the
+    float32 output and ``changed`` written once, over the memory rate,
+    against the float32 operations (a subtract, an absolute value and a
+    compare per input pixel, four per pooled value, k adds and a multiply
+    per pass of the blur) over the float32 rate."""
+    n, h, w = f.shape
+    pooled = n * (h // 2) * (w // 2)
+    nbytes = distinct_bytes(f, p) + 4 * pooled + 4 * n
+    flops = 3 * n * h * w + 4 * pooled + (2 * (k + 1) * pooled if k > 1
+                                          else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def knobs_inputs(dev, g, n: int, dtype):
+    """[n, H, W] frames and prev: uniform grey levels, prev the frames
+    moved by up to +-16 levels (so about half of the pixels change by more
+    than the threshold of 8); float32 adds a uniform fraction to both, so
+    no sum of the kernel is exact and its order shows."""
+    import torch
+    shape = (n, H, W)
+    f = torch.randint(0, 256, shape, generator=g, device=dev,
+                      dtype=torch.int16)
+    p = (f + torch.randint(-16, 17, shape, generator=g, device=dev,
+                           dtype=torch.int16)).clamp_(0, 255)
+    if dtype == torch.uint8:
+        return f.to(torch.uint8), p.to(torch.uint8)
+    return (f.float() + torch.rand(shape, generator=g, device=dev),
+            p.float() + torch.rand(shape, generator=g, device=dev))
+
+
+def knobs_check(f, p, k: int, what: str):
+    """The kernel against ``frame_knobs_plain`` on (f, p); raises unless
+    ``out`` and ``changed`` are bitwise equal.  Returns the kernel's."""
+    import torch
+    from repro_torch.kernels import frame_knobs as FK
+    out, ch = FK.frame_knobs(f, p, blur_k=k)
+    want_out, want_ch = FK.frame_knobs_plain(f, p, blur_k=k)
+    torch.cuda.synchronize()
+    if not (torch.equal(out, want_out) and torch.equal(ch, want_ch)):
+        raise AssertionError(
+            f"frame_knobs {what} blur_k {k}: differs from plain (max |d| "
+            f"out {float((out - want_out).abs().max())}, changed "
+            f"{float((ch - want_ch).abs().max())})")
+    return out, ch
+
+
+def phase_frame_knobs_kernel(dev) -> dict:
+    """The knob kernel against its plain version at 1080x1920: N=25 in
+    uint8 and float32 at every blur width of ``KNOBS_BLURS``, identical
+    frames (``changed`` 0) and N=1; each (dtype, blur) timed behind the
+    spin kernel beside the plain version (CUDA events per call) and the
+    bound."""
+    import torch
+    from repro_torch.kernels import frame_knobs as FK
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    rows, cases = [], 0
+    for dtype in (torch.uint8, torch.float32):
+        name = str(dtype).removeprefix("torch.")
+        f, p = knobs_inputs(dev, g, KNOBS_N, dtype)
+        for k in KNOBS_BLURS:
+            _, ch = knobs_check(f, p, k, f"{name} N={KNOBS_N}")
+            if not bool(((ch > 0.3) & (ch < 0.7)).all()):
+                raise AssertionError(f"frame_knobs {name}: changed "
+                                     f"{ch.tolist()} outside (0.3, 0.7)")
+            cases += 1
+            ms, hidden = device_ms(
+                lambda k=k: FK.frame_knobs(f, p, blur_k=k), ATTN_REPS)
+            if not hidden:
+                raise AssertionError("frame_knobs: the host outlasted the "
+                                     "spin")
+            bound, by = knobs_bound_ms(f, p, k)
+            rows.append(dict(
+                dtype=name, blur_k=k, ms=ms, bound_ms=bound, bound_by=by,
+                plain_ms=cuda_ms(lambda k=k: FK.frame_knobs_plain(
+                    f, p, blur_k=k), REPS)))
+        _, ch = knobs_check(f, f, KNOBS_BLUR, f"{name} identical frames")
+        if bool(ch.any()):
+            raise AssertionError(f"frame_knobs {name}: identical frames "
+                                 f"changed {ch.tolist()}")
+        knobs_check(f[:1].contiguous(), p[:1].contiguous(), KNOBS_BLUR,
+                    f"{name} N=1")
+        cases += 2
+        del f, p
+        torch.cuda.empty_cache()
+    return dict(cases=cases, shape=[KNOBS_N, H, W], max_abs_err=0.0,
+                timings=rows)
+
+
+def phase_camera_node(dev) -> dict:
+    """The camera node's device path at the paper's testbed size: five
+    1080p cameras append into their device rings (half of the appends from
+    host frames, half from frames already on the card, then one out of
+    order each), point and range queries read them back bit for bit, and
+    each camera's subscriber window goes through ``ops.frame_knobs`` as
+    gray planes.  ``frame_knobs.launches`` counts that path alone."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.mez_edge import CONFIG
+    from repro_torch.core.log import (frame_log_append, frame_log_init,
+                                      frame_log_point_query,
+                                      frame_log_range_query)
+    from repro_torch.data.camera import CameraConfig, SyntheticCamera
+    from repro_torch.kernels import frame_knobs as FK
+    from repro_torch.kernels import ops
+    fps = CONFIG.fps
+    cam_ids = [f"cam{i}" for i in range(N_CAMS)]
+    t0 = time.monotonic()
+    host = {}
+    for cid in cam_ids:
+        src = SyntheticCamera(CameraConfig(
+            camera_id=cid, height=H, width=W, dynamics="complex", fps=fps,
+            seed=CONFIG.seed))
+        host[cid] = [src.next_frame()[1] for _ in range(CAM_DISTINCT)]
+    gen_s = time.monotonic() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    on_card = {cid: torch.from_numpy(np.stack(fr)).to(dev)
+               for cid, fr in host.items()}
+
+    # -- the path: counts from 0, read just after ---------------------------
+    FK.frame_knobs.launches = 0
+    t_path = time.monotonic()
+    logs = {cid: frame_log_init(CAM_CAPACITY, (H, W, 3), device=dev)
+            for cid in cam_ids}
+    half = CAM_APPENDS // 2
+    append_us = {}
+    for key, lo, hi, src in (("host", 0, half, host),
+                             ("device", half, CAM_APPENDS, on_card)):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for i in range(lo, hi):
+            for cid in cam_ids:
+                frame_log_append(logs[cid], i / fps,
+                                 src[cid][i % CAM_DISTINCT])
+        torch.cuda.synchronize()
+        append_us[key] = (time.monotonic() - t0) / ((hi - lo) * N_CAMS) * 1e6
+    oldest = CAM_APPENDS - CAM_CAPACITY          # the oldest live index
+    for cid in cam_ids:                          # out of order: refused
+        frame_log_append(logs[cid], oldest / fps, on_card[cid][0])
+    t_start, t_stop = (CAM_APPENDS - CAM_WINDOW) / fps, (CAM_APPENDS - 1) / fps
+    windows = {cid: frame_log_range_query(logs[cid], t_start, t_stop,
+                                          CAM_WINDOW) for cid in cam_ids}
+    results = {}
+    for cid in cam_ids:
+        gray = windows[cid][2].float().mean(-1)          # [26, H, W] f32
+        results[cid] = (gray, ops.frame_knobs(gray[1:], gray[:-1],
+                                              blur_k=KNOBS_BLUR))
+    torch.cuda.synchronize()
+    path_s = time.monotonic() - t_path
+    launches = FK.frame_knobs.launches
+    if launches != N_CAMS:
+        raise AssertionError(f"the camera path launched frame_knobs "
+                             f"{launches} times, want {N_CAMS}")
+
+    # -- what came out --------------------------------------------------------
+    f32 = np.float32
+    for cid in cam_ids:
+        log = logs[cid]
+        state = (int(log.count), int(log.head), int(log.rejects),
+                 float(log.last_ts))
+        want = (CAM_CAPACITY, CAM_APPENDS % CAM_CAPACITY, 1,
+                float(f32((CAM_APPENDS - 1) / fps)))
+        if state != want:
+            raise AssertionError(f"{cid}: (count, head, rejects, last_ts) "
+                                 f"{state}, want {want}")
+        # at the oldest live entry, between two, at the newest, after it,
+        # and before the oldest (a miss: its slot was overwritten)
+        probes = ((oldest / fps, oldest), ((oldest + 37.5) / fps, oldest + 37),
+                  ((CAM_APPENDS - 1) / fps, CAM_APPENDS - 1),
+                  (1e9, CAM_APPENDS - 1), ((oldest - 0.5) / fps, None))
+        for q, i in probes:
+            found, ts, frame = frame_log_point_query(log, q)
+            if i is None:
+                if bool(found) or float(ts) != -np.inf:
+                    raise AssertionError(f"{cid}: a query before the oldest "
+                                         f"live entry found {float(ts)}")
+                continue
+            if not (bool(found) and float(ts) == float(f32(i / fps))
+                    and torch.equal(frame, on_card[cid][i % CAM_DISTINCT])):
+                raise AssertionError(f"{cid}: point query {q} did not "
+                                     f"return entry {i}")
+        valid, ts, frames = windows[cid]
+        idx = range(CAM_APPENDS - CAM_WINDOW, CAM_APPENDS)
+        if not (bool(valid.all()) and ts.tolist() == [
+                float(f32(i / fps)) for i in idx] and all(
+                torch.equal(frames[j], on_card[cid][i % CAM_DISTINCT])
+                for j, i in enumerate(idx))):
+            raise AssertionError(f"{cid}: the range query's window differs "
+                                 f"from the frames appended")
+        gray, (out, ch) = results[cid]
+        want_out, want_ch = FK.frame_knobs_plain(gray[1:], gray[:-1],
+                                                 blur_k=KNOBS_BLUR)
+        if not (torch.equal(out, want_out) and torch.equal(ch, want_ch)):
+            raise AssertionError(f"{cid}: frame_knobs differs from plain")
+        if out.shape != (KNOBS_N, H // 2, W // 2) or not bool(
+                torch.isfinite(out).all()) or not bool(
+                ((ch >= 0) & (ch <= 1)).all()):
+            raise AssertionError(f"{cid}: frame_knobs out of its contract")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ring_gb = sum(log.payload.nbytes for log in logs.values()) / 1e9
+
+    # -- timed apart from the path ------------------------------------------
+    log0 = logs[cam_ids[0]]
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for r in range(QUERY_REPS):
+        frame_log_point_query(log0, (oldest + r) / fps)
+    torch.cuda.synchronize()
+    point_us = (time.monotonic() - t0) / QUERY_REPS * 1e6
+    range_ms = cuda_ms(lambda: frame_log_range_query(
+        log0, t_start, t_stop, CAM_WINDOW), REPS)
+    gray = results[cam_ids[0]][0]
+    g1, g0 = gray[1:], gray[:-1]
+    ms, hidden = device_ms(lambda: ops.frame_knobs(g1, g0,
+                                                   blur_k=KNOBS_BLUR),
+                           ATTN_REPS)
+    if not hidden:
+        raise AssertionError("frame_knobs: the host outlasted the spin")
+    plain_ms = cuda_ms(lambda: FK.frame_knobs_plain(g1, g0,
+                                                    blur_k=KNOBS_BLUR), REPS)
+    # gray[1:] and gray[:-1] share 24 of their 25 planes: 26 planes to read
+    bound, by = knobs_bound_ms(g1, g0, KNOBS_BLUR)
+    changed = [round(float(c), 6) for c in results[cam_ids[0]][1][1][:4]]
+    del logs, windows, results, on_card, gray, g1, g0, log0
+    torch.cuda.empty_cache()
+    return dict(
+        cameras=N_CAMS, capacity=CAM_CAPACITY, appends=CAM_APPENDS,
+        frame=[H, W, 3], ring_gb=ring_gb, peak_gb=peak_gb,
+        generate_seconds=gen_s, path_seconds=path_s,
+        append_us_from_host=append_us["host"],
+        append_us_from_device=append_us["device"],
+        point_query_us=point_us, range_query_ms=range_ms,
+        window=CAM_WINDOW, launches=launches, ms=ms, plain_ms=plain_ms,
+        bound_ms=bound, bound_by=by, changed_cam0=changed)
+
+
+def phase_camera(dev) -> tuple[dict, dict]:
+    """The camera node's phases in order; returns (frame_knobs_kernel
+    result, camera_node result) and emits one line per phase."""
+    t0 = time.monotonic()
+    knobs = phase_frame_knobs_kernel(dev)
+    emit("frame_knobs_kernel", seconds=time.monotonic() - t0, **knobs)
+    t0 = time.monotonic()
+    cam = phase_camera_node(dev)
+    emit("camera_node", seconds=time.monotonic() - t0, **cam)
+    return knobs, cam
+
+
+def knobs_kernel_row(knobs: dict, cam: dict) -> dict:
+    """The ``kernels`` line's row of ``frame_knobs``: launches from the
+    camera path, its time on the path's inputs (a window's float32 gray
+    planes, consecutive pairs, blur 5) with the bound and the plain
+    version; the kernel phase's times on independent float32 and uint8
+    frames and prev beside them."""
+    f32, u8 = (next(r for r in knobs["timings"] if r["dtype"] == dt
+                    and r["blur_k"] == KNOBS_BLUR)
+               for dt in ("float32", "uint8"))
+    return {
+        "name": "frame_knobs", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/frame_knobs.cu",
+        "replaces": "src/repro/kernels/frame_knobs.py:107",
+        "launches": cam["launches"], "max_abs_err": knobs["max_abs_err"],
+        "ms": cam["ms"], "plain_ms": cam["plain_ms"],
+        "bound_ms": cam["bound_ms"], "bound_by": cam["bound_by"],
+        "library_ms": None,
+        "independent_float32_ms": f32["ms"],
+        "independent_float32_bound_ms": f32["bound_ms"],
+        "uint8_ms": u8["ms"], "uint8_plain_ms": u8["plain_ms"],
+        "uint8_bound_ms": u8["bound_ms"],
+        "shape": f"float32 gray [{KNOBS_N}, {H}, {W}], blur_k "
+                 f"{KNOBS_BLUR} (one camera's {CAM_WINDOW}-frame window)"}
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found -- run from the root "
@@ -1443,6 +1757,7 @@ def run(dev) -> None:
     paths = build.build()
     for mod in (FK, FA, DA, LS, Q):
         mod._load_lib()
+    FK._load_knobs_lib()
     ptxas = [ln.strip() for pth in paths.values()
              for ln in Path(str(pth) + ".log").read_text().splitlines()
              if "registers" in ln or "spill" in ln]
@@ -1642,6 +1957,8 @@ def run(dev) -> None:
     wkv_kernel = wkv_kernel_row(*phase_serve_rwkv(dev))
     # -- training qwen3-1.7b with the approximate collective's round trip --
     quant, train_run = phase_training(dev)
+    # -- the camera node: device rings and the knob kernel ----------------
+    knobs_row = knobs_kernel_row(*phase_camera(dev))
     serve_kernels = []
     for name, src, replaces, pick in (
             ("flash_attention", "flash_attention.cu",
@@ -1689,7 +2006,7 @@ def run(dev) -> None:
                  f"frames (re-sweep); largest group "
                  f"{big['ms']:.3f} ms vs bound {big['bound_ms']:.3f} ms"},
         *serve_kernels, wkv_kernel,
-        *quant_kernel_rows(quant, train_run)]}), flush=True)
+        *quant_kernel_rows(quant, train_run), knobs_row]}), flush=True)
 
 
 if __name__ == "__main__":

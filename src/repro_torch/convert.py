@@ -1,14 +1,15 @@
 """Carry state of the JAX package across to the port.
 
-Two kinds of state cross over.  For the closed loop: transform plans,
+Three kinds of state cross over.  For the closed loop: transform plans,
 characterization tables (with their wire-size proxy), the latency regression
 and padded controller tables, so both packages can run the loop from one
 and the same characterization.  For the model zoo: a model's parameter tree
 (``model_params_from_numpy``), so both packages can serve with the same
 weights, and an RWKV recurrent state (``rwkv_state_from_numpy``), so both
-can decode from the same state.  Each function takes plain NumPy arrays
-and Python scalars -- nothing of the JAX package is imported -- and
-returns the port's object.
+can decode from the same state.  For the camera node: a device frame ring
+(``frame_log_from_numpy``), so both can query the same log.  Each function
+takes plain NumPy arrays and Python scalars -- nothing of the JAX package
+is imported -- and returns the port's object.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from repro_torch.core.characterization import (CharacterizationTable,
 from repro_torch.core.controller import ControllerTables
 from repro_torch.core.grid_engine import WireSizeProxy
 from repro_torch.core.knobs import KnobSetting
+from repro_torch.core.log import FrameLog
 from repro_torch.device import resolve_device
 from repro_torch.kernels.frame_knobs import TransformPlan
 from repro_torch.models.registry import build_model
@@ -28,7 +30,8 @@ from repro_torch.models.rwkv6 import RWKVState
 
 __all__ = ["plan_from_numpy", "table_from_numpy", "regression_from_numpy",
            "controller_tables_from_numpy", "model_params_from_numpy",
-           "rwkv_state_from_numpy", "opt_state_from_numpy"]
+           "rwkv_state_from_numpy", "opt_state_from_numpy",
+           "frame_log_from_numpy"]
 
 
 def plan_from_numpy(*, cs, scale, blur_ks, art_modes, in_h, in_w, packed_h,
@@ -184,3 +187,32 @@ def opt_state_from_numpy(cfg, tree: dict, *,
             "v": model_params_from_numpy(cfg, tree["v"], device=dev),
             "count": torch.tensor(int(np.asarray(tree["count"])),
                                   dtype=torch.int32, device=dev)}
+
+
+def frame_log_from_numpy(*, timestamps, payload, head, count, last_ts,
+                         rejects, device: "str | torch.device | None" = None
+                         ) -> FrameLog:
+    """The port's ``FrameLog`` from the leaves of a JAX ``FrameLog`` as
+    NumPy arrays: ``timestamps`` float32 ``[capacity]``, ``payload``
+    ``[capacity, *frame_shape]`` (dtype kept), and the int32 scalars
+    ``head``, ``count``, ``rejects`` and the float32 ``last_ts``.
+    ``device`` defaults to ``"cuda"``."""
+    dev = resolve_device(device)
+    ts = np.asarray(timestamps)
+    pl = np.asarray(payload)
+    if ts.ndim != 1 or ts.dtype != np.float32 or pl.shape[:1] != ts.shape:
+        raise ValueError(f"FrameLog: float32 timestamps [capacity] and a "
+                         f"payload [capacity, ...] expected, got "
+                         f"{ts.dtype} {ts.shape}, {pl.shape}")
+
+    def scalar(a, dtype):
+        a = np.asarray(a)
+        if a.shape != ():
+            raise ValueError(f"FrameLog: a scalar expected, got {a.shape}")
+        return torch.tensor(a.astype(dtype), device=dev)
+
+    return FrameLog(timestamps=_tensor_from_numpy(ts, device=dev),
+                    payload=_tensor_from_numpy(pl, device=dev),
+                    head=scalar(head, np.int32), count=scalar(count, np.int32),
+                    last_ts=scalar(last_ts, np.float32),
+                    rejects=scalar(rejects, np.int32))

@@ -26,7 +26,10 @@ from repro_torch.core.grid_engine import (GridCharacterization, WireSizeProxy,
                                           refresh_tables, run_grid)
 from repro_torch.core.knobs import (KnobSetting, TransformMemo, apply_knobs,
                                     enumerate_settings, wire_size)
-from repro_torch.core.log import HostLog, LogSegmentStore
+from repro_torch.core.log import (FrameLog, HostLog, LogSegmentStore,
+                                  frame_log_append, frame_log_init,
+                                  frame_log_point_query,
+                                  frame_log_range_query)
 from repro_torch.core.session import MezClient, Session, Subscription
 
 __all__ = [
@@ -44,5 +47,6 @@ __all__ = [
     "DriftState", "drift_init", "drift_update", "AdmissionRejected",
     "CameraQosResult", "QosBounds", "SloClass", "SLO_CLASSES",
     "SubscriptionOptions", "resolve_slo", "BoundedEventBuffer", "CamBroker",
-    "EdgeBroker", "MezSystem",
+    "EdgeBroker", "MezSystem", "FrameLog", "frame_log_init",
+    "frame_log_append", "frame_log_point_query", "frame_log_range_query",
 ]

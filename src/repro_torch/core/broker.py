@@ -1832,10 +1832,11 @@ class EdgeBroker:
                   fetch_window: int = 2) -> Iterator[DeliveredFrame]:
         """Deprecated v1 streaming subscription.  Use the v2 session API
         (``open_session`` / ``create_subscription`` / ``poll_subscription``)
-        instead."""
+        or, for existing v1 callers, ``repro_torch.compat.subscribe_v1``
+        which wraps this without a per-call warning."""
         warnings.warn(
             "EdgeBroker.subscribe (v1 iterator API) is deprecated; use the "
-            "v2 session API",
+            "v2 session API or repro_torch.compat.subscribe_v1",
             DeprecationWarning, stacklevel=2)
         return self._subscribe_v1(spec, controlled=controlled,
                                   feedback_window=feedback_window,

@@ -13,7 +13,9 @@ Append-only, time-ordered circular buffer of <timestamp, frame> pairs with:
     (never on the read/write critical path), paper Section 4.4.
 
 ``HostLog`` is the host-side log (NumPy payloads, threading locks): the
-broker layer.
+broker layer.  ``FrameLog`` and the ``frame_log_*`` functions are the
+device ring of the camera node: a fixed-capacity ring of frames in device
+memory, appended and queried without a device-to-host read.
 """
 
 from __future__ import annotations
@@ -26,8 +28,13 @@ import zlib
 from typing import Iterator, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["HostLog", "LogSegmentStore"]
+from repro_torch.device import resolve_device
+
+__all__ = ["HostLog", "LogSegmentStore", "FrameLog", "frame_log_init",
+           "frame_log_append", "frame_log_point_query",
+           "frame_log_range_query"]
 
 
 # =============================================================================
@@ -324,3 +331,135 @@ class LogSegmentStore:
             b = fh.read(1)
             fh.seek(16)
             fh.write(bytes([b[0] ^ 0xFF]))
+
+
+# =============================================================================
+# Device-side log: a ring of frames in device memory
+# =============================================================================
+
+# A FrameLog holds tensors on one device:
+#   timestamps : f32[capacity]  (monotone in ring order; -inf = empty slot)
+#   payload    : dtype[capacity, *frame_shape]
+#   head       : i32[]          (next write slot)
+#   count      : i32[]          (live entries, <= capacity)
+#   last_ts    : f32[]
+#   rejects    : i32[]          (out-of-order appends refused)
+#
+# Ring order: the oldest entry lives at (head - count) mod capacity.  Queries
+# build the time-ordered view with a gather and searchsorted.  Every field
+# stays on the device: an append or a query makes no device-to-host read.
+
+
+@dataclasses.dataclass
+class FrameLog:
+    timestamps: torch.Tensor
+    payload: torch.Tensor
+    head: torch.Tensor
+    count: torch.Tensor
+    last_ts: torch.Tensor
+    rejects: torch.Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.timestamps.shape[0]
+
+
+def frame_log_init(capacity: int, frame_shape: tuple[int, ...],
+                   dtype: torch.dtype = torch.uint8,
+                   device: "str | torch.device | None" = None) -> FrameLog:
+    """An empty ring of ``capacity`` frames of ``frame_shape`` and
+    ``dtype`` on ``device`` (default ``"cuda"``)."""
+    dev = resolve_device(device)
+    return FrameLog(
+        timestamps=torch.full((capacity,), -torch.inf, dtype=torch.float32,
+                              device=dev),
+        payload=torch.zeros((capacity, *frame_shape), dtype=dtype,
+                            device=dev),
+        head=torch.zeros((), dtype=torch.int32, device=dev),
+        count=torch.zeros((), dtype=torch.int32, device=dev),
+        last_ts=torch.full((), -torch.inf, dtype=torch.float32, device=dev),
+        rejects=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+
+
+def _timestamp(log: FrameLog, timestamp) -> torch.Tensor:
+    """``timestamp`` as a float32 scalar on the log's device, rounded to
+    float32 before any comparison (0.1 in float64 is not 0.1 in float32)."""
+    if isinstance(timestamp, torch.Tensor):
+        return timestamp.to(device=log.timestamps.device,
+                            dtype=torch.float32).reshape(())
+    return torch.full((), float(timestamp), dtype=torch.float32,
+                      device=log.timestamps.device)
+
+
+def frame_log_append(log: FrameLog, timestamp, frame) -> FrameLog:
+    """Append ``frame`` at ``timestamp``; an append whose timestamp is not
+    above the newest one is refused and only counted (``rejects``).
+
+    The log is updated in place and returned, as the JAX caller donates
+    it: the one slot is written whether or not the append is taken (the
+    frame or the slot's own contents, chosen on the device), so an append
+    copies one frame, never the ring, and makes no host sync.  ``frame``
+    may be a tensor or an array on the host; it is cast to the payload's
+    dtype."""
+    dev = log.payload.device
+    ts = _timestamp(log, timestamp)
+    frame = torch.as_tensor(frame).to(device=dev, dtype=log.payload.dtype)
+    ok = ts > log.last_ts
+    idx = log.head.reshape(1).long()
+    slot = log.payload.index_select(0, idx)
+    log.payload.index_copy_(
+        0, idx, torch.where(ok, frame.reshape(slot.shape), slot))
+    log.timestamps.index_copy_(
+        0, idx, torch.where(ok, ts, log.timestamps.index_select(0, idx)))
+    log.count.copy_(torch.where(
+        ok, torch.clamp(log.count + 1, max=log.capacity), log.count))
+    log.head.copy_(torch.where(ok, (log.head + 1) % log.capacity, log.head))
+    log.last_ts.copy_(torch.where(ok, ts, log.last_ts))
+    log.rejects.add_((~ok).to(torch.int32))
+    return log
+
+
+def _ordered_view(log: FrameLog) -> tuple[torch.Tensor, torch.Tensor]:
+    """Timestamps in time order + the gather indices producing that order."""
+    cap = log.capacity
+    ar = torch.arange(cap, device=log.timestamps.device)
+    start = (log.head - log.count) % cap
+    idx = (start + ar) % cap                   # oldest .. newest, then empties
+    ts = log.timestamps[idx]
+    # Mark empty slots (+inf) so searchsorted never lands past live entries.
+    return torch.where(ar < log.count, ts, torch.inf), idx
+
+
+def frame_log_point_query(log: FrameLog, timestamp
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Newest entry with ts <= timestamp.
+
+    Returns (found, ts, frame); if not found, ts = -inf and frame is the
+    payload of the oldest slot in ring order (callers must gate on
+    ``found``).  A binary search over the time-ordered timestamps."""
+    ts, idx = _ordered_view(log)
+    pos = torch.searchsorted(ts, _timestamp(log, timestamp).reshape(1),
+                             right=True) - 1
+    found = pos >= 0
+    safe = torch.clamp(pos, 0, log.capacity - 1)
+    return (found[0], torch.where(found, ts[safe], -torch.inf)[0],
+            log.payload[idx[safe]][0])
+
+
+def frame_log_range_query(log: FrameLog, t_start, t_stop, max_results: int
+                          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Entries with t_start <= ts <= t_stop, oldest first, fixed-size output.
+
+    Returns (valid_mask[max_results], ts[max_results] with -inf where not
+    valid, frames[max_results, ...] gathered at clipped positions).
+    ``max_results`` plays the role of the subscriber's fetch window."""
+    ts, idx = _ordered_view(log)
+    lo = torch.searchsorted(ts, _timestamp(log, t_start).reshape(1))
+    hi = torch.searchsorted(ts, _timestamp(log, t_stop).reshape(1),
+                            right=True)
+    offs = lo + torch.arange(max_results, device=ts.device)
+    valid = offs < hi
+    safe = torch.clamp(offs, 0, log.capacity - 1)
+    return (valid, torch.where(valid, ts[safe], -torch.inf),
+            log.payload[idx[safe]])

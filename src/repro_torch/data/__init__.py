@@ -1,2 +1,3 @@
 """Synthetic camera streams with ground truth (``camera``), and the host
-data pipeline of training (``pipeline``)."""
+data pipeline (``pipeline``): training batches, prefetch, straggler
+hedging and camera batches."""

@@ -1,7 +1,14 @@
-"""The knob grid as device compute: one pass over a clip evaluates every
-setting of one (resolution, colorspace) group.
+"""Frame-quality kernels on the card: the knob grid (one pass over a clip
+evaluates every setting of one (resolution, colorspace) group), and the
+fixed-function ``frame_knobs`` of the camera node.
 
-Per (setting, frame) it applies, in the order of the host pipeline:
+``frame_knobs`` takes gray planes ``[N, H, W]`` and their previous frames
+and returns a 2x2 mean pool with an edge-clamped k-tap box blur (vertical,
+then horizontal) and the knob5 changed-pixel fraction; ``frame_knobs_plain``
+is its plain PyTorch version, and ``csrc/frame_knobs.cu`` its kernel.
+
+The knob grid applies, per (setting, frame), in the order of the host
+pipeline:
 
   1. knob5 change metric on the raw frame (channel-mean ``|f - prev|`` above
      ``pixel_delta``), measured before knob4;
@@ -15,7 +22,7 @@ Per (setting, frame) it applies, in the order of the host pipeline:
   6. six wire-size proxy features per payload (sum log2(1+|d|), zero-delta
      count, |d|<=2 count, for horizontal and vertical byte deltas).
 
-Three pieces live here:
+Three pieces of the grid live here:
 
 ``build_transform_plan``     the host half: dense per-axis operators of one
                              group, plus their band form (start, length,
@@ -43,7 +50,8 @@ __all__ = ["TransformPlan", "Band", "build_transform_plan", "band_form",
            "frame_knob_grid", "frame_knob_grid_plain", "resize_operator",
            "blur_operator", "proxy_features", "proxy_features_host",
            "N_PROXY_FEATURES", "ARTIFACT_THRESH", "CS_BGR", "CS_GRAY",
-           "CS_YUV420"]
+           "CS_YUV420", "frame_knobs", "frame_knobs_plain",
+           "KNOBS_KERNEL_DTYPES"]
 
 N_PROXY_FEATURES = 6   # (log2-sum, zero-count, <=2-count) x (dx, dy)
 ARTIFACT_THRESH = 18.0  # knobs._artifact_removal's default mask threshold
@@ -586,3 +594,145 @@ def frame_knob_grid(frames: torch.Tensor, prev: torch.Tensor,
 
 
 frame_knob_grid.launches = 0
+
+
+# =============================================================================
+# The fixed-function kernel of the camera node
+# =============================================================================
+
+KNOBS_KERNEL_DTYPES = {torch.uint8: 0, torch.float32: 1}
+
+
+def _check_knobs(frames: torch.Tensor, prev: torch.Tensor,
+                 blur_k: int) -> None:
+    if frames.dim() != 3 or prev.shape != frames.shape:
+        raise ValueError(f"frame_knobs: frames and prev [N, H, W] of one "
+                         f"shape expected, got {tuple(frames.shape)}, "
+                         f"{tuple(prev.shape)}")
+    _, h, w = frames.shape
+    if h % 2 or w % 2 or h < 2 or w < 2:
+        raise ValueError(f"frame_knobs: H and W must be even, got {(h, w)}")
+    if blur_k < 0:
+        raise ValueError(f"frame_knobs: blur_k >= 0 expected, got {blur_k}")
+
+
+def _knobs_scalars(h: int, w: int, blur_k: int, pixel_delta: float
+                   ) -> tuple[float, float, float]:
+    """The float32 operands both routes use: ``1/(h*w)``, ``1/k`` and the
+    threshold, each rounded to float32 once (a reciprocal multiply, never a
+    division: PyTorch on CUDA turns a division by a host scalar into one,
+    so a division would round differently on the two devices)."""
+    one = np.float32(1.0)
+    return (float(one / np.float32(h * w)),
+            float(one / np.float32(max(blur_k, 1))),
+            float(np.float32(pixel_delta)))
+
+
+def frame_knobs_plain(frames: torch.Tensor, prev: torch.Tensor, *,
+                      blur_k: int = 5, pixel_delta: float = 8.0
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``frame_knobs``, op for op the JAX body
+    ``_knobs_kernel`` with its arithmetic fixed so the kernel can follow it
+    exactly: the changed count is an integer sum of ``|f - prev| >
+    pixel_delta`` times the float32 reciprocal of ``h*w``; the 2x2 sum is
+    ``((f00 + f01) + f10) + f11`` times 0.25; the k vertical taps
+    (``dy`` in ``[-(k//2), k - k//2)``, rows clamped at the edges) are added
+    in ascending ``dy`` and multiplied by the float32 reciprocal of k, then
+    the same horizontally.  ``blur_k <= 1`` means no blur."""
+    _check_knobs(frames, prev, blur_k)
+    f = frames.float()
+    p = prev.float()
+    n, h, w = f.shape
+    inv_hw, inv_k, delta = _knobs_scalars(h, w, blur_k, pixel_delta)
+    changed = ((f - p).abs() > delta).sum((1, 2)).to(torch.float32) * inv_hw
+
+    q = f.reshape(n, h // 2, 2, w // 2, 2)
+    out = (((q[:, :, 0, :, 0] + q[:, :, 0, :, 1]) + q[:, :, 1, :, 0])
+           + q[:, :, 1, :, 1]) * 0.25
+    if blur_k > 1:
+        pad = blur_k // 2
+        for dim in (1, 2):
+            size = out.shape[dim]
+            pos = torch.arange(size, device=f.device)
+            acc = None
+            for d in range(-pad, blur_k - pad):
+                tap = out.index_select(dim, torch.clamp(pos + d, 0, size - 1))
+                acc = tap if acc is None else acc + tap
+            out = acc * inv_k
+    return out, changed
+
+
+def _load_knobs_lib() -> ctypes.CDLL:
+    from repro_torch.kernels.build import load_library
+    lib = load_library("frame_knobs")
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.fk_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                              f32, f32, f32, i32, ptr]
+    lib.fk_launch.restype = i32
+    lib.fk_smem_bytes.argtypes = [i32]
+    lib.fk_smem_bytes.restype = i32
+    lib.fk_error_string.argtypes = [i32]
+    lib.fk_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _knobs_launch(frames: torch.Tensor, prev: torch.Tensor, blur_k: int,
+                  pixel_delta: float) -> tuple[torch.Tensor, torch.Tensor]:
+    if frames.device.type != "cuda" or prev.device != frames.device:
+        raise RuntimeError(f"frame_knobs: frames and prev on one CUDA device "
+                           f"(or both on the CPU) expected, got "
+                           f"{frames.device}, {prev.device}")
+    if frames.dtype != prev.dtype or frames.dtype not in KNOBS_KERNEL_DTYPES:
+        raise RuntimeError(f"frame_knobs: the kernel takes uint8 or float32 "
+                           f"frames and prev of one dtype, got "
+                           f"{frames.dtype}, {prev.dtype}")
+    if not (frames.is_contiguous() and prev.is_contiguous()):
+        raise RuntimeError("frame_knobs: the kernel takes contiguous tensors")
+    n, h, w = frames.shape
+    if n > 65535 or h * w >= 2 ** 31:
+        raise RuntimeError(f"frame_knobs: at most 65535 frames of under 2^31 "
+                           f"pixels, got {tuple(frames.shape)}")
+    lib = _load_knobs_lib()
+    k = max(blur_k, 1)
+    if lib.fk_smem_bytes(k) > _SMEM_LIMIT:
+        raise RuntimeError(f"frame_knobs: blur_k {blur_k} exceeds the shared "
+                           f"memory of one block")
+    inv_hw, inv_k, delta = _knobs_scalars(h, w, blur_k, pixel_delta)
+    out = torch.empty((n, h // 2, w // 2), dtype=torch.float32,
+                      device=frames.device)
+    changed = torch.empty(n, dtype=torch.float32, device=frames.device)
+    count = torch.empty(n, dtype=torch.int32, device=frames.device)
+    with torch.cuda.device(frames.device):
+        stream = torch.cuda.current_stream(frames.device).cuda_stream
+        rc = lib.fk_launch(frames.data_ptr(), prev.data_ptr(), out.data_ptr(),
+                           changed.data_ptr(), count.data_ptr(), n, h, w, k,
+                           inv_k, inv_hw, delta,
+                           KNOBS_KERNEL_DTYPES[frames.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"frame_knobs: CUDA error {rc}: "
+                           f"{lib.fk_error_string(rc).decode()}")
+    frame_knobs.launches += 1
+    return out, changed
+
+
+def frame_knobs(frames: torch.Tensor, prev: torch.Tensor, *,
+                blur_k: int = 5, pixel_delta: float = 8.0
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """frames/prev ``[N, H, W]`` (uint8 or float32, H and W even) ->
+    (out float32 ``[N, H/2, W/2]``, changed float32 ``[N]``): the 2x2 mean
+    pool, the edge-clamped ``blur_k``-tap box blur (none for ``blur_k <=
+    1``) and the fraction of pixels with ``|f - prev| > pixel_delta``.
+
+    On CUDA tensors it launches the hand-written kernel
+    (``csrc/frame_knobs.cu``; uint8 or float32, both alike, contiguous)
+    and adds one to ``frame_knobs.launches``; on CPU tensors it takes
+    ``frame_knobs_plain``.  Anything else raises ``RuntimeError``; a shape
+    the function does not take raises ``ValueError``."""
+    _check_knobs(frames, prev, blur_k)
+    if frames.device.type == "cpu" and prev.device.type == "cpu":
+        return frame_knobs_plain(frames, prev, blur_k=blur_k,
+                                 pixel_delta=pixel_delta)
+    return _knobs_launch(frames, prev, blur_k, pixel_delta)
+
+
+frame_knobs.launches = 0

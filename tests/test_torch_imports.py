@@ -23,11 +23,13 @@ from repro_torch.core import characterization as TCh  # noqa: E402
 from repro_torch.core import controller as TC  # noqa: E402
 from repro_torch.core import drift as TD  # noqa: E402
 from repro_torch.core import grid_engine as TG  # noqa: E402
+from repro_torch.core import log as TL  # noqa: E402
 from repro_torch.core.broker import MezSystem  # noqa: E402
 from repro_torch.core.channel import calibrated_channel  # noqa: E402
 from repro_torch.data.camera import CameraConfig, SyntheticCamera  # noqa: E402
 from repro_torch.kernels import frame_knobs as FK  # noqa: E402
 from repro_torch.kernels import linear_scan as LS  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import rwkv6 as TR  # noqa: E402
@@ -146,6 +148,16 @@ ENTRY_POINTS = {
         wkv=np.zeros((2, 1, 4, 16, 16), np.float32),
         shift_tm=np.zeros((2, 1, 64), np.float32),
         shift_cm=np.zeros((2, 1, 64), np.float32), length=0),
+    "frame_log_init": lambda: TL.frame_log_init(4, (2, 2, 3)),
+    "frame_log_from_numpy": lambda: convert.frame_log_from_numpy(
+        timestamps=np.full(4, -np.inf, np.float32),
+        payload=np.zeros((4, 2, 2, 3), np.uint8), head=np.int32(0),
+        count=np.int32(0), last_ts=np.float32(-np.inf),
+        rejects=np.int32(0)),
+    "ops.frame_knobs": lambda: ops.frame_knobs(
+        np.zeros((1, 4, 4), np.uint8), np.zeros((1, 4, 4), np.uint8)),
+    "ops.quantize_blocks": lambda: ops.quantize_blocks(
+        np.zeros((4, 8), np.float32)),
 }
 
 
@@ -190,6 +202,16 @@ def test_wkv_kernel_route_raises_off_cpu_and_cuda():
     with pytest.raises(RuntimeError, match="one CUDA device"):
         LS.wkv(x, x, x, x, torch.zeros((1, 16), device="meta"),
                impl="kernel")
+
+
+def test_frame_knobs_raises_off_cpu_and_cuda():
+    """A tensor on neither the CPU nor a CUDA device never takes the plain
+    route of the knob kernel: the wrapper raises."""
+    x = torch.zeros((1, 4, 4), device="meta")
+    with pytest.raises(RuntimeError, match="one CUDA device"):
+        FK.frame_knobs(x, x)
+    with pytest.raises(RuntimeError, match="one CUDA device"):
+        ops.frame_knobs(x, x, blur_k=1)
 
 
 def test_mesh_is_not_ported():
