@@ -12,7 +12,9 @@ renegotiate one camera's bounds with a live re-sweep.  Phases, one JSON line
 each, with their wall seconds:
 
   build         compile every kernel of ``src/repro_torch/kernels/csrc``
-                (one ``nvcc`` per source, all started together) and load it;
+                (one ``nvcc`` per source, all started together) and load
+                it; registers and spills per kernel function, failing if a
+                redesigned kernel (``NO_SPILL``) spills;
   kernel        every (resolution, colorspace) group at 1080x1920 in three
                 cases -- 16 frames without knob4, 16 frames with knob4
                 (characterize's shape) and the live re-sweep's own 32-frame
@@ -36,11 +38,14 @@ each, with their wall seconds:
                 published widths: the flash and decode attention kernels
                 against their plain versions at the serving shapes (float32
                 and bfloat16, timed beside the bound, the plain version and
-                SDPA), the whole model in float32 with the kernels against
-                the naive attention (prefill and 8 teacher-forced decode
-                steps), the timed ``serve(batch=8, prompt_len=1024,
-                gen=256)`` in bfloat16 with the kernels' launches counted,
-                and one traced decode step;
+                SDPA; flash in bfloat16 also at D=64, S=1 and S=65, each
+                call checked to take the route ``flash_route`` names), the
+                whole model in float32 with the kernels against the naive
+                attention (prefill and 8 teacher-forced decode steps), the
+                timed ``serve(batch=8, prompt_len=1024, gen=256)`` in
+                bfloat16 with the kernels' launches counted (every flash
+                launch on the ``wgmma`` route), and one traced decode
+                step;
   serve_rwkv    the SSM family's serving path, ``rwkv6-1.6b`` at its
                 published widths: the wkv scan kernel against its plain
                 version (prefill, decode and ragged shapes, float32 and
@@ -90,8 +95,9 @@ each, with their wall seconds:
 
 Then a ``kernels`` line (every kernel: launches on its main path, error
 against its plain version, its time beside its bound, the plain version's
-and the library call's), the card's ``name, power.limit``, and as the last
-line
+and the library call's; the attention pair also its ``kernel_route`` and
+``call_ms``, the wrapper's time with its host work), the card's ``name,
+power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line; without a CUDA device, or outside a checkout, it exits 2.
 """
@@ -134,6 +140,11 @@ SERVE_BATCH, SERVE_PROMPT, SERVE_GEN = 8, 1024, 256
 # config; decode over the serve's cache (S_max = 1024 + 256 + 256) at these
 # lengths (1152: the mean length of the serve's decode steps)
 FLASH_SHAPES = ((8, 1024), (8, 1000))
+# bfloat16 only, beside them: (B, S, D) -- the tensor-core route at D=64,
+# one query row, and one row past a 64-key tile
+FLASH_EXTRA = ((8, 1024, 64), (8, 1, 128), (8, 65, 128))
+# kernel functions of this slice's redesign, which must build without spills
+NO_SPILL = ("flash_wgmma", "decode_fused")
 DECODE_S_MAX = 1536
 DECODE_LENGTHS = (1, 1024, 1152, 1279, 1536)
 # max |kernel - plain| on unit-normal inputs, per (kernel, dtype).  bf16:
@@ -519,18 +530,29 @@ def phase_attention(dev, cfg) -> list[dict]:
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        for b, s in FLASH_SHAPES:
-            q = torch.randn((b, s, qh, d), generator=g, device=dev).to(dtype)
-            k = torch.randn((b, s, kh, d), generator=g, device=dev).to(dtype)
-            v = torch.randn((b, s, kh, d), generator=g, device=dev).to(dtype)
+        shapes = [(b, s, d) for b, s in FLASH_SHAPES]
+        if dtype == torch.bfloat16:
+            shapes += FLASH_EXTRA
+        for b, s, hd in shapes:
+            q = torch.randn((b, s, qh, hd), generator=g, device=dev).to(dtype)
+            k = torch.randn((b, s, kh, hd), generator=g, device=dev).to(dtype)
+            v = torch.randn((b, s, kh, hd), generator=g, device=dev).to(dtype)
+            route = FA.flash_route(dtype, hd)
+            before = dict(FA.flash_attention.launches_by_route)
             got = FA.flash_attention(q, k, v, causal=True)
+            took = {r: n - before[r] for r, n in
+                    FA.flash_attention.launches_by_route.items()}
+            if q.is_cuda and took != {r: int(r == route) for r in FA.ROUTES}:
+                raise AssertionError(f"flash {name} D={hd}: routes {took}, "
+                                     f"want one launch of {route}")
             want = FA.flash_attention_plain(q, k, v, causal=True)
             torch.cuda.synchronize()
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            b_ms, b_by = attn_bound_ms("flash", dtype, b, s, qh, kh, d)
+            b_ms, b_by = attn_bound_ms("flash", dtype, b, s, qh, kh, hd)
             row = dict(
-                kernel="flash_attention", dtype=name,
-                shape=f"B={b} S={s} QH={qh} KH={kh} D={d} causal",
+                kernel="flash_attention", dtype=name, kernel_route=route,
+                head_dim=hd,
+                shape=f"B={b} S={s} QH={qh} KH={kh} D={hd} causal",
                 **timed(lambda: FA.flash_attention(q, k, v, causal=True),
                         lambda: FA.flash_attention_plain(q, k, v,
                                                          causal=True),
@@ -553,6 +575,7 @@ def phase_attention(dev, cfg) -> list[dict]:
             b_ms, b_by = attn_bound_ms("decode", dtype, b, length, qh, kh, d)
             row = dict(
                 kernel="decode_attention", dtype=name, length=length,
+                kernel_route="cluster",
                 shape=f"B={b} S_max={DECODE_S_MAX} QH={qh} KH={kh} D={d} "
                       f"length={length}",
                 **timed(lambda: DA.decode_attention(q, kc, vc, length),
@@ -659,11 +682,16 @@ def phase_serve_timed(dev, arch: str, *, reduced: bool, batch: int,
     torch.cuda.reset_peak_memory_stats()
     for fn, _ in kernels.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
     t0 = time.monotonic()
     out = serve(arch, batch=batch, prompt_len=prompt, gen=gen,
                 reduced=reduced, device=dev)
     seconds = time.monotonic() - t0
     launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    routes = {name: dict(fn.launches_by_route)
+              for name, (fn, _) in kernels.items()
+              if hasattr(fn, "launches_by_route")}
     want = {name: n for name, (_, n) in kernels.items()}
     toks = out["tokens"]
     res = dict(arch=arch, seconds=seconds, batch=batch, prompt_len=prompt,
@@ -671,12 +699,17 @@ def phase_serve_timed(dev, arch: str, *, reduced: bool, batch: int,
                decode_p50_ms=out["decode_p50_ms"],
                decode_p95_ms=out["decode_p95_ms"],
                tokens_per_s=out["tokens_per_s"], cache_len=out["cache_len"],
-               launches=launches,
+               launches=launches, launches_by_route=routes,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
                / 1e9,
                distinct_tokens=int(len(set(toks.ravel().tolist()))))
     if launches != want:
         raise AssertionError(f"serve launched {launches}, want {want}")
+    if "flash_attention" in routes and routes["flash_attention"] != {
+            "wgmma": want["flash_attention"], "ffma": 0}:
+        # the bf16 serve's prefill (D=128) runs on the tensor cores
+        raise AssertionError(f"serve's flash routes {routes}, want every "
+                             f"launch on wgmma")
     if toks.shape != (batch, gen + 1) or out["cache_len"] != prompt + gen:
         raise AssertionError(f"serve returned tokens {toks.shape}, "
                              f"cache_len {out['cache_len']}")
@@ -1721,6 +1754,28 @@ def knobs_kernel_row(knobs: dict, cam: dict) -> dict:
                  f"{KNOBS_BLUR} (one camera's {CAM_WINDOW}-frame window)"}
 
 
+def ptxas_functions(paths) -> list[dict]:
+    """Each kernel function in the ``-Xptxas -v`` logs of ``paths`` (name
+    -> library): its source, mangled name, registers and spill bytes
+    (stores + loads)."""
+    out = []
+    for src, pth in paths.items():
+        cur = None
+        for ln in Path(str(pth) + ".log").read_text().splitlines():
+            if m := re.search(r"Compiling entry function '(\w+)'", ln):
+                cur = dict(source=src, function=m.group(1), registers=None,
+                           spill_bytes=0)
+                out.append(cur)
+            elif cur is None:
+                continue
+            elif m := re.search(r"(\d+) bytes spill stores, (\d+) bytes "
+                                r"spill loads", ln):
+                cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            elif m := re.search(r"Used (\d+) registers", ln):
+                cur["registers"] = int(m.group(1))
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found -- run from the root "
@@ -1761,8 +1816,16 @@ def run(dev) -> None:
     ptxas = [ln.strip() for pth in paths.values()
              for ln in Path(str(pth) + ".log").read_text().splitlines()
              if "registers" in ln or "spill" in ln]
+    functions = ptxas_functions(paths)
+    redesigned = [f for f in functions
+                  if any(k in f["function"] for k in NO_SPILL)]
     emit("build", seconds=time.monotonic() - t0, kernels=sorted(paths),
-         ptxas=ptxas)
+         ptxas=ptxas, redesigned=redesigned)
+    spilled = [f for f in redesigned if f["spill_bytes"]]
+    if len({k for k in NO_SPILL for f in redesigned
+            if k in f["function"]}) != len(NO_SPILL) or spilled:
+        raise AssertionError(f"redesigned kernels missing or spilling: "
+                             f"{spilled or redesigned}")
 
     import numpy as np
     from repro_torch.configs.mez_edge import CONFIG
@@ -1959,12 +2022,16 @@ def run(dev) -> None:
     quant, train_run = phase_training(dev)
     # -- the camera node: device rings and the knob kernel ----------------
     knobs_row = knobs_kernel_row(*phase_camera(dev))
+    from repro_torch.configs import get_config
+    serve_cfg = get_config(SERVE_ARCH)
+    serve_hd = (serve_cfg.reduced() if SERVE_REDUCED else serve_cfg).head_dim
     serve_kernels = []
     for name, src, replaces, pick in (
             ("flash_attention", "flash_attention.cu",
              "src/repro/kernels/flash_attention.py:74",
              lambda r: r["shape"].startswith(
-                 f"B={SERVE_BATCH} S={SERVE_PROMPT} ")),
+                 f"B={SERVE_BATCH} S={SERVE_PROMPT} ")
+             and r["head_dim"] == serve_hd),
             ("decode_attention", "decode_attention.cu",
              "src/repro/kernels/decode_attention.py:61",
              lambda r: r.get("length") == DECODE_LENGTHS[2])):
@@ -1973,15 +2040,19 @@ def run(dev) -> None:
                         if r["dtype"] == "bfloat16" and pick(r))
         serve_kernels.append({
             "name": name, "route": "cuda",
+            "kernel_route": main_row["kernel_route"],
             "source": f"src/repro_torch/kernels/csrc/{src}",
             "replaces": replaces,
             "launches": timed["launches"][name],
+            **({"launches_by_route": timed["launches_by_route"][name]}
+               if name in timed["launches_by_route"] else {}),
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "max_abs_err_float32": max(r["max_abs_err"] for r in mine
                                        if r["dtype"] == "float32"),
             **{k: main_row[k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")},
+                                        "bound_by", "library_ms",
+                                        "call_ms")},
             "shape": main_row["shape"] + " bfloat16 (the serve's "
                      + ("prefill" if name == "flash_attention" else
                         "mean decode length") + ")"})

@@ -20,9 +20,13 @@ Trees are nested dicts of tensors (or NumPy arrays); the flat key of a
 leaf is its key path joined with ``/`` (``repro_torch.tree``), the JAX
 package's key.  NumPy has no bfloat16 without ``ml_dtypes``, so a
 bfloat16 leaf is stored as its ``uint16`` bits and the manifest records
-its dtype; ``restore`` gives it back as bfloat16.  ``restore`` places each
-leaf on one device (default ``"cuda"``); the port has no mesh, so there
-are no shardings.
+its dtype; ``restore`` gives it back as bfloat16.  The JAX package's
+manifest records no dtypes, and its ``np.save`` of an ``ml_dtypes``
+bfloat16 leaf writes 2-byte void records (``|V2``): ``restore`` reads
+those as bfloat16 bits where the target leaf is bfloat16, and raises
+``ValueError`` for any other void leaf.  ``restore`` places each leaf on
+one device (default ``"cuda"``); the port has no mesh, so there are no
+shardings.
 """
 
 from __future__ import annotations
@@ -76,6 +80,21 @@ def _from_numpy(arr: np.ndarray, dtype_name: str, device) -> torch.Tensor:
     else:
         t = torch.from_numpy(arr)
     return t.to(device)
+
+
+def _stored_dtype(key: str, arr: np.ndarray, leaf) -> str:
+    """The dtype name of a leaf that the manifest does not type (a JAX
+    checkpoint's): NumPy's own, but a 2-byte void leaf -- ``np.save`` of an
+    ``ml_dtypes`` bfloat16 array -- is bfloat16 bits, which only a bfloat16
+    target leaf may claim."""
+    if arr.dtype.kind != "V":
+        return arr.dtype.name
+    target = getattr(leaf, "dtype", None)
+    if arr.dtype.itemsize == 2 and target == torch.bfloat16:
+        return _BF16
+    raise ValueError(f"{key}: stored as untyped {arr.dtype.str} records, "
+                     f"target leaf is {target}; only a 2-byte leaf restored "
+                     f"into a bfloat16 target is read (as bfloat16 bits)")
 
 
 def _fname(key: str) -> str:
@@ -180,8 +199,11 @@ class Checkpointer:
         the keys and the shapes; the stored dtypes are kept) from ``step``
         (default: the newest valid one), every leaf on ``device`` (default
         ``"cuda"``; without a CUDA device the default raises
-        ``RuntimeError``).  Raises ``FileNotFoundError`` when no valid step
-        exists and ``ValueError`` on a shape mismatch."""
+        ``RuntimeError``).  A leaf the manifest does not type takes NumPy's
+        dtype, or bfloat16 for 2-byte void records aimed at a bfloat16
+        target (``_stored_dtype``).  Raises ``FileNotFoundError`` when no
+        valid step exists and ``ValueError`` on a shape mismatch or on void
+        records aimed at any other target."""
         dev = resolve_device(device)
         step = step if step is not None else self.latest_valid_step()
         if step is None:
@@ -194,7 +216,8 @@ class Checkpointer:
             if tuple(arr.shape) != tuple(leaf.shape):
                 raise ValueError(f"shape mismatch for {key}: "
                                  f"{arr.shape} vs {tuple(leaf.shape)}")
-            return _from_numpy(arr, dtypes.get(key, arr.dtype.name), dev)
+            name = dtypes.get(key) or _stored_dtype(key, arr, leaf)
+            return _from_numpy(arr, name, dev)
 
         return tree_map_with_keys(load, target_tree), step
 

@@ -62,22 +62,25 @@ class DriftParams:
     min_samples: torch.Tensor   # i32[N]
 
     @classmethod
-    def from_config(cls, config: DriftConfig, n: int, *,
+    def from_config(cls, config: DriftConfig, n: int | None = None, *,
                     device: "str | torch.device | None" = None
                     ) -> "DriftParams":
-        """``n`` identical lanes on ``device`` (default ``"cuda"``)."""
+        """``n`` identical lanes on ``device`` (default ``"cuda"``), or
+        scalar thresholds for one unstacked lane (``n=None``)."""
         device = resolve_device(device)
-        return cls(torch.full((n,), config.hi, dtype=torch.float32,
+        shape = () if n is None else (n,)
+        return cls(torch.full(shape, config.hi, dtype=torch.float32,
                               device=device),
-                   torch.full((n,), config.lo, dtype=torch.float32,
+                   torch.full(shape, config.lo, dtype=torch.float32,
                               device=device),
-                   torch.full((n,), config.min_samples, dtype=torch.int32,
+                   torch.full(shape, config.min_samples, dtype=torch.int32,
                               device=device))
 
 
 @dataclasses.dataclass
 class DriftState:
-    """Per-lane monitor state along a leading camera axis."""
+    """Per-lane monitor state along a leading camera axis (none for one
+    unstacked lane: ``errs [window]`` and scalar counters)."""
     errs: torch.Tensor      # f32[N, window] ring of |relative error| samples
     pos: torch.Tensor       # i32[N] next ring slot
     count: torch.Tensor     # i32[N] live samples (saturates at window)
@@ -85,34 +88,44 @@ class DriftState:
     fires: torch.Tensor     # i32[N] cumulative fire count (telemetry)
 
 
-def drift_init(n: int, window: int, *,
+def drift_init(n: int | None, window: int, *,
                device: "str | torch.device | None" = None) -> DriftState:
     """Fresh, armed state for ``n`` lanes on ``device`` (default
-    ``"cuda"``)."""
+    ``"cuda"``); ``n=None``: one unstacked lane."""
     device = resolve_device(device)
+    shape = () if n is None else (n,)
     return DriftState(
-        errs=torch.zeros((n, window), dtype=torch.float32, device=device),
-        pos=torch.zeros(n, dtype=torch.int32, device=device),
-        count=torch.zeros(n, dtype=torch.int32, device=device),
-        armed=torch.ones(n, dtype=torch.bool, device=device),
-        fires=torch.zeros(n, dtype=torch.int32, device=device),
+        errs=torch.zeros(shape + (window,), dtype=torch.float32,
+                         device=device),
+        pos=torch.zeros(shape, dtype=torch.int32, device=device),
+        count=torch.zeros(shape, dtype=torch.int32, device=device),
+        armed=torch.ones(shape, dtype=torch.bool, device=device),
+        fires=torch.zeros(shape, dtype=torch.int32, device=device),
     )
 
 
-def drift_update(state: DriftState, errs: torch.Tensor, valid: torch.Tensor,
-                 params: DriftParams
+def drift_update(state: DriftState, errs, valid, params: DriftParams
                  ) -> tuple[DriftState, torch.Tensor, torch.Tensor]:
     """One monitor tick for a whole fleet: push -> score -> hysteresis
     decision, lane by lane.  Returns (new_state, fired[N] bool, score[N]
-    f32).
+    f32).  A state of one unstacked lane (``drift_init(None, window)``)
+    takes scalar ``errs``/``valid``/params and returns scalars.
 
     Invalid observations (no frames shipped this poll) leave the lane
     untouched except that the decision is still evaluated -- a lane cannot
     fire while empty because ``count`` gates on ``min_samples``.
     """
+    dev = state.errs.device
+    err = torch.as_tensor(errs, device=dev).to(torch.float32).abs()
+    valid = torch.as_tensor(valid, device=dev).to(torch.bool)
+    if state.pos.dim() == 0:
+        one = DriftState(*(x[None] for x in dataclasses.astuple(state)))
+        lane = DriftParams(*(x[None] for x in (params.hi, params.lo,
+                                               params.min_samples)))
+        new, fired, score = drift_update(one, err[None], valid[None], lane)
+        return (DriftState(*(x[0] for x in dataclasses.astuple(new))),
+                fired[0], score[0])
     n, window = state.errs.shape
-    err = errs.to(torch.float32).abs()
-    valid = valid.to(torch.bool)
     lane = torch.arange(n, device=err.device)
     pushed = state.errs.clone()
     pushed[lane, state.pos.long()] = err

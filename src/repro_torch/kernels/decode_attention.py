@@ -10,8 +10,9 @@ kernel ``decode_attention``).  Two pieces:
                             ``length`` masked to ``-inf``, a softmax, the
                             result cast to ``q.dtype``.  The CPU path and the
                             card's yardstick.
-``decode_attention``        the wrapper: CUDA tensors go to the split-K
-                            kernel (``csrc/decode_attention.cu``), CPU
+``decode_attention``        the wrapper: CUDA tensors go to the kernel
+                            (``csrc/decode_attention.cu``: one clustered
+                            launch, the output its only allocation), CPU
                             tensors to the plain version, anything else
                             raises.
 
@@ -47,12 +48,9 @@ def _load_lib():
         from repro_torch.kernels import build
         lib = build.load_library("decode_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.da_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i32,
-                                  i32, i32, i32, i32, ctypes.c_float, i32,
-                                  ptr]
+        lib.da_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
+                                  i32, i32, ctypes.c_float, i32, ptr]
         lib.da_launch.restype = i32
-        lib.da_num_splits.argtypes = [i32]
-        lib.da_num_splits.restype = i32
         lib.da_error_string.argtypes = [i32]
         lib.da_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -114,19 +112,13 @@ def _launch(q, k_cache, v_cache, length: int, scale: float) -> torch.Tensor:
             raise RuntimeError("decode_attention: the kernel takes "
                                "contiguous, 16-byte aligned tensors")
     lib = _load_lib()
-    n_split = lib.da_num_splits(length)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    part_m = torch.empty((b, qh, n_split), **f32)
-    part_l = torch.empty((b, qh, n_split), **f32)
-    part_acc = torch.empty((b, qh, n_split, d), **f32)
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.da_launch(q.data_ptr(), k_cache.data_ptr(),
-                           v_cache.data_ptr(), out.data_ptr(),
-                           part_m.data_ptr(), part_l.data_ptr(),
-                           part_acc.data_ptr(), b, s_max, qh, kh, d, length,
-                           float(scale), KERNEL_DTYPES[q.dtype], stream)
+                           v_cache.data_ptr(), out.data_ptr(), b, s_max, qh,
+                           kh, d, length, float(scale),
+                           KERNEL_DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention: CUDA error {rc}: "
                            f"{lib.da_error_string(rc).decode()}")
@@ -141,8 +133,9 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``[B, S_max, KH, D]`` masked at ``length`` (a Python int, ``1 <= length
     <= S_max``) -> ``[B, 1, QH, D]`` in q's dtype.
 
-    On CUDA tensors it launches the hand-written split-K kernel (float32 or
-    bfloat16, contiguous) and adds one to ``decode_attention.launches``; on
+    On CUDA tensors it launches the hand-written kernel once (float32 or
+    bfloat16, contiguous; the output is the only allocation) and adds one
+    to ``decode_attention.launches``; on
     CPU tensors it takes ``decode_attention_plain``.  Anything else raises
     ``RuntimeError``.
     """

@@ -10,8 +10,14 @@ kernel ``flash_attention``).  Two pieces:
                             softmax, the result cast to ``q.dtype``.  The
                             CPU path and the card's yardstick.
 ``flash_attention``         the wrapper: a CUDA tensor goes to the kernel
-                            (``csrc/flash_attention.cu``), a CPU tensor to
-                            the plain version, anything else raises.
+                            route ``flash_route`` names (both hand-written,
+                            in ``csrc/flash_attention.cu``), a CPU tensor
+                            to the plain version, anything else raises.
+``flash_route``             the route of a CUDA call, from dtype and head
+                            dim alone: "wgmma" (bfloat16, D 64/128: both
+                            products on the tensor cores, K/V tiles by
+                            TMA) or "ffma" (float32, or bfloat16 at D
+                            16/32: the f32 CUDA-core kernel).
 
 Shapes follow the JAX package: q ``[B, Sq, QH, D]``, k/v ``[B, Sk, KH, D]``
 with ``QH % KH == 0``; the output has q's shape and dtype.  The causal mask
@@ -25,11 +31,13 @@ import ctypes
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_plain", "KERNEL_DTYPES",
-           "KERNEL_HEAD_DIMS"]
+__all__ = ["flash_attention", "flash_attention_plain", "flash_route",
+           "KERNEL_DTYPES", "KERNEL_HEAD_DIMS", "ROUTES"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+ROUTES = ("wgmma", "ffma")
+WGMMA_HEAD_DIMS = (64, 128)
 
 _lib = None
 
@@ -44,6 +52,10 @@ def _load_lib():
         lib.fa_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
                                   i32, i32, ctypes.c_float, i32, i32, ptr]
         lib.fa_launch.restype = i32
+        lib.fa_launch_wgmma.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32,
+                                        i32, i32, i32, ctypes.c_float, i32,
+                                        ptr]
+        lib.fa_launch_wgmma.restype = i32
         lib.fa_error_string.argtypes = [i32]
         lib.fa_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -89,32 +101,53 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                            f"({q.dtype}, {k.dtype}, {v.dtype})")
 
 
+def flash_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel route a CUDA call with inputs of ``dtype`` and
+    ``head_dim`` takes -- a choice by shape and type, made before any
+    launch, not a fallback: "wgmma" for bfloat16 at head_dim 64 or 128
+    (both products on the bf16 tensor cores), "ffma" for float32 at any
+    head_dim in ``KERNEL_HEAD_DIMS`` and for bfloat16 at 16 or 32 (the f32
+    CUDA-core kernel, which keeps float32 out of TF32).  Anything else
+    raises ``RuntimeError``."""
+    if dtype not in KERNEL_DTYPES:
+        raise RuntimeError(f"flash_attention: the kernel takes float32 or "
+                           f"bfloat16, got {dtype}")
+    if head_dim not in KERNEL_HEAD_DIMS:
+        raise RuntimeError(f"flash_attention: the kernel takes head_dim in "
+                           f"{KERNEL_HEAD_DIMS}, got {head_dim}")
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "ffma"
+
+
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             scale: float) -> torch.Tensor:
-    if q.dtype not in KERNEL_DTYPES:
-        raise RuntimeError(f"flash_attention: the kernel takes float32 or "
-                           f"bfloat16, got {q.dtype}")
     b, sq, qh, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
-    if d not in KERNEL_HEAD_DIMS:
-        raise RuntimeError(f"flash_attention: the kernel takes head_dim in "
-                           f"{KERNEL_HEAD_DIMS}, got {d}")
+    route = flash_route(q.dtype, d)
     if not (q.device == k.device == v.device):
         raise RuntimeError("flash_attention: q, k, v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise RuntimeError("flash_attention: the kernel takes contiguous "
                            "q, k, v")
+    if route == "wgmma" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise RuntimeError("flash_attention: the wgmma route takes 16-byte "
+                           "aligned q, k, v")
     lib = _load_lib()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.fa_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                           out.data_ptr(), b, sq, sk, qh, kh, d, float(scale),
-                           int(causal), KERNEL_DTYPES[q.dtype], stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b,
+                sq, sk, qh, kh, d, float(scale), int(causal))
+        if route == "wgmma":
+            rc = lib.fa_launch_wgmma(*args, stream)
+        else:
+            rc = lib.fa_launch(*args, KERNEL_DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention: CUDA error {rc}: "
                            f"{lib.fa_error_string(rc).decode()}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
@@ -124,9 +157,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """GQA attention, q ``[B, Sq, QH, D]``, k/v ``[B, Sk, KH, D]`` ->
     ``[B, Sq, QH, D]`` in q's dtype.
 
-    On CUDA tensors it launches the hand-written kernel (float32 or
-    bfloat16, contiguous, head_dim in ``KERNEL_HEAD_DIMS``) and adds one to
-    ``flash_attention.launches``; on CPU tensors it takes
+    On CUDA tensors it launches the hand-written kernel of the route
+    ``flash_route(q.dtype, head_dim)`` names (float32 or bfloat16,
+    contiguous, head_dim in ``KERNEL_HEAD_DIMS``) and adds one to
+    ``flash_attention.launches`` and to that route's entry of
+    ``flash_attention.launches_by_route``; on CPU tensors it takes
     ``flash_attention_plain``.  Anything else raises ``RuntimeError``.
     """
     _check(q, k, v)
@@ -140,3 +175,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)

@@ -152,13 +152,34 @@ def test_wrappers_check_inputs():
         TA.gqa_attention(q, k, v, impl="pallas")
 
 
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
+    (torch.bfloat16, 16, "ffma"), (torch.bfloat16, 32, "ffma"),
+    (torch.float32, 16, "ffma"), (torch.float32, 32, "ffma"),
+    (torch.float32, 64, "ffma"), (torch.float32, 128, "ffma")])
+def test_flash_route_choice(dtype, d, route):
+    """bfloat16 at D 64/128 takes the tensor-core route, float32 and the
+    narrow bfloat16 heads the f32 CUDA-core route."""
+    assert FA.flash_route(dtype, d) == route
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float16, 64), (torch.float64, 128),
+                                     (torch.bfloat16, 96), (torch.float32, 8),
+                                     (torch.bfloat16, 256)])
+def test_flash_route_refuses(dtype, d):
+    with pytest.raises(RuntimeError, match="the kernel takes"):
+        FA.flash_route(dtype, d)
+
+
 def test_cpu_calls_do_not_count_as_launches():
     q, k, v = (torch.from_numpy(a) for a in _inputs(1, 1, 8, 8, 4, 2, 16))
     before = (FA.flash_attention.launches, DA.decode_attention.launches)
+    routes = dict(FA.flash_attention.launches_by_route)
     FA.flash_attention(q, k, v)
     DA.decode_attention(q[:, :1], k, v, 8)
     assert (FA.flash_attention.launches,
             DA.decode_attention.launches) == before
+    assert FA.flash_attention.launches_by_route == routes
 
 
 # -- on the card ---------------------------------------------------------------
@@ -211,5 +232,55 @@ def test_cuda_decode_kernel_matches_plain(card, b, s_max, qh, kh, d, length,
     want = DA.decode_attention_plain(q, k, v, length)
     torch.cuda.synchronize()
     assert DA.decode_attention.launches == before + 1
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[str(dtype).removeprefix("torch.")], err
+
+
+# the tensor-core route at every edge of its 128-row blocks and 64-key
+# tiles: (group, S) for B=2, KH=2
+WGMMA_SEQS = (1, 63, 64, 65, 200, 1000, 1024)
+WGMMA_CASES = [(g, s) for g in (1, 2, 4, 8) for s in WGMMA_SEQS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("group,s", WGMMA_CASES,
+                         ids=[f"g{g}-s{s}" for g, s in WGMMA_CASES])
+def test_cuda_flash_wgmma_route(card, group, s, causal, d):
+    q, k, v = (torch.from_numpy(a).to(card, torch.bfloat16)
+               for a in _inputs(s + group, 2, s, s, KH * group, KH, d))
+    before = dict(FA.flash_attention.launches_by_route)
+    got = FA.flash_attention(q, k, v, causal=causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    after = FA.flash_attention.launches_by_route
+    assert after["wgmma"] == before["wgmma"] + 1
+    assert after["ffma"] == before["ffma"]
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL["bfloat16"], err
+
+
+# lengths at the edges of the kernel's chunks and splits, in a cache whose
+# S_max no split size divides
+DECODE_EDGE_LENGTHS = (1, 127, 128, 129, 1152, 1536)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("length", DECODE_EDGE_LENGTHS)
+def test_cuda_decode_one_launch_bit_stable(card, length, dtype):
+    b, s_max, qh, kh, d = 8, 1543, 16, 8, 128
+    q, k, v = (torch.from_numpy(a).to(card, dtype)
+               for a in _inputs(length, b, 1, s_max, qh, kh, d))
+    before = DA.decode_attention.launches
+    got = DA.decode_attention(q, k, v, length)
+    again = DA.decode_attention(q, k, v, length)
+    want = DA.decode_attention_plain(q, k, v, length)
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == before + 2
+    assert torch.equal(got, again)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[str(dtype).removeprefix("torch.")], err

@@ -195,3 +195,48 @@ def test_fleet_swap_tables_touches_only_the_lanes():
     with pytest.raises(ValueError, match="capacity"):
         TC.fleet_swap_tables(stack, 0, TC.ControllerTables.from_table(
             port_table(table_for(0)), capacity=64, device="cpu"))
+
+
+# -- one unstacked drift lane (drift_init(None, window)) -----------------------
+
+LANE_CFG = dict(window=8, hi=0.35, lo=0.15, min_samples=4)
+
+
+def _lane_sequences():
+    """The error sequences ``tests/test_drift.py::TestDriftProperties``
+    drives one lane through, as (errs, valid) pairs."""
+    w, ms, hi, lo = (LANE_CFG[k] for k in ("window", "min_samples", "hi",
+                                           "lo"))
+    return {
+        "stationary": (np.random.default_rng(0).uniform(0.0, hi * 0.98, 60),
+                       True),
+        "step": ([lo * 0.5] * 30 + [hi * 1.05] * w, True),
+        "no_flapping": (np.random.default_rng(1).uniform(lo * 1.05, 5.0,
+                                                         120), True),
+        "refire": ([1.0] * ms + [0.01] * w + [1.0] * w, True),
+        "min_samples": ([10.0] * (ms - 1), True),
+        "invalid": ([99.0] * 20, False),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_lane_sequences()))
+def test_one_lane_drift_matches_jax(name):
+    """``drift_init(None, w)`` and ``drift_update`` on scalar lanes,
+    through both packages: fires, scores and every state field identical
+    at each step."""
+    errs, valid = _lane_sequences()[name]
+    jcfg, tcfg = JD.DriftConfig(**LANE_CFG), TD.DriftConfig(**LANE_CFG)
+    js, jp = JD.drift_init(None, jcfg.window), JD.DriftParams.from_config(jcfg)
+    ts = TD.drift_init(None, tcfg.window, device="cpu")
+    tp = TD.DriftParams.from_config(tcfg, device="cpu")
+    assert ts.errs.shape == (tcfg.window,) and ts.pos.dim() == 0
+    for e in errs:
+        js, jf, jsc = JD.drift_update(js, float(e), valid, jp)
+        ts, tf, tsc = TD.drift_update(ts, float(e), valid, tp)
+        assert tf.dim() == 0 and tsc.dim() == 0
+        assert bool(tf) == bool(jf)
+        assert np.float32(tsc.item()) == np.float32(jsc)
+        for field in ("errs", "pos", "count", "armed", "fires"):
+            np.testing.assert_array_equal(getattr(ts, field).numpy(),
+                                          np.asarray(getattr(js, field)),
+                                          err_msg=field)

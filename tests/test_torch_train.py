@@ -457,6 +457,48 @@ def test_checkpoint_shape_mismatch_raises(tmp_path):
         ck.restore({"b": torch.zeros(5)}, device="cpu")
 
 
+def test_checkpoint_restores_a_jax_bf16_checkpoint(jx, tmp_path):
+    """A reduced ``qwen3-1.7b`` parameter tree cast to bfloat16 and saved
+    by the JAX package's Checkpointer (no dtypes in its manifest; bfloat16
+    leaves as ``|V2`` records) restores through the port's into the port's
+    bfloat16 tree, every leaf equal bit for bit to the JAX leaf."""
+    from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
+    jax, jnp = jx["jax"], jx["jnp"]
+    cfg = jax_cfg(jx, 1)
+    params = jx["build_model"](cfg).init_params(jax.random.PRNGKey(0))
+    params = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16),
+                                    params)
+    JCheckpointer(str(tmp_path)).save(3, params)
+    host = jax.tree_util.tree_map(np.asarray, params)
+    target = convert.model_params_from_numpy(port_cfg(1), host,
+                                             device="cpu")
+    restored, step = Checkpointer(str(tmp_path)).restore(target,
+                                                         device="cpu")
+    assert step == 3
+    want = {k: v.view(np.uint16) for k, v in tree_items(host)}
+    got = dict(tree_items(restored))
+    assert sorted(got) == sorted(want) and len(got) > 5
+    for key, leaf in got.items():
+        assert leaf.dtype == torch.bfloat16, key
+        assert np.array_equal(leaf.view(torch.int16).numpy().view(np.uint16),
+                              want[key]), key
+
+
+def test_checkpoint_void_leaf_into_non_bf16_target_raises(jx, tmp_path):
+    """A 2-byte void leaf (a JAX bfloat16 save) is bfloat16 bits only for
+    a bfloat16 target; a float32 target raises instead of guessing."""
+    from repro.checkpoint.checkpointer import Checkpointer as JCheckpointer
+    jnp = jx["jnp"]
+    JCheckpointer(str(tmp_path)).save(
+        1, {"w": jnp.ones((4, 4), jnp.bfloat16)})
+    ck = Checkpointer(str(tmp_path))
+    with pytest.raises(ValueError, match="bfloat16 target"):
+        ck.restore({"w": torch.zeros(4, 4)}, device="cpu")
+    restored, _ = ck.restore({"w": torch.zeros(4, 4, dtype=torch.bfloat16)},
+                             device="cpu")
+    assert torch.equal(restored["w"], torch.ones(4, 4, dtype=torch.bfloat16))
+
+
 # -- train() (tests/test_train_e2e.py::TestTraining on the CPU) --------------
 
 
