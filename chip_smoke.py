@@ -22,7 +22,9 @@ each, with their wall seconds:
                 version on the same inputs (payload within one grey level on
                 at most 1e-3 of the bytes, ``changed`` exact, features
                 within 1e-3 relative plus what the differing bytes can move,
-                and those of the payload produced), timed with CUDA events;
+                and those of the payload produced), each timed three ways:
+                device ms behind the spin kernel, traced device ms, and
+                ``call_ms`` (CUDA events around one call, host included);
   characterize  ``characterize(engine="batched", include_artifact=True,
                 clip_len=8, min_accuracy=0)`` on a 1080x1920 complex camera,
                 traced with ``torch.profiler`` for the card's busy share;
@@ -33,7 +35,10 @@ each, with their wall seconds:
                 (every lane must move to another setting), then
                 ``update_qos(latency=0.060, recharacterize=True)`` on a
                 second subscription to cam0 (the live re-sweep);
-  profile       device time per activity of the kernel's largest group;
+  profile       device time per activity (per stage) of the group the
+                ``kernels`` line names: res 0, BGR, knob4, F=32, and how
+                many of its (knob4 block, tile, frame) units the tile
+                kernel computes, mirrors or fills (``kernel_work``);
   serve         the model zoo's serving path, ``qwen3-1.7b`` at its
                 published widths: the flash and decode attention kernels
                 against their plain versions at the serving shapes (float32
@@ -100,6 +105,12 @@ and the library call's; the attention pair also its ``kernel_route`` and
 power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line; without a CUDA device, or outside a checkout, it exits 2.
+
+    python3 chip_smoke.py --grid-only [--src OTHER_CHECKOUT/src]
+
+runs only the build, kernel and profile phases of ``frame_knob_grid``,
+against this checkout's port or another's: two checkouts timed in one run
+on one card (A/B) by the same phases.
 """
 
 from __future__ import annotations
@@ -143,8 +154,9 @@ FLASH_SHAPES = ((8, 1024), (8, 1000))
 # bfloat16 only, beside them: (B, S, D) -- the tensor-core route at D=64,
 # one query row, and one row past a 64-key tile
 FLASH_EXTRA = ((8, 1024, 64), (8, 1, 128), (8, 65, 128))
-# kernel functions of this slice's redesign, which must build without spills
-NO_SPILL = ("flash_wgmma", "decode_fused")
+# kernel functions of the redesigned kernels, which must build without spills
+NO_SPILL = ("flash_wgmma", "decode_fused", "fkg_prologue", "fkg_tile",
+            "fkg_final")
 DECODE_S_MAX = 1536
 DECODE_LENGTHS = (1, 1024, 1152, 1279, 1536)
 # max |kernel - plain| on unit-normal inputs, per (kernel, dtype).  bf16:
@@ -346,14 +358,50 @@ def grid_inputs(dev, background, frames):
     return fj, torch.cat([fj[:1], fj[:-1]]), fj[0], enable
 
 
-def phase_kernel(dev):
+def traced_ms(fn, reps: int) -> tuple[float, dict]:
+    """Device time of one call of ``fn`` from a ``torch.profiler`` trace of
+    ``reps`` calls (after one untimed warm-up call): the summed durations
+    of the card's activities (kernels, copies, memsets) per call, and per
+    activity name its recorded count and ms per call.  Unlike
+    ``device_ms`` it needs no spin to hide the host, so it also times a
+    wrapper that synchronises inside a call; the trace may drop
+    activities on this machine, so both are lower bounds, and each
+    activity also gives its ms per recorded launch (each grid call
+    launches each of its kernels once)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            t = per.setdefault(e.name(), [0, 0.0])
+            t[0] += 1
+            t[1] += (e.end_ns() - e.start_ns()) / 1e6
+    stages = {k: {"recorded": c, "ms_per_call": ms / reps,
+                  "ms_per_launch": ms / c}
+              for k, (c, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])}
+    return sum(ms for _, ms in per.values()) / reps, stages
+
+
+def phase_kernel(dev, *, need_hidden: bool = True):
     """Every group in three cases, kernel against plain, and the times of
     both beside the bound.  ``check``: 15 frames of the complex camera,
     no knob4 (F=16).  ``characterize``: the same frames with knob4 (F=16,
     15 settings), the shape of ``characterize(include_artifact=True)``.
     ``resweep``: the live re-sweep's own inputs -- cam0's background and
     its 16-frame log tail, padded to F=32, with knob4 (the live table keeps
-    knob4 settings).  Returns (rows, worst error)."""
+    knob4 settings).  Each group's kernel is timed three ways: ``ms``, the
+    device time behind the spin kernel (``device_ms``; raises unless the
+    spin hid the host, when ``need_hidden``); ``traced_ms``, its traced
+    device activities (``traced_ms``); and ``call_ms``, CUDA events around
+    one whole call, host work included (``cuda_ms``).  Returns (rows,
+    worst error)."""
     import torch
     from repro_torch.configs.mez_edge import CONFIG
     from repro_torch.core import knobs as K
@@ -385,8 +433,18 @@ def phase_kernel(dev):
                 del got, want
                 torch.cuda.empty_cache()
                 worst = (max(worst[0], max_d), max(worst[1], frac))
-                ms = cuda_ms(lambda: FK.frame_knob_grid(
-                    frames, prev, plan, device=dev, **kw), REPS)
+
+                def call():
+                    return FK.frame_knob_grid(frames, prev, plan,
+                                              device=dev, **kw)
+
+                ms, hidden = device_ms(call, REPS)
+                if need_hidden and not hidden:
+                    raise AssertionError(f"frame_knob_grid res {res} cs {cs} "
+                                         f"{case}: the host outlasted the "
+                                         f"spin")
+                tr_ms, _ = traced_ms(call, REPS)
+                call_ms = cuda_ms(call, REPS)
                 plain = cuda_ms(lambda: FK.frame_knob_grid_plain(
                     frames, prev, plan, **kw), REPS)
                 b_ms, b_by = bound_ms(plan, n, art != (0,))
@@ -395,6 +453,7 @@ def phase_kernel(dev):
                            payload_mb=plan.n_settings * n
                            * plan.payload_bytes / 1e6,
                            max_abs_err=max_d, mismatch=frac, ms=ms,
+                           hidden=hidden, traced_ms=tr_ms, call_ms=call_ms,
                            plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
                 rows.append(row)
                 print(json.dumps({"group": row}), flush=True)
@@ -421,47 +480,74 @@ def device_busy_s(prof) -> tuple[float, int]:
     return busy / 1e9, len(spans)
 
 
-def phase_profile(dev) -> list[dict]:
-    """Device time per activity (kernel, copy, memset) of a
-    ``frame_knob_grid`` call in its largest group (BGR, full resolution,
-    knob4: 15 settings x 16 frames), traced with ``torch.profiler`` over
-    ``REPS`` calls."""
+def kernel_work(plan, frames, bg, enable) -> dict:
+    """What ``frame_knob_grid``'s tile kernel does with each (knob4 block,
+    output tile, frame) of one call on these inputs, from the inputs alone:
+    ``computed``; ``mirrored``, stored by an earlier block that keeps the
+    same pixels of that frame (a frame with knob4 disabled); or ``filled``
+    without staging, knob4 keeping no pixel of the tile's resize window
+    (the kernel's keep-code test, its columns rounded out to 16 bytes).
+    Counts windows without chroma rows only (a BGR or gray plan)."""
     import torch
+    from repro_torch.kernels import frame_knobs as FK
+    ops = plan.operands
+    modes = ops.arrays["block_mode"].tolist()
+    movers, contours = FK._artifact_masks(frames, bg, thresh=FK.ARTIFACT_THRESH)
+    sums = {}
+    for mode, m in ((1, movers), (2, contours)):
+        c = torch.nn.functional.pad(m.to(torch.int32).cumsum(1).cumsum(2),
+                                    (1, 0, 1, 0))
+        sums[mode] = c                               # [F, H + 1, W + 1]
+    sy, sx = (torch.as_tensor(ops.arrays[k], device=frames.device).long()
+              for k in ("src_y", "src_x"))
+    if plan.in_w % 16 == 0:
+        sx = torch.stack([sx[:, 0] // 16 * 16,
+                          torch.clamp((sx[:, 1] + 15) // 16 * 16,
+                                      max=plan.in_w)], -1)
+    y0, y1 = sy[:, 0, None], sy[:, 1, None]
+    x0, x1 = sx[None, :, 0], sx[None, :, 1]
+    out = dict(computed=0, mirrored=0, filled=0)
+    en = enable.tolist()
+    for f in range(frames.shape[0]):
+        bits = [b * en[f] for b in modes]
+        for a, bit in enumerate(bits):
+            if bit in bits[:a]:
+                out["mirrored"] += ops.tiles_y * ops.tiles_x
+            elif bit == 0:
+                out["computed"] += ops.tiles_y * ops.tiles_x
+            else:
+                c = sums[bit][f]
+                kept = c[y1, x1] - c[y0, x1] - c[y1, x0] + c[y0, x0]
+                filled = int((kept == 0).sum())
+                out["filled"] += filled
+                out["computed"] += ops.tiles_y * ops.tiles_x - filled
+    return out
+
+
+def phase_profile(dev) -> dict:
+    """Device time per activity (kernel, copy, memset) of a
+    ``frame_knob_grid`` call in the group the ``kernels`` line names: BGR,
+    full resolution, knob4, 15 settings x 32 frames (the live re-sweep's
+    cam0 tail), traced with ``torch.profiler`` over ``REPS`` calls."""
     from repro_torch.configs.mez_edge import CONFIG
     from repro_torch.core import knobs as K
+    from repro_torch.core.broker import RECHAR_CLIP_LEN
     from repro_torch.data.camera import CameraConfig, SyntheticCamera
     from repro_torch.kernels import frame_knobs as FK
     cam = SyntheticCamera(CameraConfig(height=H, width=W, dynamics="complex",
                                        seed=CONFIG.seed))
-    frames, prev, bg, enable = grid_inputs(
-        dev, cam.background,
-        [cam.next_frame()[1] for _ in range(FRAME_BUCKET - 1)])
+    stream = [cam.next_frame()[1] for _ in range(N_FRAMES)]
+    frames, prev, bg, enable = grid_inputs(dev, cam.background,
+                                           stream[-RECHAR_CLIP_LEN:])
     plan = FK.build_transform_plan(H, W, scale=1.0, cs=FK.CS_BGR,
                                    blur_ks=K.BLUR_KERNELS,
                                    art_modes=(0, 1, 2))
-
-    def call():
-        return FK.frame_knob_grid(frames, prev, plan, background=bg,
-                                  art_enable=enable, device=dev)
-
-    call()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(REPS):
-            call()
-        torch.cuda.synchronize()
-    per = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            t = per.setdefault(e.name(), [0, 0.0])
-            t[0] += 1
-            t[1] += (e.end_ns() - e.start_ns()) / 1e6
-    # each grid call launches each activity once, but the trace may not
-    # record every launch: average over the launches it did record
-    return [{"activity": k, "recorded": c, "ms_per_launch": ms / c}
-            for k, (c, ms) in sorted(per.items(), key=lambda kv: -kv[1][1])]
+    ms, stages = traced_ms(lambda: FK.frame_knob_grid(
+        frames, prev, plan, background=bg, art_enable=enable, device=dev),
+        REPS)
+    return dict(group=f"res 0, BGR, knob4, {plan.n_settings} settings x "
+                      f"{frames.shape[0]} frames", traced_ms=ms,
+                stages=stages, blocks=kernel_work(plan, frames, bg, enable))
 
 
 def attn_bound_ms(kind: str, dtype, b: int, s: int, qh: int, kh: int,
@@ -1776,12 +1862,23 @@ def ptxas_functions(paths) -> list[dict]:
     return out
 
 
-def main() -> int:
-    if not (SRC / "repro_torch").is_dir():
+def main(argv: list[str]) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--grid-only", action="store_true",
+                    help="run only the build, kernel and profile phases of "
+                         "frame_knob_grid")
+    ap.add_argument("--src", type=Path, default=SRC,
+                    help="the src/ directory whose repro_torch to drive "
+                         "(default: this checkout's); with --grid-only, "
+                         "another checkout's, to time its kernel with this "
+                         "script's phases")
+    args = ap.parse_args(argv)
+    if not (args.src / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found -- run from the root "
               "of a checkout", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(args.src.resolve()))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1791,12 +1888,43 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    run(torch.device("cuda"))
+    (run_grid if args.grid_only else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+def grid_sums(rows: list[dict]) -> dict:
+    """The kernel phase's times summed per case."""
+    return {case: {k: sum(r[k] for r in rows if r["case"] == case)
+                   for k in ("ms", "traced_ms", "call_ms", "plain_ms",
+                             "bound_ms")}
+            for case in ("check", "characterize", "resweep")}
+
+
+def run_grid(dev) -> None:
+    """``--grid-only``: build ``frame_knob_grid``, then the kernel and
+    profile phases, with the spin's hiding recorded rather than required
+    (a wrapper that synchronises inside a call cannot be hidden)."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import frame_knobs as FK
+    t0 = time.monotonic()
+    paths = build.build(["frame_knob_grid"])
+    FK._load_lib()
+    emit("build", seconds=time.monotonic() - t0,
+         functions=ptxas_functions(paths))
+    t0 = time.monotonic()
+    rows, worst = phase_kernel(dev, need_hidden=False)
+    torch.cuda.empty_cache()
+    emit("kernel", seconds=time.monotonic() - t0, groups=len(rows),
+         max_abs_err=worst[0], max_mismatch=worst[1],
+         per_case=grid_sums(rows))
+    t0 = time.monotonic()
+    prof = phase_profile(dev)
+    emit("profile", seconds=time.monotonic() - t0, **prof)
 
 
 def run(dev) -> None:
@@ -1841,11 +1969,9 @@ def run(dev) -> None:
     t0 = time.monotonic()
     rows, worst = phase_kernel(dev)
     torch.cuda.empty_cache()
-    sums = {case: {k: sum(r[k] for r in rows if r["case"] == case)
-                   for k in ("ms", "plain_ms", "bound_ms")}
-            for case in ("check", "characterize", "resweep")}
     emit("kernel", seconds=time.monotonic() - t0, groups=len(rows),
-         max_abs_err=worst[0], max_mismatch=worst[1], per_case=sums)
+         max_abs_err=worst[0], max_mismatch=worst[1],
+         per_case=grid_sums(rows))
 
     # -- the main path: characterize, then the closed loop ------------------
     n_groups = len(K.RESOLUTION_SCALES) * len(K.COLORSPACES)
@@ -2010,9 +2136,8 @@ def run(dev) -> None:
          post_refresh_frames=len(more))
 
     t0 = time.monotonic()
-    stages = phase_profile(dev)
-    emit("profile", seconds=time.monotonic() - t0,
-         group="res 0, BGR, knob4, 15 settings x 16 frames", stages=stages)
+    prof = phase_profile(dev)
+    emit("profile", seconds=time.monotonic() - t0, **prof)
 
     # -- the serving path: qwen3-1.7b at its published widths ---------------
     attn_rows, timed = phase_serve(dev)
@@ -2067,6 +2192,8 @@ def run(dev) -> None:
         "launches": main_launches, "max_abs_err": worst[0],
         "mismatch_fraction": worst[1],
         "ms": sum(r["ms"] for r in main),
+        "call_ms": sum(r["call_ms"] for r in main),
+        "traced_ms": sum(r["traced_ms"] for r in main),
         "plain_ms": sum(r["plain_ms"] for r in main),
         "bound_ms": sum(r["bound_ms"] for r in main),
         "bound_by": max(("bytes", "operations"), key=lambda k: sum(
@@ -2075,10 +2202,11 @@ def run(dev) -> None:
         "shape": f"the main path's 30 calls at 1080x1920, knob4 on: 15 "
                  f"groups x 16 frames (characterize) + 15 groups x 32 "
                  f"frames (re-sweep); largest group "
-                 f"{big['ms']:.3f} ms vs bound {big['bound_ms']:.3f} ms"},
+                 f"{big['ms']:.3f} ms (call {big['call_ms']:.3f} ms) vs "
+                 f"bound {big['bound_ms']:.3f} ms"},
         *serve_kernels, wkv_kernel,
         *quant_kernel_rows(quant, train_run), knobs_row]}), flush=True)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

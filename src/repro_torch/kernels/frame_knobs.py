@@ -33,7 +33,9 @@ Three pieces of the grid live here:
 ``frame_knob_grid``          the wrapper of the hand-written CUDA kernel
                              (``csrc/frame_knob_grid.cu``): on a CUDA device
                              it launches the kernel, on the CPU it takes the
-                             plain version.
+                             plain version.  The kernel's per-plan operands
+                             (``GridOperands``) are derived with the plan
+                             and uploaded at its first call on a device.
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ import torch
 
 from repro_torch.device import resolve_device
 
-__all__ = ["TransformPlan", "Band", "build_transform_plan", "band_form",
+__all__ = ["TransformPlan", "Band", "GridOperands",
+           "build_transform_plan", "band_form",
            "frame_knob_grid", "frame_knob_grid_plain", "resize_operator",
            "blur_operator", "proxy_features", "proxy_features_host",
            "N_PROXY_FEATURES", "ARTIFACT_THRESH", "CS_BGR", "CS_GRAY",
@@ -172,6 +175,8 @@ class TransformPlan:
     rx_band: Band = dataclasses.field(init=False, repr=False, compare=False)
     by_band: Band = dataclasses.field(init=False, repr=False, compare=False)
     bx_band: Band = dataclasses.field(init=False, repr=False, compare=False)
+    operands: "GridOperands" = dataclasses.field(init=False, repr=False,
+                                                 compare=False)
 
     def __post_init__(self):
         first = {}
@@ -184,6 +189,7 @@ class TransformPlan:
         object.__setattr__(self, "rx_band", band_form(self.rx))
         object.__setattr__(self, "by_band", _stack_bands([by[k] for k in ids]))
         object.__setattr__(self, "bx_band", _stack_bands([bx[k] for k in ids]))
+        object.__setattr__(self, "operands", _grid_operands(self))
 
     @property
     def n_settings(self) -> int:
@@ -226,6 +232,164 @@ def build_transform_plan(h: int, w: int, *, scale: float, cs: int,
                          n_planes=3 if cs == CS_BGR else 1,
                          ry=ry, rx=rx, bys=bys, bxs=bxs,
                          art_ids=art_ids, blur_ids=blur_ids)
+
+
+# =============================================================================
+# The kernel's operands, derived once per plan
+# =============================================================================
+
+TILE_H, TILE_W = 32, 64          # csrc/frame_knob_grid.cu: TILE_H, TILE_W
+UNIFORM_TAPS = (5, 8, 10, 15)    # csrc: the register-blocked tap counts
+
+
+def _tile_spans(start: np.ndarray, end: np.ndarray, tile: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """[lo, hi) union of the bands ``[start, end)`` of every tile's computed
+    outputs: its ``tile`` outputs and the next one (the features' extra row
+    or column), ``[..., n_tiles]`` each."""
+    n = start.shape[-1]
+    cuts = [(t, min(t + tile + 1, n)) for t in range(0, n, tile)]
+    lo = np.stack([start[..., a:b].min(-1) for a, b in cuts], -1)
+    hi = np.stack([end[..., a:b].max(-1) for a, b in cuts], -1)
+    return lo.astype(np.int32), hi.astype(np.int32)
+
+
+def _uniform_taps(band: Band, tile: int) -> tuple[np.ndarray, np.ndarray]:
+    """Per (setting, tile): the tap count K when every computed output of
+    the tile (``tile + 1`` of them, all inside the image) has a K-tap band of
+    one weight starting one input after the previous output's, with K among
+    ``UNIFORM_TAPS``; else 0 (the kernel's general path).  And that weight."""
+    n_set, n = band.start.shape
+    n_tiles = -(-n // tile)
+    taps = np.zeros((n_set, n_tiles), np.int32)
+    weight = np.zeros((n_set, n_tiles), np.float32)
+    for t in range(n_tiles):
+        a, b = t * tile, t * tile + tile + 1
+        if b > n:
+            continue
+        k, w = band.length[:, a], band.weight[:, a, 0]
+        live = np.arange(band.k) < k[:, None, None]
+        ok = (np.isin(k, UNIFORM_TAPS)
+              & (band.length[:, a:b] == k[:, None]).all(-1)
+              & (np.diff(band.start[:, a:b], axis=-1) == 1).all(-1)
+              & ((band.weight[:, a:b] == w[:, None, None]) | ~live).all((1, 2)))
+        taps[:, t] = np.where(ok, k, 0)
+        weight[:, t] = np.where(ok, w, 0.0)
+    return taps, weight
+
+
+def _is_identity(band: Band) -> np.ndarray:
+    """Per setting: every output reads its own input with weight 1."""
+    n = band.start.shape[-1]
+    return ((band.length == 1).all(-1) & (band.weight[..., 0] == 1.0).all(-1)
+            & (band.start == np.arange(n)).all(-1))
+
+
+def _unit_band(band: Band) -> bool:
+    """Every output's weights are non-negative and sum to 1 within 1e-4, so
+    a constant input gives the same constant out of the kernel's passes."""
+    w = band.weight.astype(np.float64)
+    return bool((w >= 0).all() and (np.abs(w.sum(-1) - 1.0) <= 1e-4).all())
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class GridOperands:
+    """Every operand of the CUDA grid kernel that depends on the plan alone,
+    derived once per plan (``TransformPlan.operands``) and packed into one
+    byte buffer (``host``: each array at a 16-byte-aligned offset of
+    ``offsets``), which the wrapper uploads once per device.
+
+    Tiles are ``TILE_H x TILE_W`` outputs, computed with one more row and
+    column for the features.  ``arrays`` holds, besides the plan's bands
+    and the artifact blocks: ``win_y``/``win_x`` ``[tiles, 2]``, the blur
+    window of each tile (the resized rows and columns its blur settings
+    read, staged once); ``col_span`` ``[S, tiles_x, 2]``, the columns the
+    vertical pass computes for each setting; ``vk``/``vw`` and ``hk``/``hw``
+    ``[S, tiles]``, the tap count and weight of the register-blocked pass,
+    or 0 for the general one; ``ident`` ``[S]``, blur bands that are the
+    identity; ``src_y``/``src_x`` ``[tiles, 2]``, the resize windows: the
+    packed source rows and columns each tile's blur window reads (where
+    knob4 keeps none of them, the kernel skips the tile's staging and
+    passes: its payload is zeros)."""
+    tiles_y: int
+    tiles_x: int
+    n_blocks: int
+    n_per_block: int
+    blocks_alike: bool               # same blur settings in every block
+    unit_bands: bool                 # weights >= 0 summing to 1 within 1e-4
+    win_h: int                       # staged window capacity (rows)
+    win_w: int                       # (columns)
+    arrays: dict
+    host: np.ndarray                 # uint8, every array packed
+    offsets: dict
+    _device: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def device_buffer(self, dev: torch.device) -> torch.Tensor | None:
+        """The packed operands on ``dev``, once a call has uploaded them."""
+        got = self._device.get(dev)
+        return None if got is None else got.buffer
+
+
+@dataclasses.dataclass(frozen=True)
+class _DeviceOperands:
+    buffer: torch.Tensor             # the packed operands on the card
+    pinned: torch.Tensor             # its host staging copy
+    args: "_FkgArgs"                 # kernel arguments with the plan's part
+
+
+def _grid_operands(plan: "TransformPlan") -> GridOperands:
+    """Derive the CUDA kernel's per-plan operands (``GridOperands``)."""
+    modes, blocks = _art_blocks(plan)
+    block_sets = [np.flatnonzero(blocks == a) for a in range(len(modes))]
+    if len({len(b) for b in block_sets}) != 1:
+        raise ValueError("frame_knob_grid: artifact blocks of unequal size")
+    block_sets = np.stack(block_sets).astype(np.int32)
+    by, bx, ry, rx = plan.by_band, plan.bx_band, plan.ry_band, plan.rx_band
+    by_lo, by_hi = _tile_spans(by.start, by.start + by.length, TILE_H)
+    bx_lo, bx_hi = _tile_spans(bx.start, bx.start + bx.length, TILE_W)
+    win_y = np.stack([by_lo.min(0), by_hi.max(0)], -1)
+    win_x = np.stack([bx_lo.min(0), bx_hi.max(0)], -1)
+    ry_end, rx_end = ry.start + ry.length, rx.start + rx.length
+    src_y = np.stack([[ry.start[a:b].min(), ry_end[a:b].max()]
+                      for a, b in win_y]).astype(np.int32)
+    src_x = np.stack([[rx.start[a:b].min(), rx_end[a:b].max()]
+                      for a, b in win_x]).astype(np.int32)
+    if (win_y.min() < 0 or win_y.max() > plan.out_h or win_x.min() < 0
+            or win_x.max() > plan.out_w or src_y.min() < 0
+            or src_y.max() > plan.packed_h or src_x.min() < 0
+            or src_x.max() > plan.in_w):
+        raise ValueError("frame_knob_grid: a band reads outside its input")
+    vk, vw = _uniform_taps(by, TILE_H)
+    hk, hw = _uniform_taps(bx, TILE_W)
+    arrays = {
+        "block_mode": np.asarray(modes, np.int32), "block_sets": block_sets,
+        "ry_start": ry.start, "ry_w": ry.weight,
+        "rx_start": rx.start, "rx_w": rx.weight,
+        "by_start": by.start, "by_len": by.length, "by_w": by.weight,
+        "bx_start": bx.start, "bx_len": bx.length, "bx_w": bx.weight,
+        "win_y": win_y, "win_x": win_x, "src_y": src_y, "src_x": src_x,
+        "col_span": np.stack([bx_lo, bx_hi], -1),
+        "vk": vk, "vw": vw, "hk": hk, "hw": hw,
+        "ident": (_is_identity(by) & _is_identity(bx)).astype(np.int32),
+        "log2_table": np.log2(1.0 + np.arange(256, dtype=np.float32)),
+    }
+    parts, offsets, off = [], {}, 0
+    for name, a in arrays.items():
+        dtype = np.float32 if a.dtype.kind == "f" else np.int32
+        raw = np.ascontiguousarray(a, dtype).reshape(-1).view(np.uint8)
+        pad = -raw.size % 16
+        parts += [raw, np.zeros(pad, np.uint8)]
+        offsets[name] = off
+        off += raw.size + pad
+    return GridOperands(
+        tiles_y=win_y.shape[0], tiles_x=win_x.shape[0],
+        n_blocks=len(modes), n_per_block=block_sets.shape[1],
+        blocks_alike=bool((plan.blur_ids[block_sets]
+                           == plan.blur_ids[block_sets[:1]]).all()),
+        unit_bands=all(_unit_band(b) for b in (ry, rx, by, bx)),
+        win_h=int((win_y[:, 1] - win_y[:, 0]).max()),
+        win_w=int((win_x[:, 1] - win_x[:, 0]).max()),
+        arrays=arrays, host=np.concatenate(parts), offsets=offsets)
 
 
 def proxy_features_host(payload: np.ndarray) -> np.ndarray:
@@ -414,35 +578,23 @@ class _FkgArgs(ctypes.Structure):
     """Mirror of ``struct FkgArgs`` in ``csrc/frame_knob_grid.cu``."""
     _fields_ = (
         [(name, ctypes.c_void_p) for name in (
-            "frames", "prev", "bg", "art_enable", "block_mode", "block_sets",
-            "ry_start", "ry_len", "ry_w", "rx_start", "rx_len", "rx_w",
-            "by_start", "by_len", "by_w", "bx_start", "bx_len", "bx_w",
-            "ty_lo", "ty_hi", "tx_lo", "tx_hi", "log2_table", "mask_raw",
-            "mask", "resized", "changed_count", "part_log", "part_cnt",
-            "payload", "feats", "changed")]
+            # per call
+            "frames", "prev", "bg", "art_enable", "keep", "plane",
+            "changed_count", "part_log", "part_cnt", "payload", "feats",
+            "changed",
+            # per plan: GridOperands.arrays on the card
+            "block_mode", "block_sets", "ry_start", "ry_w", "rx_start",
+            "rx_w", "by_start", "by_len", "by_w",
+            "bx_start", "bx_len", "bx_w", "win_y", "win_x", "src_y", "src_x",
+            "col_span", "vk", "vw", "hk", "hw", "ident", "log2_table")]
         + [(name, ctypes.c_int32) for name in (
-            "F", "H", "W", "cs", "packed_h", "oh", "ow", "P", "S", "A",
-            "ry_k", "rx_k", "by_k", "bx_k", "feat_blocks", "win_y", "win_x",
-            "tiles_y", "tiles_x", "n_per_block")]
+            "F", "H", "W", "cs", "oh", "ow", "P", "S", "A", "n_per_block",
+            "ry_k", "rx_k", "by_k", "bx_k", "tiles_y", "tiles_x", "win_h",
+            "win_w", "blocks_alike", "unit_bands", "delta_min", "art_min")]
         + [("pixel_delta", ctypes.c_float), ("art_thresh", ctypes.c_float)])
 
 
-_BLUR_TILE = 32          # must match BLUR_TILE in the .cu source
-_FEAT_BLOCKS = 64        # feature partials per (setting, frame)
 _SMEM_LIMIT = 232448     # bytes of shared memory one block may use (H100)
-
-
-def _tile_bounds(band: Band) -> tuple[np.ndarray, np.ndarray]:
-    """Input window [lo, hi) of every BLUR_TILE-row tile of a band stack:
-    the union of its rows' bands, ``[..., n_tiles]`` each."""
-    start = band.start.astype(np.int64)
-    end = start + band.length
-    pad = [(0, 0)] * (start.ndim - 1) + [(0, -start.shape[-1] % _BLUR_TILE)]
-    lo = np.pad(start, pad, mode="edge")
-    hi = np.pad(end, pad, mode="edge")
-    lo = lo.reshape(lo.shape[:-1] + (-1, _BLUR_TILE)).min(-1)
-    hi = hi.reshape(hi.shape[:-1] + (-1, _BLUR_TILE)).max(-1)
-    return lo.astype(np.int32), hi.astype(np.int32)
 
 
 def _load_lib() -> ctypes.CDLL:
@@ -450,9 +602,47 @@ def _load_lib() -> ctypes.CDLL:
     lib = load_library("frame_knob_grid")
     lib.fkg_launch.argtypes = [ctypes.POINTER(_FkgArgs), ctypes.c_void_p]
     lib.fkg_launch.restype = ctypes.c_int
+    lib.fkg_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.fkg_smem_bytes.restype = ctypes.c_int
     lib.fkg_error_string.argtypes = [ctypes.c_int]
     lib.fkg_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _plan_on_device(lib: ctypes.CDLL, plan: TransformPlan,
+                    dev: torch.device) -> _DeviceOperands:
+    """The plan's operands on ``dev`` and the kernel arguments that depend
+    on the plan alone: at the plan's first call on ``dev``, one upload from
+    a pinned staging copy (kept with the buffer, so the non-blocking copy
+    never reads freed memory); later calls find them cached."""
+    ops = plan.operands
+    got = ops._device.get(dev)
+    if got is not None:
+        return got
+    if plan.in_h * plan.in_w >= 2 ** 31:
+        raise RuntimeError("frame_knob_grid: frames above 2^31 pixels")
+    if max(plan.ry_band.k, plan.rx_band.k) > 2:
+        raise RuntimeError("frame_knob_grid: the kernel takes resize bands of "
+                           "at most 2 taps")
+    if lib.fkg_smem_bytes(plan.n_planes, ops.win_h, ops.win_w,
+                          ops.n_per_block) > _SMEM_LIMIT:
+        raise RuntimeError(f"frame_knob_grid: blur window {ops.win_h}x"
+                           f"{ops.win_w} exceeds the shared memory of one "
+                           f"block")
+    pinned = torch.from_numpy(ops.host).pin_memory()
+    buf = pinned.to(dev, non_blocking=True)
+    base = buf.data_ptr()
+    args = _FkgArgs(
+        **{name: base + off for name, off in ops.offsets.items()},
+        H=plan.in_h, W=plan.in_w, cs=plan.cs, oh=plan.out_h, ow=plan.out_w,
+        P=plan.n_planes, S=plan.n_settings, A=ops.n_blocks,
+        n_per_block=ops.n_per_block, ry_k=plan.ry_band.k,
+        rx_k=plan.rx_band.k, by_k=plan.by_band.k, bx_k=plan.bx_band.k,
+        tiles_y=ops.tiles_y, tiles_x=ops.tiles_x, win_h=ops.win_h,
+        win_w=ops.win_w, blocks_alike=ops.blocks_alike,
+        unit_bands=ops.unit_bands)
+    got = ops._device[dev] = _DeviceOperands(buf, pinned, args)
+    return got
 
 
 def _launch(frames, prev, plan, background, art_enable, pixel_delta,
@@ -462,85 +652,41 @@ def _launch(frames, prev, plan, background, art_enable, pixel_delta,
         raise RuntimeError("frame_knob_grid: inputs must be contiguous")
     lib = _load_lib()
     dev = frames.device
+    on_dev = _plan_on_device(lib, plan, dev)
     n = frames.shape[0]
     s_n, p_n = plan.n_settings, plan.n_planes
     oh, ow = plan.out_h, plan.out_w
-    if plan.in_h * plan.in_w >= 2 ** 31:
-        raise RuntimeError("frame_knob_grid: frames above 2^31 pixels")
-    modes, blocks = _art_blocks(plan)
-    # the blur walks each artifact block's settings over one input window
-    block_sets = [np.flatnonzero(blocks == a) for a in range(len(modes))]
-    if len({len(b) for b in block_sets}) != 1:
-        raise RuntimeError("frame_knob_grid: artifact blocks of unequal size")
-    block_sets = np.stack(block_sets).astype(np.int32)
-    ty_lo, ty_hi = _tile_bounds(plan.by_band)
-    tx_lo, tx_hi = _tile_bounds(plan.bx_band)
-    ty_lo, tx_lo = (np.stack([lo[b].min(0) for b in block_sets])
-                    for lo in (ty_lo, tx_lo))
-    ty_hi, tx_hi = (np.stack([hi[b].max(0) for b in block_sets])
-                    for hi in (ty_hi, tx_hi))
-    win_y, win_x = int((ty_hi - ty_lo).max()), int((tx_hi - tx_lo).max())
-    smem = 4 * ((win_y + _BLUR_TILE) * win_x + _BLUR_TILE * (
-        plan.by_band.k + plan.bx_band.k) + 4 * _BLUR_TILE)
-    if smem > _SMEM_LIMIT:
-        raise RuntimeError(f"frame_knob_grid: blur window {win_y}x{win_x} "
-                           f"exceeds the shared memory of one block")
+    n_tiles = plan.operands.tiles_y * plan.operands.tiles_x
     with_art = background is not None
-
-    # the small operands travel in two host->device copies (one i32, one
-    # f32 buffer); each field is a view into its buffer
-    ints = [("block_mode", np.asarray(modes, np.int32)),
-            ("block_sets", block_sets)]
-    flts = [("log2_table", np.log2(1.0 + np.arange(256, dtype=np.float32)))]
-    for tag, band in (("ry", plan.ry_band), ("rx", plan.rx_band),
-                      ("by", plan.by_band), ("bx", plan.bx_band)):
-        ints += [(f"{tag}_start", band.start), (f"{tag}_len", band.length)]
-        flts.append((f"{tag}_w", band.weight))
-    ints += [("ty_lo", ty_lo), ("ty_hi", ty_hi), ("tx_lo", tx_lo),
-             ("tx_hi", tx_hi)]
-    keep = {}                                    # alive until the launch
-    for parts, dtype in ((ints, np.int32), (flts, np.float32)):
-        buf = torch.from_numpy(np.concatenate(
-            [np.ravel(a).astype(dtype) for _, a in parts])).to(dev)
-        off = 0
-        for name, a in parts:
-            keep[name] = buf[off:off + a.size]
-            off += a.size
-    if with_art:
-        keep["art_enable"] = (
-            torch.ones(n, dtype=torch.int32, device=dev) if art_enable is None
-            else art_enable.to(torch.int32).contiguous())
-        keep["mask_raw"] = torch.empty((n, plan.in_h, plan.in_w),
-                                       dtype=torch.uint8, device=dev)
-        keep["mask"] = torch.empty_like(keep["mask_raw"])
-    empty = dict(device=dev)
-    keep["resized"] = torch.empty((len(modes), n, p_n, oh, ow),
-                                  dtype=torch.uint8, **empty)
-    keep["changed_count"] = torch.empty(n, dtype=torch.int32, **empty)
-    keep["part_log"] = torch.empty((s_n * n, _FEAT_BLOCKS, 2),
-                                   dtype=torch.float32, **empty)
-    keep["part_cnt"] = torch.empty((s_n * n, _FEAT_BLOCKS, 4),
-                                   dtype=torch.int32, **empty)
-    payload = torch.empty((s_n, n, p_n, oh, ow), dtype=torch.uint8, **empty)
+    if with_art and art_enable is not None:
+        art_enable = art_enable.to(torch.int32).contiguous()
+    # one scratch buffer: keep codes, the gray / YUV plane, feature
+    # partials, change counts
+    n_keep = -(-n * plan.in_h * plan.in_w // 16) * 16 if with_art else 0
+    n_plane = -(-n * plan.packed_h * plan.in_w // 16) * 16 if p_n == 1 else 0
+    n_part = s_n * n * n_tiles
+    scratch = torch.empty(n_keep + n_plane + 24 * n_part + 4 * n,
+                          dtype=torch.uint8, device=dev)
+    base = scratch.data_ptr()
+    payload = torch.empty((s_n, n, p_n, oh, ow), dtype=torch.uint8,
+                          device=dev)
     feats = torch.empty((s_n, n, N_PROXY_FEATURES), dtype=torch.float32,
-                        **empty)
-    changed = torch.empty((s_n, n), dtype=torch.float32, **empty)
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    args = _FkgArgs(
-        frames=ptr(frames), prev=ptr(prev),
-        bg=ptr(background) if with_art else None,
-        payload=ptr(payload), feats=ptr(feats), changed=ptr(changed),
-        **{k: ptr(v) for k, v in keep.items()},
-        F=n, H=plan.in_h, W=plan.in_w, cs=plan.cs, packed_h=plan.packed_h,
-        oh=oh, ow=ow, P=p_n, S=s_n, A=len(modes),
-        ry_k=plan.ry_band.k, rx_k=plan.rx_band.k, by_k=plan.by_band.k,
-        bx_k=plan.bx_band.k, feat_blocks=_FEAT_BLOCKS,
-        win_y=win_y, win_x=win_x, tiles_y=ty_lo.shape[-1],
-        tiles_x=tx_lo.shape[-1], n_per_block=block_sets.shape[1],
-        pixel_delta=pixel_delta, art_thresh=art_thresh)
+                        device=dev)
+    changed = torch.empty((s_n, n), dtype=torch.float32, device=dev)
+    args = _FkgArgs.from_buffer_copy(on_dev.args)
+    args.frames, args.prev = frames.data_ptr(), prev.data_ptr()
+    args.bg = background.data_ptr() if with_art else None
+    args.art_enable = (art_enable.data_ptr()
+                       if with_art and art_enable is not None else None)
+    args.keep = base if with_art else None
+    args.plane = base + n_keep if p_n == 1 else None
+    args.part_log = base + n_keep + n_plane
+    args.part_cnt = args.part_log + 8 * n_part
+    args.changed_count = args.part_log + 24 * n_part
+    args.payload, args.feats = payload.data_ptr(), feats.data_ptr()
+    args.changed = changed.data_ptr()
+    args.F = n
+    args.pixel_delta, args.art_thresh = pixel_delta, art_thresh
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.fkg_launch(ctypes.byref(args), ctypes.c_void_p(stream))

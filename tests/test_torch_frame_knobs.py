@@ -195,3 +195,271 @@ def test_cuda_kernel_matches_plain(clip):
         want = FK.frame_knob_grid_plain(f, p, plan, **kw)
         check_grid(got, want)
     assert FK.frame_knob_grid.launches == before + len(GROUPS)
+
+
+# -- the CUDA kernel's operands, derived once per plan -------------------------
+
+
+def covers(lo, hi, start, length):
+    """Every band ``[start, start + length)`` lies inside ``[lo, hi)``."""
+    return bool(((start >= lo) & (start + length <= hi)).all())
+
+
+@pytest.mark.parametrize("art", ARTS, ids=["noart", "art"])
+@pytest.mark.parametrize("res,cs", GROUPS)
+def test_grid_operands_windows(res, cs, art):
+    plan = FK.build_transform_plan(H, W, scale=K.RESOLUTION_SCALES[res],
+                                   cs=cs, blur_ks=K.BLUR_KERNELS,
+                                   art_modes=art)
+    ops = plan.operands
+    assert plan.operands is ops                  # derived once, with the plan
+    a = ops.arrays
+    for axis, tile, n_out, blur, rsz, win, src, col_span, taps, wt in (
+            ("y", FK.TILE_H, plan.out_h, plan.by_band, plan.ry_band,
+             a["win_y"], a["src_y"], None, a["vk"], a["vw"]),
+            ("x", FK.TILE_W, plan.out_w, plan.bx_band, plan.rx_band,
+             a["win_x"], a["src_x"], a["col_span"], a["hk"], a["hw"])):
+        assert win.shape == (-(-n_out // tile), 2), axis
+        for t, (lo, hi) in enumerate(win):
+            # the tile's outputs and the features' extra row / column
+            rows = slice(t * tile, min(t * tile + tile + 1, n_out))
+            assert covers(lo, hi, blur.start[:, rows], blur.length[:, rows])
+            assert hi - lo <= (ops.win_h if axis == "y" else ops.win_w)
+            # every staged sample's resize band inside the resize window
+            assert covers(src[t, 0], src[t, 1], rsz.start[lo:hi],
+                          rsz.length[lo:hi])
+            if col_span is not None:     # the vertical pass's columns
+                span = col_span[:, t]
+                assert covers(span[:, :1], span[:, 1:], blur.start[:, rows],
+                              blur.length[:, rows])
+                assert (span[:, 0] >= lo).all() and (span[:, 1] <= hi).all()
+            for s in range(plan.n_settings):
+                k = taps[s, t]
+                if k == 0:
+                    continue
+                # a register-blocked tile: tile + 1 outputs, K taps of one
+                # weight, each band one input after the previous one
+                assert k in FK.UNIFORM_TAPS and rows.stop - rows.start == tile + 1
+                assert (blur.length[s, rows] == k).all()
+                assert (np.diff(blur.start[s, rows]) == 1).all()
+                assert (blur.weight[s, rows, :k] == wt[s, t]).all()
+    # the identity settings are exactly blur width 0; every band of a built
+    # plan sums to one (so the kernel may fill constant windows)
+    np.testing.assert_array_equal(a["ident"], plan.blur_ids <= 1)
+    assert ops.unit_bands and ops.blocks_alike
+    np.testing.assert_array_equal(a["block_sets"].ravel(),
+                                  np.arange(plan.n_settings))
+    # one packed buffer: every array at its 16-byte-aligned offset
+    for name, arr in a.items():
+        off = ops.offsets[name]
+        assert off % 16 == 0
+        dtype = np.float32 if arr.dtype.kind == "f" else np.int32
+        got = ops.host[off:off + arr.size * 4].view(dtype).reshape(arr.shape)
+        np.testing.assert_array_equal(got, arr.astype(dtype), err_msg=name)
+
+
+def test_grid_operands_mark_interior_tiles_at_1080p():
+    """At the camera's size most tiles of a blurring setting take the
+    register-blocked passes; the edge tiles and blur 0 never do."""
+    plan = FK.build_transform_plan(1080, 1920, scale=1.0, cs=FK.CS_BGR,
+                                   blur_ks=K.BLUR_KERNELS)
+    a = plan.operands.arrays
+    blurring = plan.blur_ids > 1
+    assert (a["vk"][~blurring] == 0).all() and (a["hk"][~blurring] == 0).all()
+    for taps in (a["vk"], a["hk"]):
+        inner = taps[blurring][:, 1:-1]
+        np.testing.assert_array_equal(inner, np.broadcast_to(
+            plan.blur_ids[blurring][:, None], inner.shape))
+    assert (a["vk"][:, [0, -1]] == 0).all() and (a["hk"][:, [0, -1]] == 0).all()
+    assert plan.operands.win_h == FK.TILE_H + max(K.BLUR_KERNELS)
+    assert plan.operands.win_w == FK.TILE_W + max(K.BLUR_KERNELS)
+
+
+@pytest.mark.parametrize("art", ARTS, ids=["noart", "art"])
+@pytest.mark.parametrize("res,cs", GROUPS)
+def test_exact_reference_is_the_plain_arithmetic(clip, res, cs, art):
+    """The card tests' bitwise oracle against the plain version on the CPU:
+    within the kernel contract (measured here: every byte equal)."""
+    frames, prev, bg, enable = clip
+    plan = FK.build_transform_plan(H, W, scale=K.RESOLUTION_SCALES[res],
+                                   cs=cs, blur_ks=K.BLUR_KERNELS,
+                                   art_modes=art)
+    kw, ref_kw = {}, {}
+    if art != (0,):
+        kw = dict(background=torch.as_tensor(bg),
+                  art_enable=torch.as_tensor(enable))
+        ref_kw = dict(bg=bg, enable=enable)
+    got = FK.frame_knob_grid(torch.as_tensor(frames), torch.as_tensor(prev),
+                             plan, device="cpu", **kw)
+    payload, changed = exact_reference(frames, prev, plan, **ref_kw)
+    check_grid(got, (payload, FK.proxy_features(torch.as_tensor(payload)),
+                     np.broadcast_to(changed, got[2].shape)))
+
+
+# -- the CUDA kernel on the card ------------------------------------------------
+
+
+def cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def fma32(a, b, c):
+    """float32 fmaf(a, b, c): the exact a * b (48 bits) plus c in float64,
+    rounded once to float32.  Where a float64 sum would round (an exponent
+    spread above 2^5), the result lies far from a float32 tie, so it rounds
+    as fmaf does."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def band_pass(x, band, axis):
+    """One band pass over ``axis`` of float32 ``x`` in the kernel's order:
+    every output sums its taps in ascending order from 0 with fmaf; a tap
+    past a band's length has weight 0 (``fmaf(0, v, acc) = acc``) and a
+    clamped index."""
+    x = np.moveaxis(x, axis, -1)
+    n_in = x.shape[-1]
+    acc = np.zeros(x.shape[:-1] + band.start.shape, np.float32)
+    for t in range(band.k):
+        idx = np.minimum(band.start + t, n_in - 1)
+        acc = fma32(band.weight[:, t], x[..., idx], acc)
+    return np.moveaxis(acc, -1, axis)
+
+
+def round_clip(x):
+    return np.clip(np.rint(x), 0, 255).astype(np.float32)
+
+
+def exact_reference(frames, prev, plan, bg=None, enable=None,
+                    pixel_delta=8.0):
+    """The kernel's arithmetic contract in NumPy, independent of the plain
+    version's dense products (whose summation order on the card changes
+    with the shape): knob5 and knob4 as the plain version computes them,
+    then the resize and blur band passes tap by tap with fmaf, each stage's
+    round/clip.  Returns (payload uint8 [S, F, P, oh, ow], changed f32
+    [F])."""
+    ft, pt = torch.as_tensor(frames), torch.as_tensor(prev)
+    n = len(frames)
+    count = (FK._channel_mean_absdiff(ft, pt) > pixel_delta).sum((1, 2))
+    changed = count.numpy().astype(np.float32) / np.float32(
+        plan.in_h * plan.in_w)
+    modes, blocks = FK._art_blocks(plan)
+    if bg is not None:
+        movers, contours = (m.numpy() for m in FK._artifact_masks(
+            ft, torch.as_tensor(bg), thresh=FK.ARTIFACT_THRESH))
+    resized = []
+    for mode in modes:
+        src = frames
+        if bg is not None and mode != 0:
+            eff = (mode * enable)[:, None, None]
+            keep = np.where(eff == 1, movers, np.where(eff == 2, contours,
+                                                       True))
+            src = np.where(keep[..., None], frames, 0).astype(np.uint8)
+        planes = FK._to_planes(torch.as_tensor(src), plan.cs).numpy()
+        rs = band_pass(band_pass(planes, plan.ry_band, 2), plan.rx_band, 3)
+        resized.append(round_clip(rs))
+    payload = np.empty((plan.n_settings, n, plan.n_planes, plan.out_h,
+                        plan.out_w), np.uint8)
+    for s in range(plan.n_settings):
+        by = FK.Band(plan.by_band.start[s], plan.by_band.length[s],
+                     plan.by_band.weight[s])
+        bx = FK.Band(plan.bx_band.start[s], plan.bx_band.length[s],
+                     plan.bx_band.weight[s])
+        bl = band_pass(band_pass(resized[blocks[s]], by, 2), bx, 3)
+        payload[s] = round_clip(bl)
+    return payload, changed
+
+
+def check_exact(got, want):
+    """The kernel against ``exact_reference``: payload and ``changed``
+    bitwise; its features against those of its own payload, counts exactly
+    and log2 sums within 1e-3 relative (their summation order differs)."""
+    pg, fg, cg = (t.cpu() for t in got)
+    pw, cw = want
+    np.testing.assert_array_equal(pg.numpy(), pw)
+    np.testing.assert_array_equal(cg.numpy(), np.broadcast_to(cw, cg.shape))
+    own = FK.proxy_features(pg)
+    assert torch.equal(fg[..., [1, 2, 4, 5]], own[..., [1, 2, 4, 5]])
+    torch.testing.assert_close(fg[..., [0, 3]], own[..., [0, 3]], rtol=1e-3,
+                               atol=0.0)
+
+
+def camera_clip(h, w, n):
+    """The background and ``n - 1`` frames of a complex ``h x w`` camera,
+    prev shifted by one, knob4 off on frame 0."""
+    cam = SyntheticCamera(CameraConfig(height=h, width=w, dynamics="complex",
+                                       seed=7))
+    frames = np.stack([cam.background]
+                      + [cam.next_frame()[1] for _ in range(n - 1)])
+    prev = np.concatenate([frames[:1], frames[:-1]])
+    enable = np.ones(n, np.int32)
+    enable[0] = 0
+    return frames, prev, cam.background, enable
+
+
+def run_groups(dev, h, w, n, art):
+    """Every group: the kernel bitwise against ``exact_reference`` and
+    against the plain version on the CPU (``check_grid``, which at these
+    inputs finds every byte equal: ``test_exact_reference_is_the_plain_
+    arithmetic``).  The plain version on the card is no bitwise oracle at
+    these shapes: its dense products sum in another order there, and its
+    ``changed`` divides through a reciprocal."""
+    host = camera_clip(h, w, n)
+    frames, prev, bg, enable = (torch.as_tensor(x).to(dev) for x in host)
+    cpu = [torch.as_tensor(x) for x in host]
+    kw = {} if art == (0,) else dict(background=bg, art_enable=enable)
+    cpu_kw = {} if art == (0,) else dict(background=cpu[2],
+                                         art_enable=cpu[3])
+    ref_kw = {} if art == (0,) else dict(bg=host[2], enable=host[3])
+    for res, cs in GROUPS:
+        plan = FK.build_transform_plan(h, w, scale=K.RESOLUTION_SCALES[res],
+                                       cs=cs, blur_ks=K.BLUR_KERNELS,
+                                       art_modes=art)
+        got = FK.frame_knob_grid(frames, prev, plan, **kw)
+        check_exact(got, exact_reference(host[0], host[1], plan, **ref_kw))
+        check_grid(got, FK.frame_knob_grid_plain(cpu[0], cpu[1], plan,
+                                                 **cpu_kw), max_frac=0.0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("art", ARTS, ids=["noart", "art"])
+def test_cuda_kernel_bit_equal_to_reference(art):
+    run_groups(cuda_or_skip(), H, W, 3, art)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("art", ARTS, ids=["noart", "art"])
+def test_cuda_kernel_ragged_tiles(art):
+    """146x262: ragged edge tiles on both axes at every scale, and payload
+    rows that are no multiple of 16 bytes (the byte-store path)."""
+    run_groups(cuda_or_skip(), 146, 262, 3, art)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [3, 17])
+def test_cuda_kernel_odd_frame_counts(n):
+    run_groups(cuda_or_skip(), H, W, n, (0, 1, 2))
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_repeatable_and_uploads_once():
+    """Two calls on one plan: bit-identical outputs, and the second finds
+    the plan's operands on the card (no new upload, no host->device copy:
+    the buffer keeps its data_ptr)."""
+    cuda_or_skip()
+    frames, prev, bg, enable = (torch.as_tensor(x).cuda()
+                                for x in camera_clip(H, W, 17))
+    dev = frames.device
+    plan = FK.build_transform_plan(H, W, scale=0.6833, cs=FK.CS_BGR,
+                                   blur_ks=K.BLUR_KERNELS,
+                                   art_modes=(0, 1, 2))
+    assert plan.operands.device_buffer(dev) is None
+    kw = dict(background=bg, art_enable=enable)
+    first = FK.frame_knob_grid(frames, prev, plan, **kw)
+    buf = plan.operands.device_buffer(dev)
+    ptr = buf.data_ptr()
+    second = FK.frame_knob_grid(frames, prev, plan, **kw)
+    assert plan.operands.device_buffer(dev) is buf and buf.data_ptr() == ptr
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
