@@ -64,9 +64,14 @@ each, with their wall seconds:
   quant_kernels the approximate collective's quantize and dequantize
                 kernels against their plain versions, bit for bit, at every
                 gradient leaf shape of the full-width ``qwen3-1.7b`` step
-                (float32 and bfloat16, bits 8 and 4) and on edge cases (an
-                all-zero tile, .5 ties, +-absmax), timed for the largest
-                leaf and for the step's 13 + 13 launches beside the bound;
+                (float32 and bfloat16, bits 8 and 4), at seven tiles, a
+                short tile and a strided layout, on misaligned copies and
+                on edge cases (an all-zero tile, .5 ties, +-absmax), each
+                launch on the route ``route_for`` names; timed for the
+                largest leaf, for each leaf and for the step's 13 + 13
+                launches beside the bound, the plain versions and, for
+                dequantize, the ``torch.mul`` library call (bitwise the
+                plain version);
   train_check   one full-width bfloat16 step's gradients, computed once,
                 then the rest of the step twice from the same parameters
                 and optimizer state -- the round trip through the kernels
@@ -76,7 +81,9 @@ each, with their wall seconds:
                 seq=4096, grad_bits=8, checkpoint_every=4,
                 inject_failure_at=6)``: step times, tokens/s, peak memory,
                 the losses (finite), the recovery from step 4's checkpoint
-                and the kernels' launches (13 + 13 per executed step);
+                and the kernels' launches (13 + 13 per executed step, all
+                on the contiguous route, as in train_check and
+                collective);
   train_trace   one traced full-width training step: the card's busy
                 share, the top activities and the two kernels' share;
   collective    ``compressed_mean`` on a one-rank NCCL group over the
@@ -111,6 +118,10 @@ line; without a CUDA device, or outside a checkout, it exits 2.
 runs only the build, kernel and profile phases of ``frame_knob_grid``,
 against this checkout's port or another's: two checkouts timed in one run
 on one card (A/B) by the same phases.
+
+    python3 chip_smoke.py --quant-only [--src OTHER_CHECKOUT/src]
+
+does the same for the quantize pair: the build and quant_kernels phases.
 """
 
 from __future__ import annotations
@@ -156,7 +167,7 @@ FLASH_SHAPES = ((8, 1024), (8, 1000))
 FLASH_EXTRA = ((8, 1024, 64), (8, 1, 128), (8, 65, 128))
 # kernel functions of the redesigned kernels, which must build without spills
 NO_SPILL = ("flash_wgmma", "decode_fused", "fkg_prologue", "fkg_tile",
-            "fkg_final")
+            "fkg_final", "quantize_cluster", "dequantize_stream")
 DECODE_S_MAX = 1536
 DECODE_LENGTHS = (1, 1024, 1152, 1279, 1536)
 # max |kernel - plain| on unit-normal inputs, per (kernel, dtype).  bf16:
@@ -204,6 +215,9 @@ TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 6
 CHECK_SEQ = 1024            # train_check: the leaves' shapes at any length
 GRAD_MIN_SIZE = 1024        # launch/train.py's make_grad_compressor(min_size)
 QUANT_BLOCK = (256, 512)
+# beside the leaves: seven tiles (no multiple of a cluster's or the grid's
+# share), a short tile (M < 256) and a strided layout (N > bn)
+QUANT_EXTRA_SHAPES = ((256 * 7, 512), (128, 512), (1024, 1536))
 COLLECTIVE_STEPS = 60       # tests/test_runtime.py's contention sequence
 
 # -- the camera node ----------------------------------------------------------
@@ -831,7 +845,7 @@ def traced(fn, n_top: int, kernels: tuple[str, ...] = ()) -> dict:
                activities=[{"activity": k[:120], "count": c, "ms": ms}
                            for k, (c, ms) in top[:n_top]])
     for name in kernels:
-        # a whole word: "quantize_tiles" is not "dequantize_tiles"
+        # a whole word: "quantize_cluster" is not "dequantize_cluster"
         hits = [v for k, v in top if re.search(rf"\b{name}\b", k)]
         out.setdefault("kernel_ms", {})[name] = {
             "count": sum(c for c, _ in hits), "ms": sum(ms for _, ms in hits)}
@@ -1136,12 +1150,41 @@ def quant_edge_input(dev):
     return x
 
 
+def route_counts() -> "dict | None":
+    """Both quantize wrappers' launches per route (copies), or None where
+    the wrappers count no routes (a checkout before the routes, timed with
+    ``--quant-only --src``)."""
+    from repro_torch.kernels import quantize as Q
+    if not hasattr(Q.quantize_blocks, "launches_by_route"):
+        return None
+    return {f.__name__: dict(f.launches_by_route)
+            for f in (Q.quantize_blocks, Q.dequantize_blocks)}
+
+
+def route_delta(before, after) -> "dict | None":
+    """Launches per wrapper and route between two ``route_counts``, the
+    routes launched only."""
+    if before is None or after is None:
+        return None
+    return {k: {r: n - before[k][r] for r, n in v.items() if n != before[k][r]}
+            for k, v in after.items()}
+
+
+def contiguous_only(n: int) -> dict:
+    """``route_delta`` of ``n`` launches of each wrapper, all on the
+    contiguous route: what the training path must show."""
+    return {"quantize_blocks": {"contiguous": n},
+            "dequantize_blocks": {"contiguous": n}}
+
+
 def quant_check(x, bits: int) -> int:
     """Both kernels against their plain versions on ``x``; raises unless
     q, the scales and the dequantized output (in x's dtype and in float32)
-    are bitwise equal.  Returns the number of elements compared."""
+    are bitwise equal, and unless every launch took the route
+    ``route_for`` names.  Returns the number of elements compared."""
     import torch
     from repro_torch.kernels import quantize as Q
+    before = route_counts()
     q, s = Q.quantize_blocks(x, block=QUANT_BLOCK, bits=bits)
     qp, sp = Q.quantize_blocks_plain(x, block=QUANT_BLOCK, bits=bits)
     torch.cuda.synchronize()
@@ -1151,7 +1194,8 @@ def quant_check(x, bits: int) -> int:
                              f"bits {bits}: q or scales differ from plain "
                              f"(max |dq| {dq})")
     del qp, sp
-    for out in {x.dtype, torch.float32}:
+    outs = {x.dtype, torch.float32}
+    for out in outs:
         d = Q.dequantize_blocks(q, s, block=QUANT_BLOCK, out_dtype=out)
         dp = Q.dequantize_blocks_plain(q, s, block=QUANT_BLOCK, out_dtype=out)
         torch.cuda.synchronize()
@@ -1159,16 +1203,48 @@ def quant_check(x, bits: int) -> int:
             raise AssertionError(f"dequantize_blocks {tuple(x.shape)} {out} "
                                  f"bits {bits}: differs from plain")
         del d, dp
+    delta = route_delta(before, route_counts())
+    if delta is not None:
+        route = Q.route_for(x.shape, QUANT_BLOCK)
+        want = {"quantize_blocks": {route: 1},
+                "dequantize_blocks": {route: len(outs)}}
+        if delta != want:
+            raise AssertionError(f"{tuple(x.shape)}: launches per route "
+                                 f"{delta}, want {want}")
     return x.numel()
+
+
+def misaligned(x):
+    """A copy of ``x`` whose storage starts one element past a 16-byte
+    boundary (contiguous, the same shape): the kernels' one-element path."""
+    buf = x.new_empty(x.numel() + 1)
+    out = buf[1:].view(x.shape)
+    out.copy_(x)
+    return out
+
+
+def library_dequantize(q, s):
+    """One PyTorch call computing ``dequantize_blocks`` to float32: the
+    int8 q times its tile's scale, broadcast over the block view (type
+    promotion makes it one rounded float32 product).  The yardstick only:
+    the port never calls it."""
+    import torch
+    m, n = q.shape
+    bm, bn = min(QUANT_BLOCK[0], m), min(QUANT_BLOCK[1], n)
+    return torch.mul(q.view(m // bm, bm, n // bn, bn),
+                     s.view(m // bm, 1, n // bn, 1)).view(m, n)
 
 
 def phase_quant_kernels(dev, cfg) -> dict:
     """The quantize pair against the plain versions at every gradient leaf
     shape of ``cfg``'s step (float32: what a step of several microbatches
-    feeds; bfloat16: a one-microbatch step), bits 8 and 4, and on the edge
-    cases; then device times (``device_ms`` behind the spin kernel) of the
-    largest leaf and of the step's 13 + 13 launches (float32, bits 8), the
-    plain versions' (CUDA events per call), and the bounds."""
+    feeds; bfloat16: a one-microbatch step), bits 8 and 4, at
+    ``QUANT_EXTRA_SHAPES``, on a misaligned copy and on the edge cases;
+    then device times (``device_ms`` behind the spin kernel) of the
+    largest leaf and of the step's 13 + 13 launches (float32, bits 8),
+    each leaf's too with its GB/s, beside the plain versions' (CUDA events
+    per call), the ``torch.mul`` library call's for dequantize (held
+    bitwise to the plain version), the wrappers' call ms and the bounds."""
     import torch
     from repro_torch.kernels import quantize as Q
     g = torch.Generator(device=dev)
@@ -1176,7 +1252,8 @@ def phase_quant_kernels(dev, cfg) -> dict:
     leaves = grad_leaves(cfg)
     shapes = sorted({shape for _, shape, _ in leaves})
     cases = elements = 0
-    for rows, cols in shapes:
+    before = route_counts()
+    for rows, cols in (*shapes, *QUANT_EXTRA_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             x = quant_input(dev, g, rows, cols, dtype)
             for bits in (8, 4):
@@ -1184,6 +1261,21 @@ def phase_quant_kernels(dev, cfg) -> dict:
                 cases += 1
             del x
             torch.cuda.empty_cache()
+    for dtype in (torch.float32, torch.bfloat16):
+        x = misaligned(quant_input(dev, g, *QUANT_EXTRA_SHAPES[0], dtype))
+        elements += quant_check(x, 8)
+        q, s = Q.quantize_blocks(x, block=QUANT_BLOCK)
+        qm = misaligned(q)
+        for out in {dtype, torch.float32}:
+            if not torch.equal(
+                    Q.dequantize_blocks(qm, s, block=QUANT_BLOCK,
+                                        out_dtype=out),
+                    Q.dequantize_blocks_plain(q, s, block=QUANT_BLOCK,
+                                              out_dtype=out)):
+                raise AssertionError(f"dequantize_blocks of a misaligned q "
+                                     f"to {out} differs from plain")
+        cases += 1
+        del x, q, s, qm
     edge = quant_edge_input(dev)
     for bits in (8, 4):
         for dtype in (torch.float32, torch.bfloat16):
@@ -1193,23 +1285,48 @@ def phase_quant_kernels(dev, cfg) -> dict:
     if float(s[0, 0]) != float(torch.tensor(1e-12)) or q[:256, :512].any():
         raise AssertionError("the all-zero tile: scale or q wrong")
     del edge, q, s
+    routes = route_delta(before, route_counts())
 
-    def timed_pair(xs):
-        """The kernels' device ms behind the spin kernel; the plain
-        versions' with CUDA events per call (their many full-size passes
-        and allocations keep the card busy far longer than the host takes
-        to queue them, and the spin cannot hide a whole step's worth)."""
+    def gbps(x, ms):
+        return quant_bound_ms(torch.float32, *x.shape)[0] * HBM_BYTES_PER_S \
+            / 1e3 / ms / 1e6
+
+    def timed_pair(xs, keys=None):
+        """The kernels' and the library call's device ms behind the spin
+        kernel (of each leaf too, with ``keys``); the plain versions' with
+        CUDA events per call (their many full-size passes and allocations
+        keep the card busy far longer than the host takes to queue them,
+        and the spin cannot hide a whole step's worth)."""
         qs = [Q.quantize_blocks(x, block=QUANT_BLOCK) for x in xs]
+        for q, s in qs:
+            if not torch.equal(library_dequantize(q, s),
+                               Q.dequantize_blocks_plain(q, s,
+                                                         block=QUANT_BLOCK)):
+                raise AssertionError(f"the torch.mul dequantize "
+                                     f"{tuple(q.shape)} differs from plain")
+        calls = {
+            "quantize": lambda x, q, s: Q.quantize_blocks(x,
+                                                          block=QUANT_BLOCK),
+            "dequantize": lambda x, q, s: Q.dequantize_blocks(
+                q, s, block=QUANT_BLOCK),
+            "dequantize_library": lambda x, q, s: library_dequantize(q, s)}
         out = {}
-        for key, fn in (
-                ("quantize", lambda: [Q.quantize_blocks(x, block=QUANT_BLOCK)
-                                      for x in xs]),
-                ("dequantize", lambda: [Q.dequantize_blocks(
-                    q, s, block=QUANT_BLOCK) for q, s in qs])):
-            ms, hidden = device_ms(fn, ATTN_REPS)
+        for key, call in calls.items():
+            ms, hidden = device_ms(lambda: [call(x, q, s) for x, (q, s)
+                                            in zip(xs, qs)], ATTN_REPS)
             if not hidden:
                 raise AssertionError(f"{key}: the host outlasted the spin")
             out[f"{key}_ms"] = ms
+        if keys is not None:
+            out["per_leaf"] = []
+            for key, x, (q, s) in zip(keys, xs, qs):
+                leaf = dict(key=key, shape=list(x.shape), bound_ms=
+                            quant_bound_ms(torch.float32, *x.shape)[0])
+                for name, call in calls.items():
+                    leaf[f"{name}_ms"] = device_ms(
+                        lambda: call(x, q, s), ATTN_REPS)[0]
+                    leaf[f"{name}_gbps"] = gbps(x, leaf[f"{name}_ms"])
+                out["per_leaf"].append(leaf)
         out["quantize_plain_ms"] = cuda_ms(lambda: [Q.quantize_blocks_plain(
             x, block=QUANT_BLOCK) for x in xs], REPS)
         out["dequantize_plain_ms"] = cuda_ms(lambda: [
@@ -1221,16 +1338,25 @@ def phase_quant_kernels(dev, cfg) -> dict:
             b for b, by in bounds if by == k))
         out["quantize_call_ms"] = cuda_ms(lambda: Q.quantize_blocks(
             xs[0], block=QUANT_BLOCK), REPS)
+        out["dequantize_call_ms"] = cuda_ms(lambda: Q.dequantize_blocks(
+            *qs[0], block=QUANT_BLOCK), REPS)
         return out
 
     big_key, big_shape, _ = max(leaves, key=lambda l: l[2])
-    big = timed_pair([quant_input(dev, g, *big_shape, torch.float32)])
+    x = quant_input(dev, g, *big_shape, torch.float32)
+    big = timed_pair([x])
+    big["quantize_gbps"] = gbps(x, big["quantize_ms"])
+    big["dequantize_gbps"] = gbps(x, big["dequantize_ms"])
+    del x
     torch.cuda.empty_cache()
     step = timed_pair([quant_input(dev, g, *shape, torch.float32)
-                       for _, shape, _ in leaves])
+                       for _, shape, _ in leaves],
+                      keys=[k for k, _, _ in leaves])
     torch.cuda.empty_cache()
     return dict(cases=cases, elements=elements, max_abs_err=0,
                 leaves=len(leaves), leaf_shapes=[list(x) for x in shapes],
+                extra_shapes=[list(x) for x in QUANT_EXTRA_SHAPES],
+                launches_by_route=routes,
                 largest_leaf=dict(key=big_key, shape=list(big_shape), **big),
                 step=dict(launches_each=len(leaves), **step))
 
@@ -1287,6 +1413,7 @@ def phase_train_check(dev, cfg) -> dict:
     grad_s = time.monotonic() - t0
     opt = AdamWConfig()
     n0 = (Q.quantize_blocks.launches, Q.dequantize_blocks.launches)
+    r0 = route_counts()
     p_k, _, cg_k = apply_grads(opt, tree_map(torch.clone, params),
                                init_opt_state(params, device=dev), grads,
                                make_grad_compressor(TRAIN_BITS,
@@ -1294,6 +1421,7 @@ def phase_train_check(dev, cfg) -> dict:
     torch.cuda.synchronize()
     launches = (Q.quantize_blocks.launches - n0[0],
                 Q.dequantize_blocks.launches - n0[1])
+    routes = route_delta(r0, route_counts())
     torch.cuda.empty_cache()
     p_p, _, cg_p = apply_grads(opt, params, init_opt_state(params,
                                                            device=dev),
@@ -1309,6 +1437,7 @@ def phase_train_check(dev, cfg) -> dict:
                    tree_items(grads)[0][1].dtype).removeprefix("torch."),
                loss=float(loss), grad_seconds=grad_s,
                seconds=time.monotonic() - t0, launches=list(launches),
+               launches_by_route=routes,
                leaves=n_leaves, compressed_grads_identical=not diffs,
                params_identical=not pdiffs,
                finite=bool(all(torch.isfinite(v).all()
@@ -1316,7 +1445,7 @@ def phase_train_check(dev, cfg) -> dict:
     del model, params, grads, p_k, p_p, cg_k, cg_p, batch
     torch.cuda.empty_cache()
     if diffs or pdiffs or launches != (n_leaves, n_leaves) \
-            or not out["finite"]:
+            or routes != contiguous_only(n_leaves) or not out["finite"]:
         raise AssertionError(f"train_check failed: {out}; compressed "
                              f"grads differ at {diffs}, params at {pdiffs}")
     return out
@@ -1340,6 +1469,8 @@ def phase_train(dev) -> dict:
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     Q.quantize_blocks.launches = Q.dequantize_blocks.launches = 0
+    for f in (Q.quantize_blocks, Q.dequantize_blocks):
+        f.launches_by_route = dict.fromkeys(Q.ROUTES, 0)
     t0 = time.monotonic()
     try:
         out = train(TRAIN_ARCH, reduced=TRAIN_REDUCED, steps=TRAIN_STEPS,
@@ -1352,6 +1483,8 @@ def phase_train(dev) -> dict:
     seconds = time.monotonic() - t0
     launches = {"quantize_blocks": Q.quantize_blocks.launches,
                 "dequantize_blocks": Q.dequantize_blocks.launches}
+    routes = route_delta({k: dict.fromkeys(Q.ROUTES, 0) for k in launches},
+                         route_counts())
     steps_run = len(out["step_s"])
     step_s = np.asarray(out["step_s"])
     res = dict(arch=TRAIN_ARCH, reduced=TRAIN_REDUCED, batch=TRAIN_BATCH,
@@ -1364,7 +1497,7 @@ def phase_train(dev) -> dict:
                                   / step_s.sum()),
                checkpoint_s=out["checkpoint_s"],
                recoveries=out["recoveries"], launches=launches,
-               launches_per_step=n_leaves,
+               launches_by_route=routes, launches_per_step=n_leaves,
                max_memory_allocated_gb=torch.cuda.max_memory_allocated()
                / 1e9, device=out["device"])
     want_steps = TRAIN_FAIL_AT + TRAIN_STEPS - TRAIN_CKPT_EVERY
@@ -1375,9 +1508,11 @@ def phase_train(dev) -> dict:
         raise AssertionError(f"recovery: {out['recoveries']}, {steps_run} "
                              f"steps, want a replay from step "
                              f"{TRAIN_CKPT_EVERY} and {want_steps} steps")
-    if launches != {k: n_leaves * want_steps for k in launches}:
-        raise AssertionError(f"train launched {launches}, want "
-                             f"{n_leaves * want_steps} of each")
+    if launches != {k: n_leaves * want_steps for k in launches} \
+            or routes != contiguous_only(n_leaves * want_steps):
+        raise AssertionError(f"train launched {launches} ({routes} by "
+                             f"route), want {n_leaves * want_steps} of each, "
+                             f"all contiguous")
     return res
 
 
@@ -1409,7 +1544,7 @@ def phase_train_trace(dev) -> dict:
 
     one()
     torch.cuda.synchronize()
-    tr = traced(one, 16, kernels=("quantize_tiles", "dequantize_tiles"))
+    tr = traced(one, 16, kernels=("quantize_cluster", "dequantize_stream"))
     total = tr["device_ms_total"]
     tr["kernel_share_of_device_ms"] = {
         k: v["ms"] / total if total else None
@@ -1446,6 +1581,7 @@ def phase_collective(dev, cfg) -> dict:
     dist.init_process_group(backend, store=dist.FileStore(str(store_path), 1),
                             rank=0, world_size=1)
     out = dict(leaf=key, shape=list(shape), backend=backend)
+    r0 = route_counts()
     try:
         for bits in (8, 4):
             got = AC.compressed_mean(x, bits)
@@ -1467,6 +1603,11 @@ def phase_collective(dev, cfg) -> dict:
         dist.destroy_process_group()
         store_path.unlink(missing_ok=True)
     del x
+    routes = out["launches_by_route"] = route_delta(r0, route_counts())
+    if set(routes) != {"quantize_blocks", "dequantize_blocks"} \
+            or any(set(v) != {"contiguous"} for v in routes.values()):
+        raise AssertionError(f"compressed_mean launched {routes} by route, "
+                             f"want every launch contiguous")
     grad_bytes, fidelity, bw = 4e6, {16: 1.0, 8: 0.999, 4: 0.985}, 3e9
     target = 1.5 * grad_bytes / bw
     ctl = AC.CollectiveController(grad_bytes, fidelity,
@@ -1533,16 +1674,20 @@ def quant_kernel_rows(quant: dict, run: dict) -> list[dict]:
     rows = []
     for name, src_line in (("quantize_blocks", 44), ("dequantize_blocks", 70)):
         key = name.split("_")[0]
+        lib = step.get(f"{key}_library_ms")
         rows.append({
-            "name": name, "route": "cuda",
+            "name": name, "route": "cuda", "kernel_route": "contiguous",
             "source": "src/repro_torch/kernels/csrc/quantize_blocks.cu",
             "replaces": f"src/repro/kernels/quantize.py:{src_line}",
             "launches": run["launches"][name],
+            "launches_by_route": run["launches_by_route"][name],
             "max_abs_err": quant["max_abs_err"],
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
-            "library_ms": None,
+            "library_ms": lib,
+            "call_ms": big[f"{key}_call_ms"],
             "largest_leaf_ms": big[f"{key}_ms"],
+            "largest_leaf_library_ms": big.get(f"{key}_library_ms"),
             "largest_leaf_plain_ms": big[f"{key}_plain_ms"],
             "largest_leaf_bound_ms": big["bound_ms"],
             "shape": f"the step's {step['launches_each']} launches on "
@@ -1865,14 +2010,18 @@ def ptxas_functions(paths) -> list[dict]:
 def main(argv: list[str]) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--grid-only", action="store_true",
-                    help="run only the build, kernel and profile phases of "
-                         "frame_knob_grid")
+    only = ap.add_mutually_exclusive_group()
+    only.add_argument("--grid-only", action="store_true",
+                      help="run only the build, kernel and profile phases "
+                           "of frame_knob_grid")
+    only.add_argument("--quant-only", action="store_true",
+                      help="run only the build and quant_kernels phases of "
+                           "the quantize pair")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive "
-                         "(default: this checkout's); with --grid-only, "
-                         "another checkout's, to time its kernel with this "
-                         "script's phases")
+                         "(default: this checkout's); with --grid-only or "
+                         "--quant-only, another checkout's, to time its "
+                         "kernels with this script's phases")
     args = ap.parse_args(argv)
     if not (args.src / "repro_torch").is_dir():
         print("chip_smoke: src/repro_torch not found -- run from the root "
@@ -1888,7 +2037,8 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    (run_grid if args.grid_only else run)(torch.device("cuda"))
+    (run_grid if args.grid_only else run_quant if args.quant_only
+     else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1925,6 +2075,30 @@ def run_grid(dev) -> None:
     t0 = time.monotonic()
     prof = phase_profile(dev)
     emit("profile", seconds=time.monotonic() - t0, **prof)
+
+
+def run_quant(dev) -> None:
+    """``--quant-only``: build the quantize pair, then the quant_kernels
+    phase (a checkout whose wrappers count no routes is checked and timed
+    all the same)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import quantize as Q
+    t0 = time.monotonic()
+    paths = build.build(["quantize_blocks"])
+    Q._load_lib()
+    functions = ptxas_functions(paths)
+    emit("build", seconds=time.monotonic() - t0, functions=functions)
+    spilled = [f for f in functions if f["spill_bytes"]
+               and any(k in f["function"] for k in NO_SPILL)]
+    if spilled:
+        raise AssertionError(f"redesigned kernels spilling: {spilled}")
+    cfg = get_config(TRAIN_ARCH)
+    if TRAIN_REDUCED:
+        cfg = cfg.reduced()
+    t0 = time.monotonic()
+    quant = phase_quant_kernels(dev, cfg)
+    emit("quant_kernels", seconds=time.monotonic() - t0, **quant)
 
 
 def run(dev) -> None:

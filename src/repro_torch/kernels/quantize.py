@@ -22,10 +22,20 @@ Three pieces per direction:
                              card's yardstick.
 ``quantize_blocks``          the wrappers: a CUDA tensor launches the
 ``dequantize_blocks``        kernel of ``csrc/quantize_blocks.cu`` (counted
-                             in ``.launches``), a CPU tensor takes the
-                             plain version, anything else raises.  No
+                             in ``.launches`` and per route in
+                             ``.launches_by_route``), a CPU tensor takes
+                             the plain version, anything else raises.  No
                              ``try`` falls back: a failed build or launch
                              raises.
+``route_for``                the route of a CUDA call, from the shape and
+                             tile alone: "contiguous" where the tile spans
+                             whole rows (N == bn: each tile one span of
+                             memory, as on every call of the approximate
+                             collective), "strided" otherwise.  Both routes
+                             are the same kernels (quantize: one cluster of
+                             CTAs per tile, each tile read once; dequantize:
+                             one flat stream sized to the card); they
+                             differ in how an element's offset is found.
 
 The plain version divides by tensors, never by a Python number: on a CUDA
 tensor PyTorch turns a division by a host scalar into a multiplication by
@@ -43,12 +53,13 @@ import ctypes
 import torch
 
 __all__ = ["quantize_blocks", "dequantize_blocks", "quantize_blocks_plain",
-           "dequantize_blocks_plain", "tile_shape", "QMAX", "KERNEL_DTYPES",
-           "SCALE_FLOOR"]
+           "dequantize_blocks_plain", "tile_shape", "route_for", "ROUTES",
+           "QMAX", "KERNEL_DTYPES", "SCALE_FLOOR"]
 
 QMAX = {8: 127.0, 4: 7.0}
 SCALE_FLOOR = 1e-12
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+ROUTES = ("contiguous", "strided")
 
 _lib = None
 
@@ -85,6 +96,15 @@ def tile_shape(shape, block=(256, 512)) -> tuple[int, int]:
         raise ValueError(f"quantize: tile {(bm, bn)} does not divide shape "
                          f"{(m, n)}")
     return bm, bn
+
+
+def route_for(shape, block=(256, 512)) -> str:
+    """The kernel route a CUDA call on a 2-D ``shape`` takes: "contiguous"
+    where the tile ``tile_shape(shape, block)`` spans whole rows, so that
+    each tile is one span of memory, else "strided".  Raises
+    ``ValueError`` as ``tile_shape`` does."""
+    _, bn = tile_shape(shape, block)
+    return "contiguous" if bn == shape[1] else "strided"
 
 
 def _qmax(bits: int) -> float:
@@ -151,7 +171,9 @@ def quantize_blocks(x: torch.Tensor, *, block=(256, 512), bits: int = 8
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """x ``[M, N]`` -> (q int8 ``[M, N]``, scales float32 ``[M/bm,
     N/bn]``).  On a CUDA tensor (float32 or bfloat16, contiguous) the
-    kernel runs and adds one to ``quantize_blocks.launches``; on a CPU
+    kernel runs and adds one to ``quantize_blocks.launches`` and to the
+    entry of ``route_for(x.shape, block)`` in
+    ``quantize_blocks.launches_by_route``; on a CPU
     tensor ``quantize_blocks_plain`` runs; anything else raises
     ``RuntimeError``.  A tile that does not divide the shape raises
     ``ValueError``."""
@@ -175,10 +197,12 @@ def quantize_blocks(x: torch.Tensor, *, block=(256, 512), bits: int = 8
                                  KERNEL_DTYPES[x.dtype], stream)
     _raise_on(lib, rc, "quantize_blocks")
     quantize_blocks.launches += 1
+    quantize_blocks.launches_by_route[route_for(x.shape, block)] += 1
     return q, scales
 
 
 quantize_blocks.launches = 0
+quantize_blocks.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor, *,
@@ -187,7 +211,8 @@ def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor, *,
                       ) -> torch.Tensor:
     """q int8 ``[M, N]`` and float32 scales -> ``q * scale`` as
     ``out_dtype``.  On CUDA tensors (out_dtype float32 or bfloat16) the
-    kernel runs and adds one to ``dequantize_blocks.launches``; on CPU
+    kernel runs and adds one to ``dequantize_blocks.launches`` and to its
+    route's entry of ``dequantize_blocks.launches_by_route``; on CPU
     tensors ``dequantize_blocks_plain`` runs; anything else raises
     ``RuntimeError``."""
     bm, bn = tile_shape(q.shape, block)
@@ -212,7 +237,9 @@ def dequantize_blocks(q: torch.Tensor, scales: torch.Tensor, *,
                                    KERNEL_DTYPES[out_dtype], stream)
     _raise_on(lib, rc, "dequantize_blocks")
     dequantize_blocks.launches += 1
+    dequantize_blocks.launches_by_route[route_for(q.shape, block)] += 1
     return out
 
 
 dequantize_blocks.launches = 0
+dequantize_blocks.launches_by_route = dict.fromkeys(ROUTES, 0)

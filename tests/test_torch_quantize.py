@@ -17,10 +17,19 @@ slack (4 float32 ulps of |x|): the JAX property test's absolute 1e-7
 slack is below one ulp of |x| > 1 and fails at its seed 65 (ROADMAP
 Queue 3).
 
+The route a CUDA call takes (``route_for``) is a choice by shape: every
+gradient leaf of the full-width ``qwen3-1.7b`` step, padded as the
+approximate collective pads it, takes the contiguous route.
+
 The ``cuda``-marked tests hold the kernels to the plain versions bit for
-bit on the card; they import no JAX:
+bit on the card, each launch on the route ``route_for`` names, at the
+clustered quantize's and the flat dequantize's edges (one tile, seven
+tiles, a short tile, a strided layout, misaligned pointers, an all-zero
+tile); they import no JAX:
 ``python -m pytest -m cuda tests/test_torch_quantize.py``.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -192,10 +201,14 @@ def test_roundtrip_bound_at_the_jax_seed_65(jx):
 def test_wrappers_take_the_plain_route_on_the_cpu_only():
     x = torch.from_numpy(draw((256, 512), seed=2))
     before = (Q.quantize_blocks.launches, Q.dequantize_blocks.launches)
+    by_route = (dict(Q.quantize_blocks.launches_by_route),
+                dict(Q.dequantize_blocks.launches_by_route))
     q, s = Q.quantize_blocks(x)
     Q.dequantize_blocks(q, s)
     assert (Q.quantize_blocks.launches,
             Q.dequantize_blocks.launches) == before
+    assert (Q.quantize_blocks.launches_by_route,
+            Q.dequantize_blocks.launches_by_route) == by_route
     meta = torch.zeros((256, 512), device="meta")
     with pytest.raises(RuntimeError, match="CUDA device"):
         Q.quantize_blocks(meta)
@@ -203,6 +216,49 @@ def test_wrappers_take_the_plain_route_on_the_cpu_only():
         Q.dequantize_blocks(torch.zeros((256, 512), dtype=torch.int8,
                                         device="meta"),
                             torch.ones((1, 1), device="meta"))
+
+
+def qwen3_leaf_shapes():
+    """(key, the 2-D shape ``approx_comm._pad_2d`` gives it) of every
+    gradient leaf the full-width ``qwen3-1.7b`` step quantizes (at least
+    1024 elements: ``launch/train.py``'s ``min_size``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.approx_comm import _pad_2d
+    from repro_torch.models.transformer import param_shapes
+    from repro_torch.tree import tree_items
+    out = []
+    for key, shape in tree_items(param_shapes(get_config("qwen3-1.7b"))):
+        if math.prod(shape) >= 1024:
+            x2d, _ = _pad_2d(torch.empty(shape, device="meta"))
+            out.append((key, tuple(x2d.shape)))
+    return out
+
+
+def test_training_leaves_take_the_contiguous_route():
+    leaves = qwen3_leaf_shapes()
+    assert len(leaves) == 13
+    assert {shape for _, shape in leaves} >= {(688128, 512), (608256, 512),
+                                              (229376, 512), (114688, 512),
+                                              (256, 512)}
+    for key, shape in leaves:
+        assert Q.route_for(shape) == "contiguous", key
+
+
+@pytest.mark.parametrize("shape,route", [
+    ((256, 512), "contiguous"), ((256 * 7, 512), "contiguous"),
+    ((128, 512), "contiguous"), ((1024, 100), "contiguous"),
+    ((64, 6), "contiguous"), ((256, 1536), "strided"),
+    ((512, 1024), "strided"), ((128, 256), "contiguous")], ids=str)
+def test_route_for(shape, route):
+    """Contiguous wherever the tile spans whole rows (N == min(bn, N))."""
+    assert Q.route_for(shape) == route
+    assert route in Q.ROUTES
+
+
+def test_route_for_needs_a_dividing_tile():
+    with pytest.raises(ValueError, match="does not divide"):
+        Q.route_for((300, 512))
+    assert Q.route_for((256, 1024), block=(256, 1024)) == "contiguous"
 
 
 # -- on the card --------------------------------------------------------------
@@ -251,3 +307,87 @@ def test_cuda_edge_cases_match_plain(bits):
     assert torch.equal(Q.dequantize_blocks(q, s),
                        Q.dequantize_blocks_plain(q, s))
     assert float(s[0, 0]) == np.float32(1e-12)
+
+
+def need_cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device")
+
+
+def check_on_card(x, bits, dq_input=None):
+    """Both kernels bitwise against the plain versions on CUDA ``x``,
+    dequantize also on ``dq_input(q)`` when given (a misaligned copy), and
+    every launch on the route ``route_for`` names."""
+    route = Q.route_for(x.shape)
+    n0 = (dict(Q.quantize_blocks.launches_by_route),
+          dict(Q.dequantize_blocks.launches_by_route))
+    q, s = Q.quantize_blocks(x, bits=bits)
+    qp, sp = Q.quantize_blocks_plain(x, bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    qd = q if dq_input is None else dq_input(q)
+    for out in (torch.float32, torch.bfloat16):
+        d = Q.dequantize_blocks(qd, s, out_dtype=out)
+        dp = Q.dequantize_blocks_plain(q, s, out_dtype=out)
+        torch.cuda.synchronize()
+        assert d.dtype == out and torch.equal(d, dp)
+    n1 = (Q.quantize_blocks.launches_by_route,
+          Q.dequantize_blocks.launches_by_route)
+    for before, after, want in zip(n0, n1, (1, 2)):
+        assert {r: after[r] - before[r] for r in Q.ROUTES} == {
+            r: want if r == route else 0 for r in Q.ROUTES}
+    return q, s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(256, 512), (256 * 7, 512), (128, 512),
+                                   (512, 1024), (256 * 100, 512),
+                                   (2560, 5120)], ids=str)
+def test_cuda_cluster_and_stream_edges(shape, dtype, bits):
+    """One tile (a one-tile leaf: one cluster, a grid the chunks cap),
+    seven tiles (no multiple of a cluster's or a grid's share), a short
+    tile (M < 256: each CTA half full), a strided layout (N > bn), and a
+    hundred tiles on each layout: several times the clusters the card
+    holds at once, so each persistent cluster walks tiles k >= 1 through
+    both halves of its double-buffered partial maxima."""
+    need_cuda()
+    for i, scale in enumerate(SCALES):
+        x = torch.from_numpy(draw(shape, seed=10 + i, scale=scale)).cuda()
+        check_on_card(x.to(dtype), bits)
+
+
+def misaligned(x):
+    """A copy of ``x`` whose storage starts one element past a 16-byte
+    boundary: contiguous, the same shape."""
+    out = x.new_empty(x.numel() + 1)[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(256 * 7, 512), (512, 1024)], ids=str)
+def test_cuda_misaligned_pointers_match_plain(shape, dtype):
+    """The wrappers admit a contiguous tensor at an odd offset: the kernels
+    take one element a lane there, bitwise as on aligned tensors."""
+    need_cuda()
+    x = torch.from_numpy(draw(shape, seed=5, scale=3.0)).cuda().to(dtype)
+    check_on_card(misaligned(x), 8, dq_input=misaligned)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_all_zero_tile(dtype, bits):
+    """Tile 1 of three all zero: scale 1e-12 (the floor), q and the
+    dequantized tile all zero; its neighbours as the plain version."""
+    need_cuda()
+    x = torch.from_numpy(draw((768, 512), seed=6)).cuda().to(dtype)
+    x[256:512] = 0
+    q, s = check_on_card(x, bits)
+    assert float(s[1, 0]) == np.float32(1e-12)
+    assert not q[256:512].any()
+    assert not Q.dequantize_blocks(q, s)[256:512].any()
