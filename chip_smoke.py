@@ -93,8 +93,11 @@ each, with their wall seconds:
                 with decisions identical to the host ``LatencyController``;
   frame_knobs_kernel  the camera node's knob kernel against its plain
                 version, bit for bit, at 1080x1920 (N=25, uint8 and float32,
-                blur 1/5/8/10/15, identical frames, N=1), each timed behind
-                the spin kernel beside the plain version and the bound;
+                blur 1/5/8/10/15, identical frames, N=1, and the camera
+                path's overlapping float32 window ``g[1:]``/``g[:-1]`` of
+                26 planes at blur 5), each call on the route
+                ``knobs_route`` names, each case timed behind the spin
+                kernel beside the plain version and the bound;
   camera_node   the camera node's device path at the testbed's size: five
                 1080p complex cameras append 200 frames each into device
                 rings of 150 BGR frames (4.67 GB), half from the host and
@@ -120,8 +123,12 @@ against this checkout's port or another's: two checkouts timed in one run
 on one card (A/B) by the same phases.
 
     python3 chip_smoke.py --quant-only [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --wkv-only [--src OTHER_CHECKOUT/src]
+    python3 chip_smoke.py --knobs-only [--src OTHER_CHECKOUT/src]
 
-does the same for the quantize pair: the build and quant_kernels phases.
+do the same for the quantize pair (the build and quant_kernels phases),
+the wkv scan (the build and rwkv_kernels phases) and the camera node's
+knob kernel (the build and frame_knobs_kernel phases).
 """
 
 from __future__ import annotations
@@ -167,7 +174,8 @@ FLASH_SHAPES = ((8, 1024), (8, 1000))
 FLASH_EXTRA = ((8, 1024, 64), (8, 1, 128), (8, 65, 128))
 # kernel functions of the redesigned kernels, which must build without spills
 NO_SPILL = ("flash_wgmma", "decode_fused", "fkg_prologue", "fkg_tile",
-            "fkg_final", "quantize_cluster", "dequantize_stream")
+            "fkg_final", "quantize_cluster", "dequantize_stream",
+            "wkv_chunk_scan", "knobs_tile")
 DECODE_S_MAX = 1536
 DECODE_LENGTHS = (1, 1024, 1152, 1279, 1536)
 # max |kernel - plain| on unit-normal inputs, per (kernel, dtype).  bf16:
@@ -1743,10 +1751,20 @@ def knobs_inputs(dev, g, n: int, dtype):
 
 def knobs_check(f, p, k: int, what: str):
     """The kernel against ``frame_knobs_plain`` on (f, p); raises unless
-    ``out`` and ``changed`` are bitwise equal.  Returns the kernel's."""
+    ``out`` and ``changed`` are bitwise equal and, where the wrapper counts
+    launches per route, the call took the route ``knobs_route`` names.
+    Returns the kernel's."""
     import torch
     from repro_torch.kernels import frame_knobs as FK
+    by_route = getattr(FK.frame_knobs, "launches_by_route", None)
+    before = dict(by_route) if by_route is not None else None
     out, ch = FK.frame_knobs(f, p, blur_k=k)
+    if before is not None:
+        want = FK.knobs_route(f, p)
+        got = {r: n - before[r] for r, n in by_route.items() if n != before[r]}
+        if got != {want: 1}:
+            raise AssertionError(f"frame_knobs {what}: launches by route "
+                                 f"{got}, want {{{want!r}: 1}}")
     want_out, want_ch = FK.frame_knobs_plain(f, p, blur_k=k)
     torch.cuda.synchronize()
     if not (torch.equal(out, want_out) and torch.equal(ch, want_ch)):
@@ -1760,8 +1778,10 @@ def knobs_check(f, p, k: int, what: str):
 def phase_frame_knobs_kernel(dev) -> dict:
     """The knob kernel against its plain version at 1080x1920: N=25 in
     uint8 and float32 at every blur width of ``KNOBS_BLURS``, identical
-    frames (``changed`` 0) and N=1; each (dtype, blur) timed behind the
-    spin kernel beside the plain version (CUDA events per call) and the
+    frames (``changed`` 0) and N=1, then the camera path's case -- a
+    26-plane float32 window as ``g[1:]`` and ``g[:-1]`` at blur
+    ``KNOBS_BLUR``; each (dtype, blur) and the window timed behind the spin
+    kernel beside the plain version (CUDA events per call) and the
     bound."""
     import torch
     from repro_torch.kernels import frame_knobs as FK
@@ -1784,7 +1804,8 @@ def phase_frame_knobs_kernel(dev) -> dict:
                                      "spin")
             bound, by = knobs_bound_ms(f, p, k)
             rows.append(dict(
-                dtype=name, blur_k=k, ms=ms, bound_ms=bound, bound_by=by,
+                dtype=name, case="independent", blur_k=k, ms=ms,
+                bound_ms=bound, bound_by=by,
                 plain_ms=cuda_ms(lambda k=k: FK.frame_knobs_plain(
                     f, p, blur_k=k), REPS)))
         _, ch = knobs_check(f, f, KNOBS_BLUR, f"{name} identical frames")
@@ -1796,6 +1817,21 @@ def phase_frame_knobs_kernel(dev) -> dict:
         cases += 2
         del f, p
         torch.cuda.empty_cache()
+    gray = knobs_inputs(dev, g, KNOBS_N + 1, torch.float32)[0]
+    g1, g0 = gray[1:], gray[:-1]
+    knobs_check(g1, g0, KNOBS_BLUR, "float32 window")
+    cases += 1
+    ms, hidden = device_ms(lambda: FK.frame_knobs(g1, g0, blur_k=KNOBS_BLUR),
+                           ATTN_REPS)
+    if not hidden:
+        raise AssertionError("frame_knobs: the host outlasted the spin")
+    bound, by = knobs_bound_ms(g1, g0, KNOBS_BLUR)
+    rows.append(dict(dtype="float32", case="window", blur_k=KNOBS_BLUR,
+                     ms=ms, bound_ms=bound, bound_by=by,
+                     plain_ms=cuda_ms(lambda: FK.frame_knobs_plain(
+                         g1, g0, blur_k=KNOBS_BLUR), REPS)))
+    del gray, g1, g0
+    torch.cuda.empty_cache()
     return dict(cases=cases, shape=[KNOBS_N, H, W], max_abs_err=0.0,
                 timings=rows)
 
@@ -1833,6 +1869,7 @@ def phase_camera_node(dev) -> dict:
 
     # -- the path: counts from 0, read just after ---------------------------
     FK.frame_knobs.launches = 0
+    FK.frame_knobs.launches_by_route = dict.fromkeys(FK.KNOBS_ROUTES, 0)
     t_path = time.monotonic()
     logs = {cid: frame_log_init(CAM_CAPACITY, (H, W, 3), device=dev)
             for cid in cam_ids}
@@ -1862,9 +1899,11 @@ def phase_camera_node(dev) -> dict:
     torch.cuda.synchronize()
     path_s = time.monotonic() - t_path
     launches = FK.frame_knobs.launches
-    if launches != N_CAMS:
+    by_route = dict(FK.frame_knobs.launches_by_route)
+    if launches != N_CAMS or by_route["vector"] != N_CAMS:
         raise AssertionError(f"the camera path launched frame_knobs "
-                             f"{launches} times, want {N_CAMS}")
+                             f"{launches} times ({by_route}), want "
+                             f"{N_CAMS}, all on the vector route")
 
     # -- what came out --------------------------------------------------------
     f32 = np.float32
@@ -1944,7 +1983,8 @@ def phase_camera_node(dev) -> dict:
         append_us_from_host=append_us["host"],
         append_us_from_device=append_us["device"],
         point_query_us=point_us, range_query_ms=range_ms,
-        window=CAM_WINDOW, launches=launches, ms=ms, plain_ms=plain_ms,
+        window=CAM_WINDOW, launches=launches, launches_by_route=by_route,
+        ms=ms, plain_ms=plain_ms,
         bound_ms=bound, bound_by=by, changed_cam0=changed)
 
 
@@ -1967,13 +2007,16 @@ def knobs_kernel_row(knobs: dict, cam: dict) -> dict:
     version; the kernel phase's times on independent float32 and uint8
     frames and prev beside them."""
     f32, u8 = (next(r for r in knobs["timings"] if r["dtype"] == dt
+                    and r["case"] == "independent"
                     and r["blur_k"] == KNOBS_BLUR)
                for dt in ("float32", "uint8"))
     return {
         "name": "frame_knobs", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/frame_knobs.cu",
         "replaces": "src/repro/kernels/frame_knobs.py:107",
-        "launches": cam["launches"], "max_abs_err": knobs["max_abs_err"],
+        "launches": cam["launches"],
+        "launches_by_route": cam["launches_by_route"],
+        "max_abs_err": knobs["max_abs_err"],
         "ms": cam["ms"], "plain_ms": cam["plain_ms"],
         "bound_ms": cam["bound_ms"], "bound_by": cam["bound_by"],
         "library_ms": None,
@@ -2017,10 +2060,16 @@ def main(argv: list[str]) -> int:
     only.add_argument("--quant-only", action="store_true",
                       help="run only the build and quant_kernels phases of "
                            "the quantize pair")
+    only.add_argument("--wkv-only", action="store_true",
+                      help="run only the build and rwkv_kernels phases of "
+                           "the wkv scan")
+    only.add_argument("--knobs-only", action="store_true",
+                      help="run only the build and frame_knobs_kernel "
+                           "phases of the camera node's knob kernel")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive "
-                         "(default: this checkout's); with --grid-only or "
-                         "--quant-only, another checkout's, to time its "
+                         "(default: this checkout's); with one of the "
+                         "--*-only modes, another checkout's, to time its "
                          "kernels with this script's phases")
     args = ap.parse_args(argv)
     if not (args.src / "repro_torch").is_dir():
@@ -2038,6 +2087,7 @@ def main(argv: list[str]) -> int:
     card = card_line()
     print(card, flush=True)
     (run_grid if args.grid_only else run_quant if args.quant_only
+     else run_wkv if args.wkv_only else run_knobs if args.knobs_only
      else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2077,28 +2127,64 @@ def run_grid(dev) -> None:
     emit("profile", seconds=time.monotonic() - t0, **prof)
 
 
-def run_quant(dev) -> None:
-    """``--quant-only``: build the quantize pair, then the quant_kernels
-    phase (a checkout whose wrappers count no routes is checked and timed
-    all the same)."""
-    from repro_torch.configs import get_config
+def build_only(name: str, load) -> None:
+    """Build ``csrc/<name>.cu``, bind it with its wrapper's ``load``, emit
+    the build line and fail if a function of ``NO_SPILL`` spills (a
+    checkout's older kernels, under other names, are listed but not held
+    to it)."""
     from repro_torch.kernels import build
-    from repro_torch.kernels import quantize as Q
     t0 = time.monotonic()
-    paths = build.build(["quantize_blocks"])
-    Q._load_lib()
+    paths = build.build([name])
+    load()
     functions = ptxas_functions(paths)
     emit("build", seconds=time.monotonic() - t0, functions=functions)
     spilled = [f for f in functions if f["spill_bytes"]
                and any(k in f["function"] for k in NO_SPILL)]
     if spilled:
         raise AssertionError(f"redesigned kernels spilling: {spilled}")
+
+
+def run_quant(dev) -> None:
+    """``--quant-only``: build the quantize pair, then the quant_kernels
+    phase (a checkout whose wrappers count no routes is checked and timed
+    all the same)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import quantize as Q
+    build_only("quantize_blocks", Q._load_lib)
     cfg = get_config(TRAIN_ARCH)
     if TRAIN_REDUCED:
         cfg = cfg.reduced()
     t0 = time.monotonic()
     quant = phase_quant_kernels(dev, cfg)
     emit("quant_kernels", seconds=time.monotonic() - t0, **quant)
+
+
+def run_wkv(dev) -> None:
+    """``--wkv-only``: build the wkv scan, then the rwkv_kernels phase
+    (``phase_wkv_kernels``: both dtypes, every ``WKV_SHAPES`` case)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import linear_scan as LS
+    build_only("wkv_linear_scan", LS._load_lib)
+    cfg = get_config(RWKV_ARCH)
+    if RWKV_REDUCED:
+        cfg = cfg.reduced()
+    t0 = time.monotonic()
+    rows = phase_wkv_kernels(dev, cfg)
+    emit("rwkv_kernels", seconds=time.monotonic() - t0, cases=len(rows),
+         timings=[{k: r[k] for k in ("dtype", "shape", "ms", "plain_ms",
+                                     "bound_ms", "call_ms")}
+                  for r in rows if "ms" in r])
+
+
+def run_knobs(dev) -> None:
+    """``--knobs-only``: build the knob kernel, then the
+    frame_knobs_kernel phase (a checkout whose wrapper counts no routes is
+    checked and timed all the same)."""
+    from repro_torch.kernels import frame_knobs as FK
+    build_only("frame_knobs", FK._load_knobs_lib)
+    t0 = time.monotonic()
+    knobs = phase_frame_knobs_kernel(dev)
+    emit("frame_knobs_kernel", seconds=time.monotonic() - t0, **knobs)
 
 
 def run(dev) -> None:

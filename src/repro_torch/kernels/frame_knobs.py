@@ -54,7 +54,7 @@ __all__ = ["TransformPlan", "Band", "GridOperands",
            "blur_operator", "proxy_features", "proxy_features_host",
            "N_PROXY_FEATURES", "ARTIFACT_THRESH", "CS_BGR", "CS_GRAY",
            "CS_YUV420", "frame_knobs", "frame_knobs_plain",
-           "KNOBS_KERNEL_DTYPES"]
+           "KNOBS_KERNEL_DTYPES", "KNOBS_ROUTES", "knobs_route"]
 
 N_PROXY_FEATURES = 6   # (log2-sum, zero-count, <=2-count) x (dx, dy)
 ARTIFACT_THRESH = 18.0  # knobs._artifact_removal's default mask threshold
@@ -747,6 +747,7 @@ frame_knob_grid.launches = 0
 # =============================================================================
 
 KNOBS_KERNEL_DTYPES = {torch.uint8: 0, torch.float32: 1}
+KNOBS_ROUTES = ("scalar", "vector")      # fk_launch's route: 0, 1
 
 
 def _check_knobs(frames: torch.Tensor, prev: torch.Tensor,
@@ -812,14 +813,38 @@ def _load_knobs_lib() -> ctypes.CDLL:
     from repro_torch.kernels.build import load_library
     lib = load_library("frame_knobs")
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.fk_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                              f32, f32, f32, i32, ptr]
+    lib.fk_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                              i32, f32, f32, f32, i32, i32, ptr]
     lib.fk_launch.restype = i32
     lib.fk_smem_bytes.argtypes = [i32]
     lib.fk_smem_bytes.restype = i32
     lib.fk_error_string.argtypes = [i32]
     lib.fk_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def knobs_route(frames: torch.Tensor, prev: torch.Tensor) -> str:
+    """The kernel's route for (frames, prev): ``"vector"`` (16-byte loads)
+    where every row and both base pointers are 16-byte aligned, else
+    ``"scalar"`` (one pixel a load), for the whole call."""
+    row = frames.shape[-1] * frames.element_size()
+    aligned = row % 16 == 0 and frames.data_ptr() % 16 == 0 \
+        and prev.data_ptr() % 16 == 0
+    return "vector" if aligned else "scalar"
+
+
+# the per-frame count and ticket of each (device, stream): int32 [2, cap],
+# zero between calls (the kernel's last block of a frame resets its pair)
+_knobs_scratch: dict[tuple[int, int], torch.Tensor] = {}
+
+
+def _scratch(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    key = (device.index, stream)
+    buf = _knobs_scratch.get(key)
+    if buf is None or buf.shape[1] < n:
+        buf = torch.zeros((2, max(n, 64)), dtype=torch.int32, device=device)
+        _knobs_scratch[key] = buf
+    return buf
 
 
 def _knobs_launch(frames: torch.Tensor, prev: torch.Tensor, blur_k: int,
@@ -835,29 +860,32 @@ def _knobs_launch(frames: torch.Tensor, prev: torch.Tensor, blur_k: int,
     if not (frames.is_contiguous() and prev.is_contiguous()):
         raise RuntimeError("frame_knobs: the kernel takes contiguous tensors")
     n, h, w = frames.shape
-    if n > 65535 or h * w >= 2 ** 31:
-        raise RuntimeError(f"frame_knobs: at most 65535 frames of under 2^31 "
-                           f"pixels, got {tuple(frames.shape)}")
+    if h * w >= 2 ** 31:
+        raise RuntimeError(f"frame_knobs: frames of under 2^31 pixels, got "
+                           f"{tuple(frames.shape)}")
     lib = _load_knobs_lib()
     k = max(blur_k, 1)
     if lib.fk_smem_bytes(k) > _SMEM_LIMIT:
         raise RuntimeError(f"frame_knobs: blur_k {blur_k} exceeds the shared "
                            f"memory of one block")
     inv_hw, inv_k, delta = _knobs_scalars(h, w, blur_k, pixel_delta)
+    route = knobs_route(frames, prev)
     out = torch.empty((n, h // 2, w // 2), dtype=torch.float32,
                       device=frames.device)
     changed = torch.empty(n, dtype=torch.float32, device=frames.device)
-    count = torch.empty(n, dtype=torch.int32, device=frames.device)
     with torch.cuda.device(frames.device):
         stream = torch.cuda.current_stream(frames.device).cuda_stream
+        scratch = _scratch(frames.device, stream, n)
         rc = lib.fk_launch(frames.data_ptr(), prev.data_ptr(), out.data_ptr(),
-                           changed.data_ptr(), count.data_ptr(), n, h, w, k,
-                           inv_k, inv_hw, delta,
-                           KNOBS_KERNEL_DTYPES[frames.dtype], stream)
+                           changed.data_ptr(), scratch[0].data_ptr(),
+                           scratch[1].data_ptr(), n, h, w, k, inv_k, inv_hw,
+                           delta, KNOBS_KERNEL_DTYPES[frames.dtype],
+                           KNOBS_ROUTES.index(route), stream)
     if rc != 0:
         raise RuntimeError(f"frame_knobs: CUDA error {rc}: "
                            f"{lib.fk_error_string(rc).decode()}")
     frame_knobs.launches += 1
+    frame_knobs.launches_by_route[route] += 1
     return out, changed
 
 
@@ -870,8 +898,10 @@ def frame_knobs(frames: torch.Tensor, prev: torch.Tensor, *,
     1``) and the fraction of pixels with ``|f - prev| > pixel_delta``.
 
     On CUDA tensors it launches the hand-written kernel
-    (``csrc/frame_knobs.cu``; uint8 or float32, both alike, contiguous)
-    and adds one to ``frame_knobs.launches``; on CPU tensors it takes
+    (``csrc/frame_knobs.cu``; uint8 or float32, both alike, contiguous),
+    one launch a call on the route ``knobs_route`` names, and adds one to
+    ``frame_knobs.launches`` and to that route's entry of
+    ``frame_knobs.launches_by_route``; on CPU tensors it takes
     ``frame_knobs_plain``.  Anything else raises ``RuntimeError``; a shape
     the function does not take raises ``ValueError``."""
     _check_knobs(frames, prev, blur_k)
@@ -882,3 +912,4 @@ def frame_knobs(frames: torch.Tensor, prev: torch.Tensor, *,
 
 
 frame_knobs.launches = 0
+frame_knobs.launches_by_route = dict.fromkeys(KNOBS_ROUTES, 0)

@@ -154,8 +154,10 @@ def wkv_linear_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the final state ``[B, H, K, K]`` float32), from ``state0`` (zero when
     None).  r/k/v float32 or bfloat16 (all alike), logw/u/state0 float32,
     all contiguous CUDA tensors on one device, K in ``KERNEL_HEAD_DIMS``,
-    any ``S >= 1``; anything else raises ``RuntimeError``.  Each launch
-    adds one to ``wkv_linear_scan.launches``."""
+    any ``S >= 1``; anything else raises ``RuntimeError``.  One launch a
+    call (``csrc/wkv_linear_scan.cu``: a chunk-staged FFMA scan), which
+    adds one to ``wkv_linear_scan.launches``; an input not 16-byte aligned
+    is copied first."""
     _check(r, k, v, logw, u, state0)
     tensors = [t for t in (r, k, v, logw, u, state0) if t is not None]
     if any(t.device.type != "cuda" for t in tensors) \
@@ -166,6 +168,11 @@ def wkv_linear_scan(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not all(t.is_contiguous() for t in tensors):
         raise RuntimeError("wkv_linear_scan: the kernel takes contiguous "
                            "tensors")
+    # the kernel loads 16 bytes at a time: a view whose storage offset
+    # leaves it off a 16-byte boundary goes in as an aligned copy
+    r, k, v, logw, u, state0 = (
+        t.clone() if t is not None and t.data_ptr() % 16 else t
+        for t in (r, k, v, logw, u, state0))
     b, s, h, kd = r.shape
     lib = _load_lib()
     y = torch.empty_like(r)

@@ -13,8 +13,10 @@ the oracle multiplies ``exp(logw)`` step by step.  bfloat16 r/k/v (cast
 from the same float32 draws in both packages): y within one bfloat16 step
 (2^-7 of max |y|), the float32 state as float32.
 
-The ``cuda``-marked test holds the kernel against ``wkv_plain`` on the
-card; it imports no JAX:
+``kernel_order`` models the CUDA kernel's arithmetic order in NumPy and is
+held to the oracle and ``wkv_plain`` at S=1024 within the card's tolerance.
+The ``cuda``-marked tests hold the kernel against ``wkv_plain`` on the
+card; they import no JAX:
 ``python -m pytest -m cuda tests/test_torch_linear_scan.py``.
 """
 
@@ -191,16 +193,72 @@ def test_wrapper_raises_on_what_it_does_not_take(case):
     assert LS.wkv_linear_scan.launches == before
 
 
+WKV_TOL = {"float32": 1e-4, "bfloat16": BF16_STEP, "state": 1e-4}  # chip_smoke
+
+
+def kernel_order(r, k, v, logw, u, s0, *, kq=4):
+    """NumPy float32 step model of the CUDA kernel's arithmetic order at
+    K=64: per step, ``r . S`` as ``kq`` partial sums over k-slices, added
+    as the lanes' reduce-scatter adds them (``(p0 + p2) + (p1 + p3)``),
+    then ``+ a_t * v`` with the bonus scalar ``a_t = sum_k r u k``; then
+    ``S = w * S + k * v``, ``w = exp(logw)``."""
+    b, s, h, kd = r.shape
+    f32 = np.float32
+    st = (np.zeros((b, h, kd, kd), f32) if s0 is None else s0.astype(f32))
+    w = np.exp(logw).astype(f32)
+    a = ((r * u) * k).sum(-1, dtype=f32)                  # [B, S, H]
+    y = np.empty((b, s, h, kd), f32)
+    sl = kd // kq
+    for t in range(s):
+        parts = [np.einsum("bhk,bhkv->bhv", r[:, t, :, q * sl:(q + 1) * sl],
+                           st[:, :, q * sl:(q + 1) * sl]).astype(f32)
+                 for q in range(kq)]
+        while len(parts) > 1:
+            half = len(parts) // 2
+            parts = [parts[i] + parts[i + half] for i in range(half)]
+        y[:, t] = parts[0] + a[:, t, :, None] * v[:, t]
+        st = (w[:, t, :, :, None] * st
+              + k[:, t, :, :, None] * v[:, t, :, None, :]).astype(f32)
+    return y, st
+
+
+@pytest.mark.parametrize("state", [False, True], ids=["zero", "state0"])
+def test_kernel_order_fits_the_card_tolerance(jx, state):
+    """The kernel's reordered sum (``kernel_order``) against the oracle
+    ``wkv_ref`` and ``wkv_plain`` at S=1024, K=64, float32, on inputs drawn
+    as ``chip_smoke.py`` draws them: within ``WKV_TOL``, the tolerance the
+    card's check holds the kernel to."""
+    jnp, _, wkv_ref = jx
+    args = inputs(1, 1024, 2, 64, seed=7, state=state)
+    y, st = kernel_order(*args)
+    yr, str_ = jax_call(jnp, wkv_ref, *args, dtype=torch.float32)
+    yp, stp = port(*args, chunk=64)
+    assert np.isfinite(y).all() and np.isfinite(st).all()
+    for want_y, want_st in ((yr, str_), (yp, stp)):
+        assert share(y, want_y) <= WKV_TOL["float32"]
+        assert share(st, want_st) <= WKV_TOL["state"]
+
+
+def _plain_chunk(s):
+    """The largest chunk <= 64 dividing s (``chip_smoke.plain_chunk``)."""
+    return max(c for c in range(1, 65) if s % c == 0)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("shape", [(1, 1, 1, 16), (2, 64, 3, 32),
-                                   (2, 1000, 4, 64), (2, 1, 4, 64)],
+                                   (2, 1000, 4, 64), (2, 1, 4, 64),
+                                   (1, 31, 3, 16), (3, 32, 1, 32),
+                                   (1, 33, 5, 64), (1, 1024, 3, 64),
+                                   (3, 1000, 1, 16), (1, 1024, 5, 32)],
                          ids=lambda s: "-".join(map(str, s)))
 def test_cuda_kernel_matches_plain(shape, dtype):
-    """The kernel against ``wkv_plain`` (chunk: the whole sequence, so any
-    S divides) within 1e-4 of max |.| in float32 (``expf`` products
-    against ``exp`` of cumulative-sum differences) and one bfloat16 step of
-    max |y| in bfloat16; one launch per call."""
+    """The kernel against ``wkv_plain`` (chunk: the largest <= 64 dividing
+    S) within 1e-4 of max |.| in float32 (``expf`` products against
+    ``exp`` of cumulative-sum differences) and one bfloat16 step of max |y|
+    in bfloat16, from a zero and a random state; every K, S around the
+    32-step chunk and ragged, B*H odd; two calls bit-equal, one launch
+    each."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dt = getattr(torch, dtype)
@@ -213,10 +271,36 @@ def test_cuda_kernel_matches_plain(shape, dtype):
         r, k, v = r.to(dt), k.to(dt), v.to(dt)
         before = LS.wkv_linear_scan.launches
         y, st = LS.wkv_linear_scan(r, k, v, logw, u, state0=s0)
+        y2, st2 = LS.wkv_linear_scan(r, k, v, logw, u, state0=s0)
         torch.cuda.synchronize()
-        assert LS.wkv_linear_scan.launches == before + 1
-        yw, stw = LS.wkv_plain(r, k, v, logw, u, state0=s0, chunk=s)
+        assert LS.wkv_linear_scan.launches == before + 2
+        assert torch.equal(y, y2) and torch.equal(st, st2)
+        yw, stw = LS.wkv_plain(r, k, v, logw, u, state0=s0,
+                               chunk=_plain_chunk(s))
         tol = 1e-4 if dt == torch.float32 else BF16_STEP
         assert y.dtype == dt and st.dtype == torch.float32
         assert share(y.float().cpu(), yw.float().cpu()) <= tol
         assert share(st.cpu(), stw.cpu()) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_cuda_misaligned_views_are_copied():
+    """Contiguous views off a 16-byte boundary (a storage offset of one
+    element) give the aligned inputs' result, in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    args = [torch.from_numpy(x).cuda()
+            for x in inputs(2, 40, 3, 32, seed=6)]
+    want = LS.wkv_linear_scan(*args[:5], state0=args[5])
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    before = LS.wkv_linear_scan.launches
+    got = LS.wkv_linear_scan(*map(shifted, args[:5]),
+                             state0=shifted(args[5]))
+    torch.cuda.synchronize()
+    assert LS.wkv_linear_scan.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])

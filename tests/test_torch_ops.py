@@ -228,27 +228,78 @@ def test_ops_route_off_cpu_and_cuda_raises():
 # -- on the card -------------------------------------------------------------
 
 
+def _layout(frames, prev, layout):
+    """(frames, prev) as the kernel meets them: ``"contiguous"`` as given;
+    ``"offset"``: frames a contiguous view one element past its storage's
+    start (a misaligned base); ``"window"``: the camera path's overlapping
+    pair ``g[1:]``, ``g[:-1]`` of one buffer of N + 1 planes."""
+    if layout == "offset":
+        buf = torch.empty(frames.numel() + 1, dtype=frames.dtype,
+                          device=frames.device)
+        buf[1:] = frames.reshape(-1)
+        return buf[1:].view(frames.shape), prev
+    if layout == "window":
+        g = torch.cat([prev[:1], frames])
+        return g[1:], g[:-1]
+    return frames, prev
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "offset", "window"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.float32],
+                         ids=["uint8", "float32"])
+@pytest.mark.parametrize("w", [240, 262])
+def test_knobs_route_by_alignment(w, dtype, layout):
+    """``knobs_route`` picks the vector route exactly where every row and
+    both base pointers are 16-byte aligned (decided on any device)."""
+    f, p = (torch.from_numpy(a).to(dtype)
+            for a in knob_frames(2, 8, w, np.float32))
+    f, p = _layout(f, p, layout)
+    esz = f.element_size()
+    aligned = (w * esz) % 16 == 0 and all(
+        t.data_ptr() % 16 == 0 for t in (f, p))
+    assert FK.knobs_route(f, p) == ("vector" if aligned else "scalar")
+    if layout == "offset" or w == 262:
+        assert FK.knobs_route(f, p) == "scalar"
+    if layout == "contiguous" and w == 240:
+        assert FK.knobs_route(f, p) == "vector"
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["contiguous", "offset", "window"])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32],
                          ids=["uint8", "float32"])
 @pytest.mark.parametrize("shape,blur", [((3, 64, 128), 5),
                                         ((2, 1080, 1920), 15),
+                                        ((2, 1080, 1920), 5),
                                         ((4, 136, 240), 8),
                                         ((1, 48, 96), 10),
                                         ((5, 34, 1000), 1),
+                                        ((3, 130, 262), 5),
                                         ((2, 18, 20), 0)], ids=str)
-def test_cuda_kernel_matches_plain(shape, blur, dtype):
+def test_cuda_kernel_matches_plain(shape, blur, dtype, layout):
     """The kernel bit for bit against ``frame_knobs_plain`` on the card,
-    ``out`` and ``changed``, ragged tiles included."""
+    ``out`` and ``changed``, ragged tiles included, each call one launch on
+    the route ``knobs_route`` names: vector where rows and bases are
+    16-byte aligned (1080x1920, 136x240, the path's window of float32
+    planes), scalar at W = 262 and on a misaligned base."""
     if not torch.cuda.is_available():
         pytest.skip("no CUDA device")
     f, p = (torch.from_numpy(a).cuda().to(dtype)
             for a in knob_frames(*shape, np.float32, seed=sum(shape)))
-    n0 = FK.frame_knobs.launches
+    f, p = _layout(f, p, layout)
+    esz = f.element_size()
+    aligned = all((shape[2] * esz) % 16 == 0 and (t.storage_offset() * esz)
+                  % 16 == 0 for t in (f, p))
+    route = "vector" if aligned else "scalar"
+    assert FK.knobs_route(f, p) == route
+    if layout == "offset" or shape[2] == 262:
+        assert route == "scalar"
+    n0, r0 = FK.frame_knobs.launches, dict(FK.frame_knobs.launches_by_route)
     out, ch = FK.frame_knobs(f, p, blur_k=blur)
     want_out, want_ch = FK.frame_knobs_plain(f, p, blur_k=blur)
     torch.cuda.synchronize()
     assert FK.frame_knobs.launches == n0 + 1
+    assert FK.frame_knobs.launches_by_route[route] == r0[route] + 1
     assert torch.equal(out, want_out) and torch.equal(ch, want_ch)
     _, same = FK.frame_knobs(f, f, blur_k=blur)
     assert torch.equal(same, torch.zeros_like(same))
