@@ -106,7 +106,27 @@ each, with their wall seconds:
                 appended; each camera's 26-frame window through
                 ``ops.frame_knobs`` as gray planes (5 launches), held to
                 the plain version; append, query and kernel times, peak
-                memory.
+                memory;
+  scenario      the scripted-experiment path (``core/scenario.py``,
+                ``core/federation.py``, ``core/mqtt_bridge.py``) at the
+                harness's own size, 144x256 frames at 5 fps: characterize
+                the complex table (clip 12, floor 0.95) through the kernel
+                (launches counted; kept settings, accuracies and best
+                settings equal to the CPU's, sizes within ``SIZE_RTOL``);
+                the paper claim (5 cameras, a 10x interference spike) on
+                the fleet tick twice (identical traces; each tick timed,
+                host clock ending in a synchronise, and one run traced for
+                the card's busy share and each tick's split into launches,
+                copies, synchronises and other host work) and
+                uncontrolled, held to tests/test_scenario.py's bounds; the
+                three golden traces of tests/golden byte for byte (the
+                sceneshift run re-sweeping through the kernel); a 1-broker
+                herd against ``MezSystem`` and the gauntlet's 2-broker
+                federated run (exactly once, ledger conserved); QoS 0 and 1
+                through ``MqttBridge`` over a 35%-loss hop.  Then every
+                ``frame_knob_grid`` launch of the phase, at its own inputs,
+                bitwise against the plain version on the CPU (the card's
+                plain version is no oracle at 144x256), timed together.
 
 Then a ``kernels`` line (every kernel: launches on its main path, error
 against its plain version, its time beside its bound, the plain version's
@@ -129,6 +149,10 @@ on one card (A/B) by the same phases.
 do the same for the quantize pair (the build and quant_kernels phases),
 the wkv scan (the build and rwkv_kernels phases) and the camera node's
 knob kernel (the build and frame_knobs_kernel phases).
+
+    python3 chip_smoke.py --scenario-only
+
+builds ``frame_knob_grid`` and runs only the scenario phase.
 """
 
 from __future__ import annotations
@@ -239,6 +263,23 @@ CAM_CAPACITY, CAM_DISTINCT, CAM_APPENDS, CAM_WINDOW = 150, 30, 200, 26
 KNOBS_N, KNOBS_BLUR = CAM_WINDOW - 1, 5
 KNOBS_BLURS = (1, 5, 8, 10, 15)     # no blur, and knobs.BLUR_KERNELS' widths
 QUERY_REPS = 50                     # point queries timed on one ring
+
+# -- the scenario harness -----------------------------------------------------
+# The harness's own size: CameraSpec carries no resolution, so its cameras
+# are CameraConfig's 144x256 frames at 5 fps (configs/mez_edge.py, what the
+# goldens pin); fleets are the paper's 5-camera testbed (the claim) and the
+# gauntlet's 2-broker herd of 4 cameras.
+GOLDEN_DIR = ROOT / "tests" / "golden"
+SCEN_CLAIM_CLIP = 12        # tests/test_scenario.py's complex_table
+FED_FRAMES = 60             # benchmarks/gauntlet.py's federated, quick
+MQTT_FRAMES = 30            # frames a camera through the bridge
+FKG_NAMES = ("fkg_prologue", "fkg_prologue_x4", "fkg_tile", "fkg_final")
+# the card's characterize against the CPU's: each setting's mean wire size
+# (from the kernel's proxy features) within this relative distance; the
+# features' log2 sums are summed in another order there (7.4e-8 measured
+# on the complex table)
+SIZE_RTOL = 1e-5
+TICK_LABEL = "chip_smoke.fleet_tick"    # profiler range around each tick
 
 
 def emit(phase: str, **fields) -> None:
@@ -488,18 +529,24 @@ def device_busy_s(prof) -> tuple[float, int]:
     (kernels, copies, memsets: the union of their intervals) and the
     number of such activities, from a ``torch.profiler`` trace."""
     from torch.autograd import DeviceType
-    spans = sorted((e.start_ns(), e.end_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
+    spans = [(e.start_ns(), e.end_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA
+             and e.name() != TICK_LABEL]
+    return union_ns(spans) / 1e9, len(spans)
+
+
+def union_ns(spans) -> int:
+    """Nanoseconds covered by the union of (start, end) intervals."""
     busy, end = 0, None
-    for s, e in spans:
+    for s, e in sorted(spans):
         if end is None or s >= end:
             busy += e - s
             end = e
         elif e > end:
             busy += e - end
             end = e
-    return busy / 1e9, len(spans)
+    return busy
 
 
 def kernel_work(plan, frames, bg, enable) -> dict:
@@ -824,12 +871,14 @@ def phase_serve_timed(dev, arch: str, *, reduced: bool, batch: int,
     return res
 
 
-def traced(fn, n_top: int, kernels: tuple[str, ...] = ()) -> dict:
+def traced(fn, n_top: int, kernels: tuple[str, ...] = (), *,
+           split: bool = False) -> dict:
     """One call of ``fn`` traced with ``torch.profiler``: its host-clock ms
     (ending in a synchronise), the card's busy ms (``device_busy_s``) and
     share of it, and device ms per activity name, the ``n_top`` largest;
     ``kernel_ms``: the device ms and count of the activities whose name
-    holds each of ``kernels`` as a whole word."""
+    holds each of ``kernels`` as a whole word; with ``split``, where the
+    fleet ticks' host time went (``tick_split``)."""
     import torch
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -840,7 +889,8 @@ def traced(fn, n_top: int, kernels: tuple[str, ...] = ()) -> dict:
         host_ms = (time.monotonic() - t0) * 1e3
     per = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
+        if (e.device_type() == torch.autograd.DeviceType.CUDA
+                and e.name() != TICK_LABEL):
             t = per.setdefault(e.name(), [0, 0.0])
             t[0] += 1
             t[1] += (e.end_ns() - e.start_ns()) / 1e6
@@ -857,7 +907,54 @@ def traced(fn, n_top: int, kernels: tuple[str, ...] = ()) -> dict:
         hits = [v for k, v in top if re.search(rf"\b{name}\b", k)]
         out.setdefault("kernel_ms", {})[name] = {
             "count": sum(c for c, _ in hits), "ms": sum(ms for _, ms in hits)}
+    if split:
+        out["tick_split"] = tick_split(prof)
     return out
+
+
+def api_kind(name: str) -> str:
+    """The kind of a CUDA runtime or driver call, by its name."""
+    return ("launch" if "Launch" in name else
+            "copy" if "Memcpy" in name or "Memset" in name else
+            "sync" if "Synchronize" in name else "other_api")
+
+
+def tick_split(prof) -> dict:
+    """Where the host time of each fleet tick (each ``TICK_LABEL`` range
+    ``PollMeter`` marks, the tick and the synchronise after it) went, from
+    a trace: the CUDA runtime and driver calls inside the range by kind
+    (``api_kind``: count and host ms), the rest of its host time
+    (``host_other_ms``: Python, NumPy and the framework's dispatch), and
+    the card's busy ms inside it; the median of each over the ticks."""
+    from torch.autograd import DeviceType
+    evs = list(prof.profiler.kineto_results.events())
+    ticks = sorted((e.start_ns(), e.end_ns()) for e in evs
+                   if e.name() == TICK_LABEL
+                   and e.device_type() == DeviceType.CPU)
+    calls = [(e.start_ns(), e.end_ns(), api_kind(e.name())) for e in evs
+             if e.device_type() == DeviceType.CPU
+             and e.name().startswith("cu")]
+    acts = [(e.start_ns(), e.end_ns()) for e in evs
+            if e.device_type() == DeviceType.CUDA and e.name() != TICK_LABEL]
+    kinds = ("launch", "copy", "sync", "other_api")
+    rows = []
+    for s, e in ticks:
+        row = {"host_ms": (e - s) / 1e6, "device_busy_ms": union_ns(
+            [(max(a, s), min(b, e)) for a, b in acts if a < e and b > s])
+            / 1e6}
+        for k in kinds:
+            row[f"{k}_calls"], row[f"{k}_ms"] = 0, 0.0
+        for a, b, k in calls:
+            if a >= s and b <= e:
+                row[f"{k}_calls"] += 1
+                row[f"{k}_ms"] += (b - a) / 1e6
+        row["host_other_ms"] = row["host_ms"] - sum(row[f"{k}_ms"]
+                                                    for k in kinds)
+        rows.append(row)
+    if not rows:
+        return {"ticks": 0}
+    return {"ticks": len(rows), **{k: statistics.median(r[k] for r in rows)
+                                   for k in rows[0]}}
 
 
 def phase_decode_trace(dev, arch: str, *, reduced: bool, batch: int,
@@ -1988,6 +2085,482 @@ def phase_camera_node(dev) -> dict:
         bound_ms=bound, bound_by=by, changed_cam0=changed)
 
 
+
+def synthetic_table(n: int = 24, smin: float = 2e3, smax: float = 9e4):
+    """benchmarks/common.py's ``synthetic_controller_table`` (the JAX
+    suite's table for the fig11 and tenant-flood goldens), built in the
+    port: a monotone size->accuracy table with no sweep behind it."""
+    import numpy as np
+    from repro_torch.core.characterization import CharacterizationTable
+    from repro_torch.core.knobs import KnobSetting
+    sizes = np.linspace(smin, smax, n)
+    accs = 0.90 + 0.10 * (sizes - smin) / (smax - smin)
+    return CharacterizationTable(
+        settings=tuple(KnobSetting(resolution=i % 5) for i in range(n)),
+        sizes_sorted=sizes, best_acc=accs, best_idx=np.arange(n),
+        acc_by_setting=accs, size_by_setting=sizes)
+
+
+def scenario_specs(S) -> dict:
+    """The scripted runs of the scenario phase, over the port's scenario
+    module ``S``: tests/test_scenario.py's paper claim and its two golden
+    specs, tests/test_drift.py's sceneshift golden, and
+    benchmarks/gauntlet.py's federated phase (2 brokers, 8 SLO tenants,
+    two live migrations, a degraded backhaul, a rolling upgrade), here on
+    the fleet tick."""
+    cams = lambda n, dyn: tuple(S.CameraSpec(f"cam{i}", dynamics=dyn)
+                                for i in range(n))
+
+    def claim(**kw):
+        return S.ScenarioSpec(
+            name="paper-claim-10x", cameras=cams(5, "complex"), frames=60,
+            seed=3, workload="jaad", latency=0.100, accuracy=0.95,
+            min_accuracy=0.95,
+            events=(S.InterferenceSpike(start=4.0, end=9.0, factor=10.0),),
+            **kw)
+
+    t_end = FED_FRAMES / 5.0
+    slo = ("best_effort", "silver", "gold")
+    fed_events = [S.TenantJoin(at=round(0.2 + 0.1 * i, 3), tenant=f"f{i}",
+                               slo=slo[i % 3]) for i in range(8)] + [
+        S.CameraMigrate(at=round(t_end * 0.25, 3), camera_id="cam0",
+                        to_broker=1),
+        S.CameraMigrate(at=round(t_end * 0.35, 3), camera_id="cam3",
+                        to_broker=0),
+        S.BrokerOverload(at=round(t_end * 0.5, 3), broker=0, factor=0.5),
+        S.RollingUpgrade(at=round(t_end * 0.7, 3))]
+    return {
+        "claim": claim(fleet=True, record_decisions=True),
+        "claim_uncontrolled": claim(controlled=False),
+        "scenario_fig11_small": S.ScenarioSpec(
+            name="golden-fig11-small", cameras=cams(3, "complex"),
+            frames=24, seed=11, workload="jaad", latency=0.100,
+            accuracy=0.92,
+            events=(S.InterferenceSpike(start=2.0, end=3.5, factor=6.0),
+                    S.QosChange(at=4.0, latency=0.060))),
+        "scenario_tenant_flood": S.ScenarioSpec(
+            name="tenant-flood", cameras=cams(2, "medium"), frames=20,
+            seed=5, workload="jaad", latency=0.100, accuracy=0.92,
+            wire_budget=1.65e7,
+            events=(S.TenantJoin(at=0.5, tenant="acme", slo="gold"),
+                    S.TenantJoin(at=1.0, tenant="bulk", slo="best_effort"),
+                    S.TenantJoin(at=1.5, tenant="probe", slo="gold",
+                                 admission="reject"),
+                    S.TenantLeave(at=3.0, tenant="acme"))),
+        "scenario_sceneshift_refresh": S.ScenarioSpec(
+            name="golden-sceneshift-refresh", cameras=cams(2, "simple"),
+            frames=30, seed=17, workload="jaad", latency=0.100,
+            accuracy=0.95, min_accuracy=0.90, auto_recharacterize=True,
+            events=(S.SceneShift(at=2.0, camera_id="cam1",
+                                 dynamics="complex"),)),
+        "federated": S.ScenarioSpec(
+            name="gauntlet-federated",
+            cameras=tuple(S.CameraSpec(f"cam{i}", dynamics="medium",
+                                       fps=5.0) for i in range(4)),
+            frames=FED_FRAMES, seed=11, workload="jaad", latency=0.100,
+            accuracy=0.92, n_brokers=2, fleet=True,
+            events=tuple(sorted(fed_events, key=lambda e: e.at))),
+    }
+
+
+class PollMeter:
+    """Counts ``Subscription.poll`` calls (the main stream's and every
+    tenant's) and times each fused fleet tick with the host clock ending
+    in ``torch.cuda.synchronize()``, while active; each timed tick is a
+    ``TICK_LABEL`` range in a profiler trace (``tick_split``)."""
+
+    def __init__(self):
+        self.polls, self.tick_ms = 0, []
+
+    def __enter__(self):
+        import torch
+        from repro_torch.core.controller import FleetController
+        from repro_torch.core.session import Subscription
+        self._saved = [(Subscription, "poll", Subscription.poll),
+                       (FleetController, "tick", FleetController.tick)]
+        poll, tick, meter = Subscription.poll, FleetController.tick, self
+
+        def counted_poll(sub, *a, **kw):
+            meter.polls += 1
+            return poll(sub, *a, **kw)
+
+        def timed_tick(fleet, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.profiler.record_function(TICK_LABEL):
+                out = tick(fleet, *a, **kw)
+                torch.cuda.synchronize()
+            meter.tick_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+
+        Subscription.poll, FleetController.tick = counted_poll, timed_tick
+        return self
+
+    def __exit__(self, *exc):
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+def first_difference(got: str, want: str) -> str:
+    """The first differing trace row (or top-level field) of two scenario
+    JSON traces."""
+    g, w = json.loads(got), json.loads(want)
+    for i, (a, b) in enumerate(zip(g["rows"], w["rows"])):
+        if a != b:
+            return f"row {i}: card {a} vs golden {b}"
+    if len(g["rows"]) != len(w["rows"]):
+        return f"{len(g['rows'])} rows vs {len(w['rows'])}"
+    keys = sorted(k for k in set(g) | set(w) if g.get(k) != w.get(k))
+    return f"fields {keys}"
+
+
+def exactly_once(res, frames: int) -> None:
+    """Every camera of a scenario delivered each of its ``frames`` frames
+    once, in order."""
+    for cid in res.camera_ids:
+        got = [r.timestamp for r in res.rows if r.camera_id == cid]
+        if got != sorted(set(got)) or len(got) != frames:
+            raise AssertionError(f"{cid}: delivered {len(got)} of {frames} "
+                                 f"frames ({len(set(got))} distinct)")
+
+
+class GridRecorder:
+    """Keeps the inputs and a copy of the outputs of every
+    ``frame_knob_grid`` kernel launch while active.  It wraps the wrapper's
+    launch step (``frame_knobs._launch``, the one place that counts a
+    launch), so each recorded call is one counted launch."""
+
+    def __enter__(self):
+        from repro_torch.kernels import frame_knobs as FK
+        self.calls, self._fk, launch = [], FK, FK._launch
+
+        def recorded(*args):
+            out = launch(*args)
+            self.calls.append((args, tuple(t.clone() for t in out)))
+            return out
+
+        self._launch, FK._launch = launch, recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._fk._launch = self._launch
+
+
+def scenario_kernel_check(dev, calls, launches: int) -> dict:
+    """Every ``frame_knob_grid`` launch of the scenario path (``calls``,
+    from ``GridRecorder``), at the path's own inputs: the outputs the path
+    got, bitwise against the plain version run on the CPU (``compare``
+    with no payload byte off: ``changed`` equal, proxy features within
+    ``FEAT_RTOL`` of the plain version's and equal to those of the
+    payload); each call repeated bit for bit.  The plain version on the
+    card is no oracle at 144x256: its dense products sum in another order
+    there and its ``changed`` divides through a reciprocal
+    (tests/test_torch_frame_knobs.py).  Then the path's calls timed
+    together: device ms behind the spin, the plain version on the card,
+    the bound."""
+    import torch
+    from repro_torch.kernels import frame_knobs as FK
+    if len(calls) != launches:
+        raise AssertionError(f"recorded {len(calls)} frame_knob_grid "
+                             f"launches, the path counted {launches}")
+    host = lambda t: None if t is None else t.cpu()
+    shapes, replays, worst = {}, [], (0, 0.0)
+    bound = {"bytes": 0.0, "operations": 0.0}
+    for (frames, prev, plan, bg, en, pd, at), got in calls:
+        kw = dict(background=bg, art_enable=en, pixel_delta=pd,
+                  art_thresh=at)
+        again = FK.frame_knob_grid(frames, prev, plan, device=dev, **kw)
+        if not all(torch.equal(a, b) for a, b in zip(again, got)):
+            raise AssertionError("frame_knob_grid repeated a scenario call "
+                                 "with other outputs")
+        cpu = FK.frame_knob_grid_plain(
+            host(frames), host(prev), plan, background=host(bg),
+            art_enable=host(en), pixel_delta=pd, art_thresh=at)
+        off = compare(got, tuple(t.to(dev) for t in cpu))
+        if off != (0, 0.0):
+            raise AssertionError(f"frame_knob_grid at {frames.shape[0]} "
+                                 f"frames, scale {plan.scale}: payload off "
+                                 f"the CPU's plain version by {off}")
+        worst = max(worst, off)
+        b_ms, b_by = bound_ms(plan, frames.shape[0], bg is not None)
+        bound[b_by] += b_ms
+        key = (f"{plan.in_h}x{plan.in_w} F={frames.shape[0]} "
+               f"knob4={'on' if bg is not None else 'off'}")
+        shapes[key] = shapes.get(key, 0) + 1
+        replays.append((frames, prev, plan, kw))
+        del again, cpu
+    torch.cuda.synchronize()
+    ms, hidden = device_ms(lambda: [FK.frame_knob_grid(
+        f, p, pl, device=dev, **kw) for f, p, pl, kw in replays], 1)
+    plain = cuda_ms(lambda: [FK.frame_knob_grid_plain(f, p, pl, **kw)
+                             for f, p, pl, kw in replays], 1)
+    return dict(calls=len(calls), shapes=shapes, bitwise_vs_cpu_plain=True,
+                max_abs_err=worst[0], mismatch_fraction=worst[1], ms=ms,
+                hidden=hidden, plain_ms=plain,
+                bound_ms=sum(bound.values()),
+                bound_by=max(bound, key=bound.get))
+
+
+def two_medium_cameras(system) -> dict:
+    """cam0 and cam1 on ``system``: medium synthetic cameras (seed 7) with
+    their backgrounds, under (100 ms, 0.90) on ``synthetic_table`` and a
+    latency fit over 12 of its sizes; returns their sources by id."""
+    import numpy as np
+    from repro_torch.core.characterization import fit_latency_regression
+    from repro_torch.data.camera import CameraConfig, SyntheticCamera
+    tbl = synthetic_table()
+    sizes = np.linspace(tbl.sizes_sorted[0], tbl.sizes_sorted[-1], 12)
+    reg = fit_latency_regression(
+        sizes, system.channel.regression_points(sizes, n=2))
+    srcs = {}
+    for cid in ("cam0", "cam1"):
+        cam = system.add_camera(cid)
+        srcs[cid] = SyntheticCamera(CameraConfig(camera_id=cid,
+                                                 dynamics="medium", seed=7))
+        cam.background = srcs[cid].background
+        cam.set_target(0.100, 0.90, tbl, reg)
+    return srcs
+
+
+def phase_scenario(dev) -> dict:
+    """The scripted-experiment path on ``dev`` (``scenario_runs``), then
+    every ``frame_knob_grid`` launch it made held against the plain version
+    (``scenario_kernel_check``).  Raises on any failure."""
+    with GridRecorder() as rec:
+        out = scenario_runs(dev)
+    out["kernel"] = scenario_kernel_check(dev, rec.calls, out["launches"])
+    return out
+
+
+def scenario_runs(dev) -> dict:
+    """Characterize, the paper claim, the three goldens, a federated herd,
+    and MQTT ingress on ``dev`` (see the module docstring).  Raises on any
+    failure."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.mez_edge import CONFIG
+    from repro_torch.core import scenario as S
+    from repro_torch.core.api import QosBounds
+    from repro_torch.core.broker import MezSystem
+    from repro_torch.core.channel import calibrated_channel
+    from repro_torch.core.characterization import characterize
+    from repro_torch.core.federation import FederatedMezSystem
+    from repro_torch.core.mqtt_bridge import MqttBridge, topic_for
+    from repro_torch.core.session import MezClient
+    from repro_torch.data.camera import CameraConfig, SyntheticCamera
+    from repro_torch.kernels import frame_knobs as FK
+
+    specs = scenario_specs(S)
+    out: dict = {"frame": [CONFIG.frame_height, CONFIG.frame_width],
+                 "fps": CONFIG.fps, "runs": {}}
+
+    def run(name, tables, *, trace=False):
+        """One scenario on ``dev``: (result, each fleet tick's ms, the
+        ``traced`` record or None); records its wall seconds (ending in a
+        synchronise), polls, frames and ticks under ``out["runs"]``."""
+        res = []
+        with PollMeter() as meter:
+            t0 = time.monotonic()
+            if trace:
+                tr = traced(lambda: res.append(S.run_scenario(
+                    specs[name], tables=tables, device=dev)), 4, FKG_NAMES,
+                    split=True)
+            else:
+                res.append(S.run_scenario(specs[name], tables=tables,
+                                          device=dev))
+                torch.cuda.synchronize()
+                tr = None
+            wall = time.monotonic() - t0
+        for label, size in (("fleet tick", res[0].fleet_cache_size),
+                            ("drift monitor", res[0].drift_cache_size)):
+            if size is not None and size != 1:
+                raise AssertionError(f"{name}: the {label} ran on {size} "
+                                     f"table layouts, want 1")
+        out["runs"][name] = {"seconds": wall, "polls": meter.polls,
+                             "frames": len(res[0].rows),
+                             "fleet_ticks": len(meter.tick_ms)}
+        return res[0], meter.tick_ms, tr
+
+    # -- characterize: the claim's table, through the kernel ---------------
+    clip = lambda: SyntheticCamera(CameraConfig(dynamics="complex", seed=7))
+    FK.frame_knob_grid.launches = 0
+    holder = []
+    tr = traced(lambda: holder.append(characterize(
+        clip, clip_len=SCEN_CLAIM_CLIP, min_accuracy=0.95, device=dev)),
+        4, FKG_NAMES)
+    table = holder[0]
+    char_launches = FK.frame_knob_grid.launches
+    if not char_launches:
+        raise AssertionError("characterize never launched frame_knob_grid")
+    cpu_table = characterize(clip, clip_len=SCEN_CLAIM_CLIP,
+                             min_accuracy=0.95, device="cpu")
+    if (table.settings != cpu_table.settings
+            or not np.array_equal(table.acc_by_setting,
+                                  cpu_table.acc_by_setting)
+            or not np.array_equal(table.best_idx, cpu_table.best_idx)):
+        raise AssertionError("the card's characterize kept other settings, "
+                             "accuracies or best settings than the CPU's")
+    rel_size = float(np.max(np.abs(
+        table.size_by_setting / cpu_table.size_by_setting - 1)))
+    if not rel_size <= SIZE_RTOL:
+        raise AssertionError(f"the card's characterize sizes are off the "
+                             f"CPU's by {rel_size} relative")
+    out["characterize"] = {
+        "seconds": tr["ms_traced"] / 1e3, "kept": len(table.settings),
+        "launches": char_launches,
+        "kernel_device_ms": sum(v["ms"] for v in tr["kernel_ms"].values()),
+        "device_busy_share": tr["device_busy_share"],
+        "max_rel_size_vs_cpu": rel_size}
+
+    # -- the paper claim: 10x spike, fleet tick once per poll --------------
+    tables = {"complex": table}
+    ctl, tick_ms, _ = run("claim", tables)
+    again, _, tr = run("claim", tables, trace=True)
+    if again.to_json() != ctl.to_json():
+        raise AssertionError("two claim runs on the card differ")
+    unc, _, _ = run("claim_uncontrolled", tables)
+    unc_spike = unc.p95_latency_ms(5.0, 9.0)
+    base_acc = ctl.mean_accuracy(2.0, 4.0)
+    claim = {
+        "uncontrolled_spike_over_base": unc_spike / unc.p95_latency_ms(
+            2.0, 4.0),
+        "f1_drop": 1.0 - ctl.mean_accuracy(4.5, 9.0) / base_acc,
+        "min_accuracy_in_spike": ctl.min_accuracy(4.5, 9.0),
+        "spike_p95_ms": ctl.p95_latency_ms(5.0, 9.0),
+        "uncontrolled_spike_p95_ms": unc_spike,
+        "post_spike_p95_ms": ctl.p95_latency_ms(9.5, 12.0),
+        "infeasible_rows": sum(r.infeasible for r in ctl.rows),
+        "fleet_cache_size": ctl.fleet_cache_size}
+    bad = [k for k, ok in (
+        ("uncontrolled_spike_over_base",
+         claim["uncontrolled_spike_over_base"] > 8.0),
+        ("f1_drop", claim["f1_drop"] <= 0.05),
+        ("min_accuracy_in_spike", claim["min_accuracy_in_spike"] >= 0.95),
+        ("spike_p95_ms", claim["spike_p95_ms"] <= 0.45 * unc_spike),
+        ("post_spike_p95_ms", claim["post_spike_p95_ms"] < 130.0),
+        ("infeasible_rows", claim["infeasible_rows"] == 0),
+        ("fleet_cache_size", claim["fleet_cache_size"] == 1)) if not ok]
+    if bad:
+        raise AssertionError(f"paper claim missed on {bad}: {claim}")
+    out["claim"] = claim
+    out["fleet_tick_ms"] = {
+        "polls": len(tick_ms), "p50": float(np.percentile(tick_ms, 50)),
+        "p95": float(np.percentile(tick_ms, 95)),
+        "max": float(np.max(tick_ms))}
+    out["claim_trace"] = {k: tr[k] for k in (
+        "ms_traced", "device_busy_ms", "device_busy_share",
+        "device_activities", "tick_split")}
+
+    # -- the goldens, byte for byte ------------------------------------------
+    goldens = {}
+    syn = {"scenario_fig11_small": {"complex": synthetic_table()},
+           "scenario_tenant_flood": {"medium": synthetic_table()}}
+    FK.frame_knob_grid.launches = 0
+    syn["scenario_sceneshift_refresh"] = {cid: characterize(
+        lambda cid=cid: SyntheticCamera(CameraConfig(
+            camera_id=cid, dynamics="simple", seed=7)),
+        clip_len=10, min_accuracy=0.90, device=dev) for cid in ("cam0",
+                                                                "cam1")}
+    shift_char_launches = FK.frame_knob_grid.launches
+    if not shift_char_launches:
+        raise AssertionError("the sceneshift tables never launched "
+                             "frame_knob_grid")
+    for name, tbls in syn.items():
+        FK.frame_knob_grid.launches = 0
+        res, _, tr = run(name, tbls,
+                         trace=name == "scenario_sceneshift_refresh")
+        got = res.to_json(indent=1) + "\n"
+        want = (GOLDEN_DIR / f"{name}.json").read_text()
+        if got != want:
+            raise AssertionError(f"{name}: the card's trace differs from "
+                                 f"tests/golden: "
+                                 f"{first_difference(got, want)}")
+        goldens[name] = {"rows": len(res.rows), "byte_equal": True}
+        if tr is not None:
+            resweeps = [e for e in res.events_log
+                        if e["kind"] == "table_refresh"
+                        and "re-swept" in e["detail"]]
+            launches = FK.frame_knob_grid.launches
+            if not resweeps or not launches:
+                raise AssertionError(f"{name}: the drift re-sweep did not "
+                                     f"run through the kernel ({launches} "
+                                     f"launches, {len(resweeps)} re-sweeps)")
+            out["resweep"] = {
+                "resweeps": len(resweeps), "launches": launches,
+                "kernel_device_ms": sum(v["ms"] for v in
+                                        tr["kernel_ms"].values()),
+                "table_launches": shift_char_launches}
+    out["goldens"] = goldens
+
+    # -- federation: a 1-broker herd is a lone broker; a 2-broker herd ------
+    def drain_two(system):
+        for cid, src in two_medium_cameras(system).items():
+            for ts, f, _ in src.stream(8):
+                system.cams[cid].publish(ts, f)
+        sess = MezClient(system).open_session("app")
+        sub = sess.subscribe(["cam0", "cam1"], 0.0, 100.0,
+                             qos=QosBounds(0.1, 0.9))
+        rows = []
+        while (batch := sub.poll(max_frames=6)):
+            rows.extend((d.camera_id, d.timestamp, d.knob_index,
+                         d.wire_bytes, d.latency.total)
+                        for d in batch.frames)
+        sess.close()
+        return rows
+
+    lone = drain_two(MezSystem(calibrated_channel(seed=3), device=dev))
+    herd = drain_two(FederatedMezSystem(calibrated_channel(seed=3),
+                                        n_brokers=1, device=dev))
+    if herd != lone or len(lone) != 16:
+        raise AssertionError("a 1-broker herd's trace differs from "
+                             "MezSystem's")
+    fed, fed_ticks, _ = run("federated", {"medium": synthetic_table()})
+    exactly_once(fed, FED_FRAMES)
+    cr = fed.credit_stats
+    migrated = sum(e["kind"] == "camera_migrated" for e in fed.events_log)
+    if cr["leaked"] or cr["in_flight"] or migrated < 2:
+        raise AssertionError(f"federated: ledger {cr}, {migrated} "
+                             f"migration events")
+    out["federated"] = {
+        "credits": cr, "camera_migrated_events": migrated,
+        "moves": [e.get("moves") for e in fed.events_log
+                  if e["kind"] == "BrokerOverload"],
+        "upgraded": [e.get("upgraded") for e in fed.events_log
+                     if e["kind"] == "RollingUpgrade"],
+        "tenants_admitted": sum(s["admitted"] for s in
+                                fed.tenant_stats.values()),
+        "fleet_tick_ms_p50": float(np.percentile(fed_ticks, 50)),
+        "one_broker_herd_equals_mezsystem": True}
+
+    # -- MQTT ingress: QoS 0 and 1 over a lossy hop ---------------------------
+    mqtt = {}
+    for qos in (0, 1):
+        system = MezSystem(calibrated_channel(seed=3), device=dev)
+        srcs = two_medium_cameras(system)
+        bridge = MqttBridge(system, loss_rate=0.35, seed=11, max_retries=8)
+        bridge.subscribe("mez/+/frames")
+        sent, got = [], []
+        for cid, src in srcs.items():
+            for ts, frame, _ in src.stream(MQTT_FRAMES):
+                if bridge.publish(topic_for(cid), frame, qos=qos,
+                                  timestamp=ts).is_published():
+                    sent.append((topic_for(cid), float(ts)))
+            got.extend((m.topic, m.timestamp)
+                       for m in bridge.pump(max_frames=64))
+        stats = bridge.stats()
+        if len(got) != len(set(got)) or sorted(got) != sorted(sent):
+            raise AssertionError(f"MQTT QoS {qos}: delivered {len(got)} "
+                                 f"({len(set(got))} distinct) of "
+                                 f"{len(sent)} published")
+        if qos == 1 and len(sent) != 2 * MQTT_FRAMES:
+            raise AssertionError(f"MQTT QoS 1 landed {len(sent)} of "
+                                 f"{2 * MQTT_FRAMES}: {stats}")
+        mqtt[f"qos{qos}"] = stats
+    out["mqtt"] = mqtt
+    out["launches"] = char_launches + shift_char_launches + out[
+        "resweep"]["launches"]
+    return out
+
 def phase_camera(dev) -> tuple[dict, dict]:
     """The camera node's phases in order; returns (frame_knobs_kernel
     result, camera_node result) and emits one line per phase."""
@@ -2066,6 +2639,9 @@ def main(argv: list[str]) -> int:
     only.add_argument("--knobs-only", action="store_true",
                       help="run only the build and frame_knobs_kernel "
                            "phases of the camera node's knob kernel")
+    only.add_argument("--scenario-only", action="store_true",
+                      help="run only the build of frame_knob_grid and the "
+                           "scenario phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive "
                          "(default: this checkout's); with one of the "
@@ -2088,6 +2664,7 @@ def main(argv: list[str]) -> int:
     print(card, flush=True)
     (run_grid if args.grid_only else run_quant if args.quant_only
      else run_wkv if args.wkv_only else run_knobs if args.knobs_only
+     else run_scenario_phase if args.scenario_only
      else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2185,6 +2762,16 @@ def run_knobs(dev) -> None:
     t0 = time.monotonic()
     knobs = phase_frame_knobs_kernel(dev)
     emit("frame_knobs_kernel", seconds=time.monotonic() - t0, **knobs)
+
+
+def run_scenario_phase(dev) -> None:
+    """``--scenario-only``: build ``frame_knob_grid``, then the scenario
+    phase."""
+    from repro_torch.kernels import frame_knobs as FK
+    build_only("frame_knob_grid", FK._load_lib)
+    t0 = time.monotonic()
+    scen = phase_scenario(dev)
+    emit("scenario", seconds=time.monotonic() - t0, **scen)
 
 
 def run(dev) -> None:
@@ -2407,6 +2994,10 @@ def run(dev) -> None:
     quant, train_run = phase_training(dev)
     # -- the camera node: device rings and the knob kernel ----------------
     knobs_row = knobs_kernel_row(*phase_camera(dev))
+    # -- the scripted-experiment path: scenarios, federation, MQTT ---------
+    t0 = time.monotonic()
+    scen = phase_scenario(dev)
+    emit("scenario", seconds=time.monotonic() - t0, **scen)
     from repro_torch.configs import get_config
     serve_cfg = get_config(SERVE_ARCH)
     serve_hd = (serve_cfg.reduced() if SERVE_REDUCED else serve_cfg).head_dim
@@ -2449,8 +3040,12 @@ def run(dev) -> None:
         "name": "frame_knob_grid", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/frame_knob_grid.cu",
         "replaces": "src/repro/kernels/frame_knobs.py:438",
-        "launches": main_launches, "max_abs_err": worst[0],
-        "mismatch_fraction": worst[1],
+        "launches": main_launches,
+        "launches_by_path": {"closed_loop": main_launches,
+                             "scenario": scen["launches"]},
+        "max_abs_err": max(worst[0], scen["kernel"]["max_abs_err"]),
+        "mismatch_fraction": max(worst[1],
+                                 scen["kernel"]["mismatch_fraction"]),
         "ms": sum(r["ms"] for r in main),
         "call_ms": sum(r["call_ms"] for r in main),
         "traced_ms": sum(r["traced_ms"] for r in main),
@@ -2463,7 +3058,9 @@ def run(dev) -> None:
                  f"groups x 16 frames (characterize) + 15 groups x 32 "
                  f"frames (re-sweep); largest group "
                  f"{big['ms']:.3f} ms (call {big['call_ms']:.3f} ms) vs "
-                 f"bound {big['bound_ms']:.3f} ms"},
+                 f"bound {big['bound_ms']:.3f} ms",
+        # the scenario path's own launches at 144x256, checked and timed
+        "scenario_path": scen["kernel"]},
         *serve_kernels, wkv_kernel,
         *quant_kernel_rows(quant, train_run), knobs_row]}), flush=True)
 

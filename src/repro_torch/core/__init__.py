@@ -30,6 +30,7 @@ from repro_torch.core.log import (FrameLog, HostLog, LogSegmentStore,
                                   frame_log_append, frame_log_init,
                                   frame_log_point_query,
                                   frame_log_range_query)
+from repro_torch.core.mqtt_bridge import MqttBridge, MqttMessage
 from repro_torch.core.session import MezClient, Session, Subscription
 
 __all__ = [
@@ -49,4 +50,5 @@ __all__ = [
     "SubscriptionOptions", "resolve_slo", "BoundedEventBuffer", "CamBroker",
     "EdgeBroker", "MezSystem", "FrameLog", "frame_log_init",
     "frame_log_append", "frame_log_point_query", "frame_log_range_query",
+    "MqttBridge", "MqttMessage",
 ]

@@ -188,11 +188,8 @@ class CollectiveController:
     once per reduction.  Its decisions equal a host ``LatencyController``'s
     with the same config.
 
-    The JAX package jits the step and counts its compiled variants
-    (``cache_size``); the port runs it eagerly, compiles nothing, and has
-    no counterpart of that method.  ``device`` (default ``"cuda"``) holds
-    the tables and the state; each ``update`` reads its decision back to
-    the host."""
+    ``device`` (default ``"cuda"``) holds the tables and the state; each
+    ``update`` reads its decision back to the host."""
 
     def __init__(self, grad_bytes_bf16: float, fidelity: dict[int, float],
                  *, latency_target: float, fidelity_floor: float = 0.98,
@@ -218,11 +215,19 @@ class CollectiveController:
             self.tables, start_idx=np.asarray([self._host._current],
                                               np.int32))
         self.bits = LEVELS[self._host._current].bits
+        self._layouts: set[tuple[int, ...]] = set()
+
+    def cache_size(self) -> int:
+        """How many table layouts (lanes x capacity) the decision step
+        has run on (1 = every update kept the shapes): the counterpart of
+        the JAX step's compiled-variant count."""
+        return len(self._layouts)
 
     def update(self, latency_sampled: float) -> CollectiveDecision:
         """One control tick: feed the measured reduction latency, get the
         compression level for the next step."""
         dev = self.tables.sizes_sorted.device
+        self._layouts.add(tuple(self.tables.sizes_sorted.shape))
         self.state, aux = fleet_controller_step(
             self.state, torch.tensor([latency_sampled], dtype=torch.float32,
                                      device=dev), self.tables, self.params)

@@ -86,6 +86,13 @@ DRIFT_ACTIVITY_FLOOR = 0.01        # activity-residual denominator floor
                                    # residual ill-conditioned
 
 
+# the one refusal of a fleet mesh, shared by ``SubscriptionOptions.mesh`` and
+# ``ScenarioSpec.mesh``
+MESH_NOT_PORTED = (
+    "mesh: splitting the fleet tick's lanes over several GPUs is not ported "
+    "yet (ROADMAP Queue 1 item 5, fleet mesh and sharding); pass mesh=None")
+
+
 class SharedFrameCache:
     """Fleet-shared degraded-frame cache, keyed ``(camera, timestamp,
     transform key)``.
@@ -910,10 +917,7 @@ class EdgeBroker:
         if opts.fleet and not opts.controlled:
             raise ValueError("fleet control plane requires controlled=True")
         if opts.mesh is not None:
-            raise NotImplementedError(
-                "SubscriptionOptions.mesh: splitting the fleet tick's lanes "
-                "over several GPUs is not ported yet (ROADMAP Queue 1 item "
-                "9); pass mesh=None")
+            raise NotImplementedError(MESH_NOT_PORTED)
         if opts.auto_recharacterize and not opts.controlled:
             raise ValueError("auto_recharacterize requires controlled=True")
         if opts.admission not in ("degrade", "reject"):
@@ -1929,7 +1933,7 @@ class MezSystem:
                  device: "str | torch.device | None" = None):
         self.channel = channel
         self.device = resolve_device(device)
-        self.edge = EdgeBroker(  # mezlint: disable=MZ08 -- MezSystem is this package's single-broker facade (it has no herd yet): the counterpart of the blessed site in repro.core.broker
+        self.edge = EdgeBroker(  # mezlint: disable=MZ08 -- MezSystem is this package's single-broker facade: the counterpart of the blessed site in repro.core.broker
             store=store, wire_budget=wire_budget, device=self.device)
         self.cams: dict[str, CamBroker] = {}
 

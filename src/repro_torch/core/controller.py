@@ -727,6 +727,8 @@ class FleetController:
         self._drift_params = DriftParams.from_config(
             DriftConfig(window=1), self.n_lanes, device=self.device)
         self._pre_state = None
+        # the (lanes, capacity) layouts the tick has run on: see cache_size
+        self._layouts: set[tuple[int, ...]] = set()
         self._build_stack()
 
     # -- stack assembly ------------------------------------------------------
@@ -766,6 +768,7 @@ class FleetController:
         if monitor.device != self.device:
             raise ValueError(f"drift monitor on {monitor.device}, fleet on "
                              f"{self.device}")
+        monitor.bind_fused(self)
         self._drift = monitor
         self._drift_params = monitor.params
 
@@ -779,6 +782,14 @@ class FleetController:
             errs = np.zeros(self.n_lanes, np.float32)
             valid = np.zeros(self.n_lanes, bool)
         return self._drift.state, errs, valid
+
+    def cache_size(self) -> int:
+        """How many table layouts (lanes x capacity) the fused tick has run
+        on: 0 before the first tick, 1 while every swap, retarget and
+        budget write kept the shapes, one more for each rebuild to another
+        capacity.  The counterpart of the JAX tick's compiled-variant
+        count, which the same events move (this port compiles nothing)."""
+        return len(self._layouts)
 
     @property
     def budget_scale(self) -> float:
@@ -889,6 +900,7 @@ class FleetController:
         """Run the one fused tick and absorb its state."""
         dstate, derrs, dvalid = self._drift_inputs(drift_errs, drift_valid)
         dev = self.device
+        self._layouts.add(tuple(self.tables.sizes_sorted.shape))
         new_ctrl, new_drift, aux = fused_fleet_tick(
             self.state, dstate, torch.as_tensor(lat_eff).to(dev),
             torch.as_tensor(np.asarray(derrs, np.float32)).to(dev),

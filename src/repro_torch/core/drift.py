@@ -237,9 +237,27 @@ class DriftMonitor:
             self.params = DriftParams.from_config(self.config, n,
                                                   device=self.device)
         self.last_scores: dict[str, float] = {}
+        # the fleet whose fused tick carries these lanes (attach_drift), and
+        # the (lanes, window) layouts this monitor's own update has run on
+        self._fused = None
+        self._layouts: set[tuple[int, ...]] = set()
 
     def __len__(self) -> int:
         return len(self.cam_ids)
+
+    def bind_fused(self, fleet) -> None:
+        """Mark this monitor as fused into ``fleet``'s tick
+        (``FleetController.attach_drift``): its lanes advance there, so
+        ``cache_size`` reports the fused tick's count."""
+        self._fused = fleet
+
+    def cache_size(self) -> int:
+        """How many state layouts (lanes x window) the monitor's update
+        has run on (1 = every tick kept the shapes); a fused monitor
+        reports the fused fleet tick's count."""
+        if self._fused is not None:
+            return self._fused.cache_size()
+        return len(self._layouts)
 
     def absorb_fused(self, state: DriftState, fired, scores) -> list[str]:
         """Adopt post-tick drift lanes computed inside a fused fleet tick.
@@ -266,6 +284,7 @@ class DriftMonitor:
                 continue
             errs[i] = err
             valid[i] = True
+        self._layouts.add(tuple(self.state.errs.shape))
         self.state, fired, scores = drift_update(
             self.state, torch.as_tensor(errs).to(self.device),
             torch.as_tensor(valid).to(self.device), self.params)

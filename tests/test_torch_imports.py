@@ -24,6 +24,8 @@ from repro_torch.core import controller as TC  # noqa: E402
 from repro_torch.core import drift as TD  # noqa: E402
 from repro_torch.core import grid_engine as TG  # noqa: E402
 from repro_torch.core import log as TL  # noqa: E402
+from repro_torch.core import federation as TF  # noqa: E402
+from repro_torch.core import scenario as TS  # noqa: E402
 from repro_torch.core.broker import MezSystem  # noqa: E402
 from repro_torch.core.channel import calibrated_channel  # noqa: E402
 from repro_torch.data.camera import CameraConfig, SyntheticCamera  # noqa: E402
@@ -109,6 +111,10 @@ ENTRY_POINTS = {
     "characterize": lambda: TCh.characterize(_camera, clip_len=2,
                                              engine="batched"),
     "MezSystem": lambda: MezSystem(calibrated_channel(seed=0)),
+    "FederatedMezSystem": lambda: TF.FederatedMezSystem(
+        calibrated_channel(seed=0)),
+    "BrokerHerd": lambda: TF.BrokerHerd(2),
+    "run_scenario": lambda: TS.run_scenario(TS.ScenarioSpec(name="s")),
     "DriftMonitor": lambda: TD.DriftMonitor(["cam0"]),
     "ControllerTables": lambda: TC.ControllerTables.from_arrays(
         np.ones(3), np.ones(3), np.arange(3)),
@@ -219,6 +225,6 @@ def test_mesh_is_not_ported():
     system.add_camera("cam0")
     sess = system.edge.open_session("app")
     spec = TA.SubscribeSpec("app", "cam0", 0.0, 1.0, 0.1, 0.9)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         system.edge.create_subscription(
             sess, (spec,), options=TA.SubscriptionOptions(fleet=True, mesh=1))
