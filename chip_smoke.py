@@ -61,6 +61,27 @@ each, with their wall seconds:
                 gen=256)`` in bfloat16 with the kernel's launches counted
                 (one per layer per prefill and per decode step), and one
                 traced decode step;
+  serve_zoo     the other dense configs and the MoE family at their
+                published widths: both attention kernels against their
+                plain versions at the zoo's head shapes (QH, KH) = (16,
+                16), (32, 8) and (40, 10), D=128 -- flash at B=8 S=1024,
+                decode at the serve phase's lengths --, float32 and
+                bfloat16, timed as in serve, every bfloat16 flash launch on
+                ``wgmma`` (``zoo_kernels``); the float32 model with the
+                kernels against naive attention for llama3-8b,
+                internlm2-1.8b, phi3-medium-14b and, at 4 of their layers,
+                moonshot-v1-16b-a3b and phi3.5-moe-42b-a6.6b (prefill and 8
+                teacher-forced decode steps; the MoE's kernel run repeated
+                bit for bit, and its routing in both runs compared:
+                ``zoo_check``, one line an arch); a timed bfloat16
+                ``generate(batch=8, prompt_len=1024, gen=256)`` of
+                llama3-8b, phi3-medium-14b, moonshot-v1-16b-a3b and
+                phi3.5-moe-42b-a6.6b at 24 of its 32 layers (83.7 GB of
+                weights do not fit the card), after a warm-up, with the
+                launches counted and the peak right after ``init_params``
+                held to the parameters plus one float32 layer leaf
+                (``zoo_serve``, one line an arch); one traced moonshot
+                decode step (``zoo_trace``);
   quant_kernels the approximate collective's quantize and dequantize
                 kernels against their plain versions, bit for bit, at every
                 gradient leaf shape of the full-width ``qwen3-1.7b`` step
@@ -151,8 +172,10 @@ the wkv scan (the build and rwkv_kernels phases) and the camera node's
 knob kernel (the build and frame_knobs_kernel phases).
 
     python3 chip_smoke.py --scenario-only
+    python3 chip_smoke.py --zoo-only
 
-builds ``frame_knob_grid`` and runs only the scenario phase.
+build ``frame_knob_grid`` and run only the scenario phase, or build the
+two attention kernels and run only the serve_zoo phase.
 """
 
 from __future__ import annotations
@@ -236,6 +259,27 @@ WKV_PLAIN_CHUNK = 64        # [B, 64, 64, H, K] f32: ~270 MB at B=8
 # the whole model in float32, the kernel against the chunked plain scan
 # (chunk min(512, 256) = 256: ~2 GB temporaries)
 RWKV_CHECK_BATCH, RWKV_CHECK_PROMPT = 4, 256
+
+# -- the serve_zoo phase --------------------------------------------------------
+# The dense and MoE configs beside qwen3, at their published widths.  The
+# attention kernels at their head shapes, (arch, QH, KH): G = 1, 4 and 4
+# with QH 40; flash at B=8 S=1024, decode over the serve's cache at
+# DECODE_LENGTHS.
+ZOO_REDUCED = False         # the published widths (a CPU rehearsal: True)
+ZOO_HEADS = ("moonshot-v1-16b-a3b", "llama3-8b", "phi3-medium-14b")
+ZOO_FLASH = ((8, 1024),)
+# the float32 model, kernels against naive attention: (arch, layers).  The
+# MoE pair runs 4 of its layers in float32 (moonshot whole would be 116 GB;
+# 4 layers ~12 GB, phi3.5-moe ~22 GB), at the published widths.
+ZOO_CHECK = (("llama3-8b", None), ("internlm2-1.8b", None),
+             ("phi3-medium-14b", None), ("moonshot-v1-16b-a3b", 4),
+             ("phi3.5-moe-42b-a6.6b", 4))
+# the timed bfloat16 serves: (arch, layers).  phi3.5-moe's 32 layers are
+# 83.7 GB of weights; at 24 layers 62.9 GB (and 1.2 GB of cache) fit.
+ZOO_SERVE = (("llama3-8b", None), ("phi3-medium-14b", None),
+             ("moonshot-v1-16b-a3b", None), ("phi3.5-moe-42b-a6.6b", 24))
+ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 8, 1024, 256
+ZOO_TRACE = "moonshot-v1-16b-a3b"
 
 # -- the training phases ------------------------------------------------------
 TRAIN_ARCH = "qwen3-1.7b"
@@ -658,12 +702,15 @@ def timed(fn, plain, library) -> dict:
     return out
 
 
-def phase_attention(dev, cfg) -> list[dict]:
-    """Both attention kernels against their plain versions at the serving
-    shapes, in float32 and bfloat16 on seeded unit-normal inputs; each
-    timed (``timed``) beside its plain version, SDPA (timed here only,
-    called nowhere in the port) and its bound.  Raises when an error passes
-    its tolerance."""
+def phase_attention(dev, cfg, *, flash_shapes=FLASH_SHAPES,
+                    flash_extra=FLASH_EXTRA) -> list[dict]:
+    """Both attention kernels against their plain versions at the heads of
+    ``cfg``: flash at ``flash_shapes`` (B, S) with the config's head dim,
+    and in bfloat16 also at ``flash_extra`` (B, S, D); decode over a
+    ``DECODE_S_MAX`` cache at ``DECODE_LENGTHS``; in float32 and bfloat16
+    on seeded unit-normal inputs, each timed (``timed``) beside its plain
+    version, SDPA (timed here only, called nowhere in the port) and its
+    bound.  Raises when an error passes its tolerance."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
@@ -685,9 +732,9 @@ def phase_attention(dev, cfg) -> list[dict]:
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        shapes = [(b, s, d) for b, s in FLASH_SHAPES]
+        shapes = [(b, s, d) for b, s in flash_shapes]
         if dtype == torch.bfloat16:
-            shapes += FLASH_EXTRA
+            shapes += flash_extra
         for b, s, hd in shapes:
             q = torch.randn((b, s, qh, hd), generator=g, device=dev).to(dtype)
             k = torch.randn((b, s, kh, hd), generator=g, device=dev).to(dtype)
@@ -706,7 +753,7 @@ def phase_attention(dev, cfg) -> list[dict]:
             b_ms, b_by = attn_bound_ms("flash", dtype, b, s, qh, kh, hd)
             row = dict(
                 kernel="flash_attention", dtype=name, kernel_route=route,
-                head_dim=hd,
+                head_dim=hd, group=qh // kh,
                 shape=f"B={b} S={s} QH={qh} KH={kh} D={hd} causal",
                 **timed(lambda: FA.flash_attention(q, k, v, causal=True),
                         lambda: FA.flash_attention_plain(q, k, v,
@@ -730,7 +777,7 @@ def phase_attention(dev, cfg) -> list[dict]:
             b_ms, b_by = attn_bound_ms("decode", dtype, b, length, qh, kh, d)
             row = dict(
                 kernel="decode_attention", dtype=name, length=length,
-                kernel_route="cluster",
+                kernel_route="cluster", group=qh // kh,
                 shape=f"B={b} S_max={DECODE_S_MAX} QH={qh} KH={kh} D={d} "
                       f"length={length}",
                 **timed(lambda: DA.decode_attention(q, kc, vc, length),
@@ -746,22 +793,31 @@ def phase_attention(dev, cfg) -> list[dict]:
 
 
 def phase_model_check(dev, arch: str, *, reduced: bool, batch: int,
-                      prompt: int, ref_impl: str, tweak=None) -> dict:
+                      prompt: int, ref_impl: str, tweak=None, cfg=None,
+                      repeat: bool = False) -> dict:
     """The whole model at its published widths in float32, one seed: the
     prefill and ``CHECK_STEPS`` teacher-forced decode steps through the
     kernels (``attention_impl="kernel"``) and through ``ref_impl`` (the
-    plain versions), on the same weights and tokens.  ``tweak(params, g)``
-    may redraw parameters first.  Last-position logits of the real
-    vocabulary (the padded columns hold the mask value) must agree within
-    ``LOGIT_RTOL`` of their max |logit| at each step and pick the same
-    greedy token everywhere."""
+    plain versions), on the same weights and tokens (``build_served``).
+    ``cfg`` (a float32 config, e.g. one cut in depth) takes the place of
+    ``serve_config(arch)``'s.  ``tweak(params, g)`` may redraw parameters
+    first.  Last-position logits of the real vocabulary (the padded columns
+    hold the mask value) must agree within ``LOGIT_RTOL`` of their max
+    |logit| at each step and pick the same greedy token everywhere; with
+    ``repeat``, a second kernel run must give the same bits.  For the MoE
+    family both runs' routing is recorded (``RouteRecorder``): whether it
+    was identical, the smallest gap between the k-th and (k+1)-th router
+    probability, and where it first differs, so a near-tie can be told
+    from a fault."""
     import dataclasses
     import torch
-    from repro_torch.launch.serve import prepare
+    from repro_torch.launch.serve import serve_config
     from repro_torch.models.registry import build_model
-    model, params, pb, _, g = prepare(
-        arch, batch=batch, prompt_len=prompt, gen=CHECK_STEPS,
-        reduced=reduced, param_dtype="float32", device=dev)
+    if cfg is None:
+        cfg = serve_config(arch, reduced=reduced, param_dtype="float32",
+                           device=dev)
+    model, params, pb, _, g, _ = build_served(dev, cfg, batch=batch,
+                                              prompt=prompt)
     if tweak is not None:
         tweak(params, g)
     forced = torch.randint(0, model.cfg.vocab_size,
@@ -769,10 +825,11 @@ def phase_model_check(dev, arch: str, *, reduced: bool, batch: int,
                            device=dev, dtype=torch.int32)
 
     vocab = model.cfg.vocab_size
+    moe = model.cfg.family == "moe"
 
     def run(m):
         cache = m.init_cache(batch, prompt + CHECK_STEPS, device=dev)
-        with torch.no_grad():
+        with torch.no_grad(), RouteRecorder(moe) as rec:
             logits, cache = m.prefill(params, pb, cache)
             out = [logits[:, -1, :vocab].float()]
             for t in range(CHECK_STEPS):
@@ -780,27 +837,88 @@ def phase_model_check(dev, arch: str, *, reduced: bool, batch: int,
                                               cache)
                 out.append(logits[:, -1, :vocab].float())
         torch.cuda.synchronize()
-        return torch.stack(out, 1)          # [B, 1 + steps, V]
+        return torch.stack(out, 1), rec.calls     # [B, 1 + steps, V]
 
     t0 = time.monotonic()
-    got = run(model)
-    want = run(build_model(dataclasses.replace(model.cfg,
-                                               attention_impl=ref_impl)))
+    got, got_routes = run(model)
+    again = run(model)[0] if repeat else None
+    want, want_routes = run(build_model(dataclasses.replace(
+        model.cfg, attention_impl=ref_impl)))
     scale = want.abs().amax(-1)             # [B, steps]
     rel = float(((got - want).abs().amax(-1) / scale).max())
     max_abs = float((got - want).abs().max())
     same = bool((got.argmax(-1) == want.argmax(-1)).all())
     out = dict(arch=arch, dtype="float32", reference=ref_impl, batch=batch,
-               prompt_len=prompt, steps=CHECK_STEPS, max_rel_err=rel,
+               prompt_len=prompt, steps=CHECK_STEPS,
+               num_layers=model.cfg.num_layers, max_rel_err=rel,
                limit=LOGIT_RTOL,
                max_abs_err=max_abs, max_abs_logit=float(scale.max()),
                greedy_identical=same, finite=bool(torch.isfinite(got).all()),
                seconds=time.monotonic() - t0)
-    del model, params, got, want
+    if repeat:
+        out["repeat_bitwise_identical"] = bool(torch.equal(got, again))
+    if moe:
+        out["routing"] = route_difference(got_routes, want_routes,
+                                          model.cfg.num_layers)
+    del model, params, got, want, again, got_routes, want_routes
     torch.cuda.empty_cache()
-    if not (out["finite"] and rel <= LOGIT_RTOL and same):
+    if not (out["finite"] and rel <= LOGIT_RTOL and same
+            and out.get("repeat_bitwise_identical", True)):
         raise AssertionError(f"full-width float32 check failed: {out}")
     return out
+
+
+class RouteRecorder:
+    """Inside ``with``, each ``models.moe.route`` call (one per MoE layer:
+    the prefill's layers, then each decode step's) appends its chosen
+    experts ``[B, S, k]`` and its top-(k+1) router probabilities to
+    ``calls``; does nothing where ``active`` is false."""
+
+    def __init__(self, active: bool):
+        self.active, self.calls = active, []
+
+    def __enter__(self):
+        if self.active:
+            from repro_torch.models import moe
+            self.real = real = moe.route
+
+            def route(params, x, cfg):
+                probs, gates, experts = real(params, x, cfg)
+                self.calls.append((experts, probs.topk(
+                    cfg.num_experts_per_token + 1, dim=-1).values))
+                return probs, gates, experts
+
+            moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        if self.active:
+            from repro_torch.models import moe
+            moe.route = self.real
+
+
+def route_difference(a: list, b: list, n_layers: int) -> dict:
+    """Two runs' recorded routing (``RouteRecorder.calls``): whether every
+    token chose the same set of experts (the order of a set follows its
+    probabilities, which may swap on a near-tie inside the top k and only
+    reorders the sum of its contributions) and the same order; the
+    smallest gap between the k-th and (k+1)-th router probability in run
+    ``a``; and where the sets first differ (layer, step -- 0 the prefill,
+    t the t-th decode step --, batch row, token, and that gap there)."""
+    gap = min(float((p[..., -2] - p[..., -1]).min()) for _, p in a)
+    first, ordered = None, True
+    for i, ((ea, pa), (eb, _)) in enumerate(zip(a, b)):
+        ordered = ordered and bool((ea == eb).all())
+        diff = (ea.sort(-1).values != eb.sort(-1).values).any(-1).nonzero()
+        if len(diff):
+            bi, ti = (int(v) for v in diff[0])
+            first = dict(layer=i % n_layers, step=i // n_layers, batch=bi,
+                         token=ti, gap=float(pa[bi, ti, -2]
+                                             - pa[bi, ti, -1]))
+            break
+    return dict(sets_identical=first is None and len(a) == len(b),
+                order_identical=ordered and len(a) == len(b),
+                calls=len(a), min_topk_gap=gap, first_difference=first)
 
 
 def serve_kernels(arch: str, n_layers: int, gen: int) -> dict:
@@ -1191,6 +1309,156 @@ def phase_serve_rwkv(dev) -> tuple[list[dict], dict]:
     emit("serve_rwkv_trace", seconds=time.monotonic() - t0, **trace)
     torch.cuda.empty_cache()
     return rows, timed
+
+def zoo_config(arch: str, num_layers: "int | None" = None,
+               param_dtype: "str | None" = None):
+    """``launch.serve.serve_config(arch)`` as it serves on the card
+    (``attention_impl="kernel"``), reduced under ``ZOO_REDUCED``, its depth
+    cut to ``num_layers`` where given (the widths kept)."""
+    import dataclasses
+    from repro_torch.launch.serve import serve_config
+    cfg = serve_config(arch, reduced=ZOO_REDUCED, attention_impl="kernel",
+                       param_dtype=param_dtype)
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=min(num_layers,
+                                                      cfg.num_layers))
+    return cfg
+
+
+def build_served(dev, cfg, *, batch: int, prompt: int, rows: int = 0):
+    """``launch.serve.prepare``'s steps on a config it cannot name (one cut
+    in depth): the model, parameters and a prompt batch drawn from one
+    generator seeded with 0 on ``dev`` and, where ``rows``, a cache of
+    that many rows.  Returns (model, params, batch, cache or None,
+    generator, the seconds of ``init_params`` and its peak of allocated
+    bytes above what was allocated before it)."""
+    import torch
+    from repro_torch.models.registry import build_model, make_batch
+    model = build_model(cfg)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    params = model.init_params(g, device=dev)
+    torch.cuda.synchronize()
+    init = dict(seconds=time.monotonic() - t0,
+                peak_bytes=torch.cuda.max_memory_allocated() - base)
+    pb = make_batch(cfg, batch, prompt, generator=g, device=dev)
+    cache = model.init_cache(batch, rows, device=dev) if rows else None
+    return model, params, pb, cache, g, init
+
+
+def phase_zoo_serve(dev, arch: str, num_layers: "int | None") -> dict:
+    """A timed bfloat16 ``generate(batch=8, prompt_len=1024, gen=256)`` of
+    ``arch`` (cut to ``num_layers`` where given), after one untimed
+    ``gen=2`` warm-up on the same weights and cache, with the attention
+    kernels' launches counted from zero just before it.  The model is
+    built by ``build_served`` so the peak of ``init_params`` can be read:
+    it must stay within the parameters' bytes plus one layer's largest leaf
+    in float32."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.registry import DECODE_SLACK
+    from repro_torch.tree import tree_leaves
+    cfg = zoo_config(arch, num_layers)
+    model, params, pb, cache, _, init = build_served(
+        dev, cfg, batch=ZOO_BATCH, prompt=ZOO_PROMPT,
+        rows=ZOO_PROMPT + ZOO_GEN + DECODE_SLACK)
+    init_peak = init["peak_bytes"]
+    param_bytes = sum(t.numel() * t.element_size()
+                      for t in tree_leaves(params))
+    slice_f32 = max(t[0].numel() * 4 for t in tree_leaves(params["layers"]))
+    generate(model, params, pb, cache, gen=2)
+    kernels = serve_kernels(arch, cfg.num_layers, ZOO_GEN)
+    torch.cuda.reset_peak_memory_stats()
+    for fn, _ in kernels.values():
+        fn.launches = 0
+        if hasattr(fn, "launches_by_route"):
+            fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
+    t0 = time.monotonic()
+    out = generate(model, params, pb, cache, gen=ZOO_GEN)
+    seconds = time.monotonic() - t0
+    launches = {name: fn.launches for name, (fn, _) in kernels.items()}
+    want = {name: n for name, (_, n) in kernels.items()}
+    routes = dict(FA.flash_attention.launches_by_route)
+    want_routes = {r: want["flash_attention"] * (
+        r == FA.flash_route(torch.bfloat16, cfg.head_dim)) for r in routes}
+    toks = out["tokens"]
+    res = dict(arch=arch, num_layers=cfg.num_layers,
+               published_layers=zoo_config(arch).num_layers,
+               seconds=seconds, batch=ZOO_BATCH, prompt_len=ZOO_PROMPT,
+               gen=ZOO_GEN, prefill_ms=out["prefill_s"] * 1e3,
+               decode_p50_ms=out["decode_p50_ms"],
+               decode_p95_ms=out["decode_p95_ms"],
+               tokens_per_s=out["tokens_per_s"], cache_len=out["cache_len"],
+               launches=launches, flash_routes=routes,
+               param_gb=param_bytes / 1e9, init_seconds=init["seconds"],
+               init_peak_gb=init_peak / 1e9,
+               init_peak_limit_gb=(param_bytes + slice_f32) / 1e9,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9,
+               distinct_tokens=int(len(set(toks.ravel().tolist()))))
+    del model, params, pb, cache, out
+    torch.cuda.empty_cache()
+    if launches != want or routes != want_routes:
+        raise AssertionError(f"{arch}: launched {launches} (flash routes "
+                             f"{routes}), want {want} ({want_routes})")
+    if init_peak > param_bytes + slice_f32:
+        raise AssertionError(f"{arch}: init_params peaked at {init_peak} "
+                             f"bytes, over the parameters' {param_bytes} "
+                             f"plus one float32 layer leaf {slice_f32}")
+    if toks.shape != (ZOO_BATCH, ZOO_GEN + 1) or (
+            res["cache_len"] != ZOO_PROMPT + ZOO_GEN):
+        raise AssertionError(f"{arch}: tokens {toks.shape}, cache_len "
+                             f"{res['cache_len']}")
+    return res
+
+
+def phase_serve_zoo(dev) -> tuple[list[dict], dict]:
+    """The serve_zoo phase: the attention kernels at the zoo's head shapes
+    (``zoo_kernels``), the float32 model checks (``zoo_check``, one line an
+    arch), the timed serves (``zoo_serve``, one line an arch) and one
+    traced moonshot decode step (``zoo_trace``).  Returns (attention rows,
+    arch -> timed serve)."""
+    import torch
+    t0 = time.monotonic()
+    rows = []
+    for arch in ZOO_HEADS:
+        rows += phase_attention(dev, zoo_config(arch),
+                                flash_shapes=ZOO_FLASH, flash_extra=())
+    off = [r["shape"] for r in rows if r["kernel"] == "flash_attention"
+           and r["dtype"] == "bfloat16" and r["kernel_route"] != "wgmma"]
+    if off and not ZOO_REDUCED:
+        raise AssertionError(f"bf16 flash off the wgmma route: {off}")
+    emit("zoo_kernels", seconds=time.monotonic() - t0, cases=len(rows),
+         max_abs_err={f"{k}/{dt}/G={gr}": max(
+             r["max_abs_err"] for r in rows if r["kernel"] == k
+             and r["dtype"] == dt and r["group"] == gr)
+             for k in ("flash_attention", "decode_attention")
+             for dt in ("float32", "bfloat16")
+             for gr in sorted({r["group"] for r in rows})},
+         limits={f"{k}/{dt}": v for (k, dt), v in ATTN_TOL.items()})
+    for arch, layers in ZOO_CHECK:
+        cfg = zoo_config(arch, layers, "float32")
+        emit("zoo_check", **phase_model_check(
+            dev, arch, reduced=ZOO_REDUCED, batch=CHECK_BATCH,
+            prompt=CHECK_PROMPT, ref_impl="naive", cfg=cfg,
+            repeat=cfg.family == "moe"))
+    serves = {}
+    for arch, layers in ZOO_SERVE:
+        serves[arch] = phase_zoo_serve(dev, arch, layers)
+        emit("zoo_serve", **serves[arch])
+    t0 = time.monotonic()
+    trace = phase_decode_trace(dev, ZOO_TRACE, reduced=ZOO_REDUCED,
+                               batch=ZOO_BATCH, prompt=ZOO_PROMPT,
+                               gen=ZOO_GEN)
+    emit("zoo_trace", seconds=time.monotonic() - t0, **trace)
+    torch.cuda.empty_cache()
+    return rows, serves
+
 
 def grad_leaves(cfg) -> list[tuple[str, tuple[int, int], int]]:
     """The gradient leaves the step's hook quantizes (at least
@@ -2642,6 +2910,9 @@ def main(argv: list[str]) -> int:
     only.add_argument("--scenario-only", action="store_true",
                       help="run only the build of frame_knob_grid and the "
                            "scenario phase")
+    only.add_argument("--zoo-only", action="store_true",
+                      help="run only the build of the attention kernels and "
+                           "the serve_zoo phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive "
                          "(default: this checkout's); with one of the "
@@ -2665,6 +2936,7 @@ def main(argv: list[str]) -> int:
     (run_grid if args.grid_only else run_quant if args.quant_only
      else run_wkv if args.wkv_only else run_knobs if args.knobs_only
      else run_scenario_phase if args.scenario_only
+     else run_zoo if args.zoo_only
      else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2772,6 +3044,16 @@ def run_scenario_phase(dev) -> None:
     t0 = time.monotonic()
     scen = phase_scenario(dev)
     emit("scenario", seconds=time.monotonic() - t0, **scen)
+
+
+def run_zoo(dev) -> None:
+    """``--zoo-only``: build the two attention kernels, then the serve_zoo
+    phase."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    build_only("flash_attention", FA._load_lib)
+    build_only("decode_attention", DA._load_lib)
+    phase_serve_zoo(dev)
 
 
 def run(dev) -> None:
@@ -2990,6 +3272,8 @@ def run(dev) -> None:
     attn_rows, timed = phase_serve(dev)
     # -- the SSM family's serving path: rwkv6-1.6b at its published widths --
     wkv_kernel = wkv_kernel_row(*phase_serve_rwkv(dev))
+    # -- the other dense configs and the MoE family, at published widths --
+    zoo_rows, zoo_serves = phase_serve_zoo(dev)
     # -- training qwen3-1.7b with the approximate collective's round trip --
     quant, train_run = phase_training(dev)
     # -- the camera node: device rings and the knob kernel ----------------
@@ -3011,9 +3295,16 @@ def run(dev) -> None:
             ("decode_attention", "decode_attention.cu",
              "src/repro/kernels/decode_attention.py:61",
              lambda r: r.get("length") == DECODE_LENGTHS[2])):
-        mine = [r for r in attn_rows if r["kernel"] == name]
-        main_row = next(r for r in mine
-                        if r["dtype"] == "bfloat16" and pick(r))
+        mine = [r for r in attn_rows + zoo_rows if r["kernel"] == name]
+        main_row = next(r for r in attn_rows if r["kernel"] == name
+                        and r["dtype"] == "bfloat16" and pick(r))
+        # the zoo's head shapes at the serve's prefill and mean decode
+        # length, bfloat16
+        zoo = [{k: r[k] for k in ("shape", "group", "kernel_route", "ms",
+                                  "plain_ms", "bound_ms", "bound_by",
+                                  "library_ms", "call_ms", "max_abs_err")}
+               for r in zoo_rows if r["kernel"] == name
+               and r["dtype"] == "bfloat16" and pick(r)]
         serve_kernels.append({
             "name": name, "route": "cuda",
             "kernel_route": main_row["kernel_route"],
@@ -3022,6 +3313,10 @@ def run(dev) -> None:
             "launches": timed["launches"][name],
             **({"launches_by_route": timed["launches_by_route"][name]}
                if name in timed["launches_by_route"] else {}),
+            "launches_by_path": {
+                SERVE_ARCH: timed["launches"][name],
+                **{a: z["launches"][name]
+                   for a, z in zoo_serves.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "max_abs_err_float32": max(r["max_abs_err"] for r in mine
@@ -3031,7 +3326,8 @@ def run(dev) -> None:
                                         "call_ms")},
             "shape": main_row["shape"] + " bfloat16 (the serve's "
                      + ("prefill" if name == "flash_attention" else
-                        "mean decode length") + ")"})
+                        "mean decode length") + ")",
+            "zoo_shapes": zoo})
 
     # the main path's kernel work: one characterize sweep and one re-sweep
     main = [r for r in rows if r["case"] in ("characterize", "resweep")]

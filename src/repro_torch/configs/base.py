@@ -4,12 +4,16 @@ paths read.
 A copy of ``ModelConfig`` from the JAX package's ``configs/base.py``, cut to
 what the ported families, their serving loop and the training step read:
 the dense family (embedding, GQA attention with RoPE and qk-norm,
-SwiGLU/GELU FFN, tied or separate head), the SSM family (RWKV-6: the two
-LoRA ranks) and the training fields (``remat``, ``train_microbatches``).
-The fields of the other families (MoE, hybrid, enc-dec) come with their ports
-(ROADMAP Queue 1 item 11); ``family`` and ``mrope_sections`` stay so the
-model can refuse what it lacks.  ``ShapeCell`` and ``SHAPE_CELLS`` wait for
-the dry-run's port.
+SwiGLU/GELU FFN, tied or separate head), the MoE family (routed and shared
+experts, capacity, the router's auxiliary loss), the SSM family (RWKV-6:
+the two LoRA ranks) and the training fields (``remat``,
+``train_microbatches``).  The fields of the hybrid and enc-dec families come
+with their ports (ROADMAP Queue 1, the hybrid family; the audio enc-dec
+family); ``family`` and ``mrope_sections`` stay so the model can refuse
+what it lacks.  ``ShapeCell`` and ``SHAPE_CELLS`` wait for the dry-run's
+port (ROADMAP Queue 1, the dry-run), and the MoE sharding hint
+``moe_parallel`` for its first reader (ROADMAP Queue 1, fleet mesh and
+sharding).
 
 ``attention_impl`` takes ``"naive" | "chunked" | "kernel"``: ``"kernel"``
 is the port's hand-written CUDA kernels (attention for the dense family,
@@ -61,6 +65,13 @@ class ModelConfig:
     attention_impl: str = "chunked"  # naive | chunked | kernel
     attention_chunk: int = 512
 
+    # MoE
+    num_experts: int = 0
+    num_experts_per_token: int = 0
+    num_shared_experts: int = 0
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
     # RWKV6
     rwkv_decay_lora: int = 64        # rank of the data-dependent decay MLP
     rwkv_mix_lora: int = 32          # rank of the token-shift mix MLPs
@@ -100,8 +111,9 @@ class ModelConfig:
 
     def reduced(self) -> "ModelConfig":
         """Smoke-test configuration: same family and wiring, tiny dims --
-        the JAX package's ``reduced()`` for the fields kept here (``remat``
-        and ``train_microbatches`` are kept, as there)."""
+        the JAX package's ``reduced()`` for the fields kept here (at most 8
+        experts, 2 a token and 1 shared; ``remat`` and
+        ``train_microbatches`` are kept, as there)."""
         kv = max(1, min(self.num_kv_heads, 2))
         heads = max(kv * 2, 4)
         mrope = (2, 3, 3) if self.mrope_sections is not None else None
@@ -116,6 +128,10 @@ class ModelConfig:
             head_dim=16,
             d_ff=96,
             vocab_size=512,
+            num_experts=min(self.num_experts, 8) if self.num_experts else 0,
+            num_experts_per_token=(min(self.num_experts_per_token, 2)
+                                   if self.num_experts_per_token else 0),
+            num_shared_experts=min(self.num_shared_experts, 1),
             rwkv_decay_lora=8,
             rwkv_mix_lora=4,
             attention_chunk=32,

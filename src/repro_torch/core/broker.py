@@ -90,7 +90,7 @@ DRIFT_ACTIVITY_FLOOR = 0.01        # activity-residual denominator floor
 # ``ScenarioSpec.mesh``
 MESH_NOT_PORTED = (
     "mesh: splitting the fleet tick's lanes over several GPUs is not ported "
-    "yet (ROADMAP Queue 1 item 5, fleet mesh and sharding); pass mesh=None")
+    "yet (ROADMAP Queue 1, fleet mesh and sharding); pass mesh=None")
 
 
 class SharedFrameCache:

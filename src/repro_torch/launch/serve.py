@@ -1,14 +1,14 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens
-against the model's cache (a preallocated KV cache for the dense family,
-the recurrent state for the SSM family).
+against the model's cache (a preallocated KV cache for the dense and MoE
+families, the recurrent state for the SSM family).
 
 The port of the JAX package's ``launch/serve.py``: the same loop (prefill
 once, then ``gen`` decode steps for the whole batch, greedy or sampled),
 the same cache size (``prompt_len + gen + DECODE_SLACK``) and the same
 returned dict.  On a CUDA device the model runs with
-``attention_impl="kernel"``: for the dense family prefill goes through the
-hand-written flash attention kernel and every decode step through the
-decode kernel; for the SSM family (``rwkv6-1.6b``) every layer's time-mix,
+``attention_impl="kernel"``: for the dense and MoE families prefill goes
+through the hand-written flash attention kernel and every decode step
+through the decode kernel; for the SSM family (``rwkv6-1.6b``) every layer's time-mix,
 at prefill and at each decode step, goes through the wkv scan kernel.  Times
 end in ``torch.cuda.synchronize()`` on the card, so they cover the device
 work and not only its enqueueing; as in the JAX package, a decode step's
@@ -20,6 +20,11 @@ CPU):
       --batch 4 --prompt-len 64 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch moonshot-v1-16b-a3b --full --batch 8 --prompt-len 1024
+
+``--full`` serves the published widths; of the port's archs all but
+``phi3.5-moe-42b-a6.6b`` (83.7 GB of bfloat16 weights) fit one 80 GB card.
 """
 
 from __future__ import annotations
@@ -32,18 +37,39 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models.registry import (DECODE_SLACK, Model, build_model,
                                          make_batch)
 from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.models.transformer import KVCache
 
-__all__ = ["serve", "prepare", "generate"]
+__all__ = ["serve", "serve_config", "prepare", "generate"]
 
 
 def _sync(dev: torch.device) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def serve_config(arch: str, *, reduced: bool = True,
+                 attention_impl: str | None = None,
+                 param_dtype: str | None = None,
+                 device: "str | torch.device | None" = None) -> ModelConfig:
+    """The config ``prepare`` serves: ``arch``'s, reduced where asked, with
+    ``attention_impl`` (default ``"kernel"`` on CUDA, the config's own on
+    the CPU) and ``param_dtype`` (default: the config's) as both the
+    parameter and the compute dtype."""
+    cfg = get_config(arch)
+    if reduced:
+        cfg = cfg.reduced()
+    impl = attention_impl or ("kernel" if resolve_device(device).type
+                              == "cuda" else cfg.attention_impl)
+    cfg = dataclasses.replace(cfg, attention_impl=impl)
+    if param_dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=param_dtype,
+                                  compute_dtype=param_dtype)
+    return cfg
 
 
 def prepare(arch: str, *, batch: int = 4, prompt_len: int = 64,
@@ -53,24 +79,14 @@ def prepare(arch: str, *, batch: int = 4, prompt_len: int = 64,
             device: "str | torch.device | None" = None
             ) -> tuple[Model, dict, dict, "KVCache | RWKVState",
                        torch.Generator]:
-    """The model, random parameters, a random prompt batch and an empty
-    cache of ``prompt_len + gen + DECODE_SLACK`` rows (the SSM family's
-    state has no rows and ignores the length), all drawn from one
-    generator seeded with ``seed`` on the device (returned for sampling).
-
-    ``attention_impl`` defaults to ``"kernel"`` on CUDA and to the config's
-    own on the CPU; ``param_dtype`` (default: the config's) sets both the
-    parameter and the compute dtype."""
+    """The model of ``serve_config(arch, ...)``, random parameters, a
+    random prompt batch and an empty cache of ``prompt_len + gen +
+    DECODE_SLACK`` rows (the SSM family's state has no rows and ignores the
+    length), all drawn from one generator seeded with ``seed`` on the
+    device (returned for sampling)."""
     dev = resolve_device(device)
-    cfg = get_config(arch)
-    if reduced:
-        cfg = cfg.reduced()
-    impl = attention_impl or ("kernel" if dev.type == "cuda"
-                              else cfg.attention_impl)
-    cfg = dataclasses.replace(cfg, attention_impl=impl)
-    if param_dtype is not None:
-        cfg = dataclasses.replace(cfg, param_dtype=param_dtype,
-                                  compute_dtype=param_dtype)
+    cfg = serve_config(arch, reduced=reduced, attention_impl=attention_impl,
+                       param_dtype=param_dtype, device=dev)
     model = build_model(cfg)
     g = torch.Generator(device=dev)
     g.manual_seed(seed)

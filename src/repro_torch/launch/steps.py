@@ -15,7 +15,7 @@ has.  AdamW writes the new parameters and moments into the tensors it is
 given, where the JAX step donates them.
 
 The prefill and serve step functions and the shardings wait for ROADMAP
-Queue 1 item 11 (the dry-run's port).
+Queue 1, the dry-run.
 """
 
 from __future__ import annotations

@@ -19,7 +19,7 @@ takes the approximate collective's quantize round trip
 hand-written quantize and dequantize kernels.  Attention trains through the
 config's own impl (``"chunked"``), as the JAX package does: the flash kernel
 has no backward.  ``mesh_shape`` (a multi-GPU mesh) waits for ROADMAP
-Queue 1 item 9.
+Queue 1, fleet mesh and sharding.
 
 Usage (on the card; add ``--device cpu`` to train the reduced config on
 the CPU):
@@ -87,8 +87,8 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     pairs)."""
     if mesh_shape is not None:
         raise NotImplementedError(
-            "mesh_shape: a multi-GPU mesh is not ported yet (ROADMAP Queue 1 "
-            "item 9); the port trains on one device")
+            "mesh_shape: a multi-GPU mesh is not ported yet (ROADMAP Queue 1, "
+            "fleet mesh and sharding); the port trains on one device")
     dev = resolve_device(device)
     cfg = get_config(arch)
     if reduced:

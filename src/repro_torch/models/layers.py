@@ -11,7 +11,7 @@ tensors over parameter dictionaries, with the same conventions:
     softmax accumulate in float32.
 
 Every random draw takes an explicit ``torch.Generator``; ``init_linear``
-draws a whole ``[L, ...]`` stack at once, so ``stack_layers`` has no use
+fills a whole ``[L, ...]`` stack in place, so ``stack_layers`` has no use
 here.  M-RoPE (``mrope_frequencies``) waits for the VLM family.
 """
 
@@ -26,9 +26,10 @@ from repro_torch.tree import tree_leaves
 
 __all__ = ["rms_norm", "layer_norm", "init_norm", "init_linear", "swiglu",
            "gelu_mlp", "rope", "apply_rope", "mask_padded_vocab",
-           "unbind_layers", "NEG_INF"]
+           "unbind_layers", "NEG_INF", "DRAW_BLOCK"]
 
 NEG_INF = -2.3819763e38  # large finite negative, bf16-safe (the JAX value)
+DRAW_BLOCK = 1 << 24     # float32 elements ``init_linear`` draws at a time
 
 
 # -----------------------------------------------------------------------------
@@ -76,12 +77,23 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int, *,
                 device: "torch.device | str" = "cpu",
                 lead: tuple[int, ...] = ()) -> torch.Tensor:
     """``normal * scale`` (default ``1/sqrt(d_in)``) drawn in float32 from
-    ``generator`` (which must live on ``device``), then cast to ``dtype``.
-    ``lead`` prepends axes, e.g. ``(L,)`` for a stack of layers."""
+    ``generator`` (which must live on ``device``) and cast to ``dtype``.
+    ``lead`` prepends axes, e.g. ``(L,)`` for a stack of layers.
+
+    The result is allocated once in ``dtype`` and drawn a block of rows at
+    a time (at most one ``[d_in, d_out]`` slice of ``lead`` and at most
+    ``DRAW_BLOCK`` elements), so the float32 temporaries stay at one block
+    and the peak is the parameters plus one block."""
     scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
-    w = torch.randn((*lead, d_in, d_out), generator=generator,
-                    dtype=torch.float32, device=device)
-    return w.mul_(scale).to(dtype)
+    out = torch.empty((*lead, d_in, d_out), dtype=dtype, device=device)
+    rows = out.view(-1, d_out)
+    step = max(1, min(d_in, DRAW_BLOCK // d_out))
+    for r in range(0, rows.shape[0], step):
+        n = min(step, rows.shape[0] - r)
+        rows[r:r + n] = torch.randn((n, d_out), generator=generator,
+                                    dtype=torch.float32,
+                                    device=device).mul_(scale)
+    return out
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
@@ -141,17 +153,20 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 def unbind_layers(params: dict) -> list[dict]:
     """Every layer's parameters: views from one ``unbind(0)`` of each
-    stacked ``[L, ...]`` tensor of ``params["layers"]`` (one level of
-    nested dicts, as the norms').  Under autograd the backward of an
-    ``unbind`` stacks the layers' gradients into one ``[L, ...]`` tensor
-    per leaf, where indexing each layer would scatter every layer's
-    gradient into a zero tensor of the whole stack and sum them."""
-    cols = {k: ({kk: vv.unbind(0) for kk, vv in v.items()}
-                if isinstance(v, dict) else v.unbind(0))
-            for k, v in params["layers"].items()}
+    stacked ``[L, ...]`` tensor of ``params["layers"]``, through nested
+    dicts of any depth (the norms', the MoE's ``moe/shared``).  Under
+    autograd the backward of an ``unbind`` stacks the layers' gradients
+    into one ``[L, ...]`` tensor per leaf, where indexing each layer would
+    scatter every layer's gradient into a zero tensor of the whole stack
+    and sum them."""
+    def split(node):
+        if isinstance(node, dict):
+            parts = {k: split(v) for k, v in node.items()}
+            return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+        return node.unbind(0)
+
     n = tree_leaves(params["layers"])[0].shape[0]
-    return [{k: ({kk: vv[i] for kk, vv in v.items()} if isinstance(v, dict)
-                 else v[i]) for k, v in cols.items()} for i in range(n)]
+    return split(params["layers"])
 
 
 def mask_padded_vocab(logits: torch.Tensor, real_vocab: int) -> torch.Tensor:

@@ -1,11 +1,11 @@
 """Architecture registry: family -> model module, and random batches.
 
 The port of the JAX package's ``models/registry.py`` for the families the
-port has (dense, ssm).  ``Model`` is the uniform facade over the family
+port has (dense, moe, ssm).  ``Model`` is the uniform facade over the family
 module (``init_params``, ``forward``, ``loss_fn``, ``init_cache``,
 ``prefill``, ``decode_step``); ``make_batch`` draws random token batches,
 with labels for training, from a ``torch.Generator``.  ``input_specs`` /
-``cache_spec`` wait for the dry-run's port.
+``cache_spec`` wait for the dry-run's port (ROADMAP Queue 1, the dry-run).
 """
 
 from __future__ import annotations
@@ -15,6 +15,7 @@ from types import ModuleType
 
 import torch
 
+from repro_torch.configs import PENDING_FAMILIES
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import rwkv6, transformer
@@ -28,6 +29,7 @@ DECODE_SLACK = 256
 
 _FAMILY_MODULES: dict[str, ModuleType] = {
     "dense": transformer,
+    "moe": transformer,
     "ssm": rwkv6,
 }
 
@@ -45,13 +47,13 @@ class Model:
         return self.module.forward(params, batch, self.cfg)
 
     def loss_fn(self, params, batch):
-        """The family's training loss; a family without one raises
-        ``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
+        """The family's training loss; a family without one (rwkv6) raises
+        ``NotImplementedError`` (ROADMAP Queue 1, rwkv6 training)."""
         fn = getattr(self.module, "loss_fn", None)
         if fn is None:
             raise NotImplementedError(
                 f"training the {self.cfg.family!r} family is not ported yet "
-                f"(ROADMAP Queue 1 item 11)")
+                f"(ROADMAP Queue 1, rwkv6 training)")
         return fn(params, batch, self.cfg)
 
     def init_cache(self, batch: int, max_len: int, **kw):
@@ -67,11 +69,13 @@ class Model:
 def build_model(cfg: ModelConfig) -> Model:
     """The model facade of ``cfg``'s family; families the port lacks, and
     what the family's module lacks (its ``check_supported``), raise
-    ``NotImplementedError`` (ROADMAP Queue 1 item 11)."""
+    ``NotImplementedError`` naming the ROADMAP Queue 1 item that ports
+    them."""
     if cfg.family not in _FAMILY_MODULES:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
-            f"11)")
+            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1, "
+            f"{PENDING_FAMILIES[cfg.family]})" if cfg.family in
+            PENDING_FAMILIES else f"unknown family {cfg.family!r}")
     module = _FAMILY_MODULES[cfg.family]
     module.check_supported(cfg)
     return Model(cfg=cfg, module=module)

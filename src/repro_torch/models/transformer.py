@@ -1,15 +1,16 @@
-"""Decoder-only transformer LM: the dense family.
+"""Decoder-only transformer LM: the dense and MoE families.
 
 The port of the JAX package's ``models/transformer.py`` for
-``family == "dense"``: GQA attention with RoPE and optional per-head
-qk-norm (qwen3), a SwiGLU or GELU FFN, tied or separate head, the training
-loss ``loss_fn`` (each block recomputed in the backward pass under
-``remat == "full"``), and the serving pair ``prefill`` / ``decode_step``
-over a preallocated KV cache.
-MoE, VLM (M-RoPE, patch embeddings) and the other families raise
-``NotImplementedError`` (ROADMAP Queue 1 item 11).  The JAX ``shard(...)``
-constraints are no-ops without a mesh; the port has no mesh, so they are
-left out.
+``family in ("dense", "moe")``: GQA attention with RoPE and optional
+per-head qk-norm (qwen3), a SwiGLU or GELU FFN or the MoE FFN
+(``models/moe.py``), tied or separate head, the training loss ``loss_fn``
+(with the router's auxiliary loss, each block recomputed in the backward
+pass under ``remat == "full"``), and the serving pair ``prefill`` /
+``decode_step`` over a preallocated KV cache, which drop the auxiliary
+loss as the JAX package's do.  The VLM family (M-RoPE, patch embeddings)
+and the other families raise ``NotImplementedError``, naming the ROADMAP
+Queue 1 item that ports them.  The JAX ``shard(...)`` constraints are
+no-ops without a mesh; the port has no mesh, so they are left out.
 
 Parameter dict (the JAX tree's names and layouts, so
 ``repro_torch.convert.model_params_from_numpy`` copies it as it is):
@@ -20,6 +21,8 @@ Parameter dict (the JAX tree's names and layouts, so
     wq [D, QH*HD], wk [D, KH*HD], wv [D, KH*HD], wo [QH*HD, D]
     (qk_norm) q_scale [HD], k_scale [HD]
     swiglu: w_gate [D, F], w_up [D, F], w_down [F, D]; gelu: w_up, w_down
+    moe: moe/{router [D, E] (float32), w_gate/w_up [E, D, F],
+         w_down [E, F, D], (shared experts) shared/{w_gate, w_up, w_down}}
   final_norm       {scale [D]}
   lm_head          [D, V] (absent when tied)
 
@@ -37,6 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import decode_attention, gqa_attention
 from repro_torch.models.layers import (apply_rope, gelu_mlp, init_linear,
                                        layer_norm, mask_padded_vocab,
@@ -49,18 +53,19 @@ __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's model lacks."""
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (ROADMAP Queue 1 item "
-            f"11); models.transformer serves the dense family")
+            f"family {cfg.family!r}: models.transformer serves the dense and "
+            f"MoE families")
     if cfg.mrope_sections is not None:
         raise NotImplementedError(
-            "M-RoPE waits for the VLM family (ROADMAP Queue 1 item 11)")
+            "M-RoPE waits for the VLM family (ROADMAP Queue 1, the VLM "
+            "family)")
     if cfg.remat == "dots":
         raise NotImplementedError(
             "remat='dots' (save the matmul outputs, recompute the rest) has "
-            "no torch counterpart yet (ROADMAP Queue 1 item 11); use 'full' "
-            "or 'none'")
+            "no torch counterpart yet (ROADMAP Queue 1, remat=\"dots\"); use "
+            "'full' or 'none'")
 
 
 # -----------------------------------------------------------------------------
@@ -81,7 +86,9 @@ def param_shapes(cfg: ModelConfig) -> dict:
               "wv": (n, d, kh * hd), "wo": (n, qh * hd, d)}
     if cfg.qk_norm:
         layers.update(q_scale=(n, hd), k_scale=(n, hd))
-    if cfg.act == "swiglu":
+    if cfg.family == "moe":
+        layers["moe"] = moe_mod.moe_shapes(cfg, (n,))
+    elif cfg.act == "swiglu":
         layers.update(w_gate=(n, d, f), w_up=(n, d, f), w_down=(n, f, d))
     else:
         layers.update(w_up=(n, d, f), w_down=(n, f, d))
@@ -98,15 +105,20 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
     ``"cuda"``; the generator must live there too) with the JAX package's
     scales: ``normal / sqrt(d_in)`` for projections,
     ``normal / sqrt(QH*HD)`` for ``wo``, ``0.02 * normal`` for the
-    embedding; norm scales (and qk-norm scales) one, in float32.  The
-    numbers differ from the JAX package's for the same seed."""
+    embedding; norm scales (and qk-norm scales) one, in float32; the MoE
+    leaves by ``moe.init_moe``.  Each leaf is allocated once and filled a
+    block at a time, so the peak is the parameters plus one float32 block.
+    The numbers differ from the JAX package's for the same seed."""
     device = resolve_device(device)
     shapes = param_shapes(cfg)
     dtype = dtype_of(cfg.param_dtype)
     n = cfg.num_layers
     layers = {}
     for name, shape in shapes["layers"].items():
-        if isinstance(shape, dict):          # norms
+        if name == "moe":
+            layers[name] = moe_mod.init_moe(generator, cfg, dtype,
+                                            device=device, lead=(n,))
+        elif isinstance(shape, dict):        # norms
             layers[name] = {k: (torch.ones if k == "scale" else torch.zeros)(
                 s, dtype=torch.float32, device=device)
                 for k, s in shape.items()}
@@ -182,24 +194,32 @@ def attention_block(p: dict, h: torch.Tensor, cfg: ModelConfig,
     return out.reshape(b, s, -1) @ p["wo"]
 
 
-def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig
+         ) -> tuple[torch.Tensor, torch.Tensor | float]:
+    """The FFN's output and its auxiliary loss: the MoE router's float32
+    scalar, or a Python ``0.0`` for the dense family (no device tensor is
+    made where nothing reads it)."""
+    if cfg.family == "moe":
+        return moe_mod.moe_ffn(p["moe"], h, cfg)
     if cfg.act == "swiglu":
-        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"])
-    return gelu_mlp(h, p["w_up"], p["w_down"])
+        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
+    return gelu_mlp(h, p["w_up"], p["w_down"]), 0.0
 
 
 def _block(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin, *,
-           cache=None) -> torch.Tensor:
+           cache=None) -> tuple[torch.Tensor, torch.Tensor | float]:
     h = h + attention_block(p, _norm(h, p["attn_norm"], cfg), cfg, cos, sin,
                             cache=cache)
-    return h + _ffn(p, _norm(h, p["mlp_norm"], cfg), cfg)
+    ffn_out, aux = _ffn(p, _norm(h, p["mlp_norm"], cfg), cfg)
+    return h + ffn_out, aux
 
 
 def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
     if set(batch) - {"tokens", "positions", "labels"}:
         raise NotImplementedError(
             f"inputs {sorted(set(batch) - {'tokens', 'positions', 'labels'})}"
-            f" belong to the VLM/audio frontends (ROADMAP Queue 1 item 11)")
+            f" belong to the VLM/audio frontends (ROADMAP Queue 1, the VLM "
+            f"family; the audio enc-dec family)")
     return params["embed"][batch["tokens"].long()].to(
         dtype_of(cfg.compute_dtype))
 
@@ -221,37 +241,47 @@ def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 # -----------------------------------------------------------------------------
 
 
-def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """-> logits ``[B, S, V]`` (the JAX ``forward``'s first output; the
-    dense family has no auxiliary loss).  With ``cfg.remat == "full"`` and
-    grad enabled each block runs under ``torch.utils.checkpoint`` (its
-    activations are recomputed in the backward pass, as under
-    ``jax.checkpoint``)."""
+def _forward(params: dict, batch: dict, cfg: ModelConfig
+             ) -> tuple[torch.Tensor, torch.Tensor | float]:
+    """-> (logits ``[B, S, V]``, the auxiliary loss summed over the layers),
+    the JAX ``forward``.  With ``cfg.remat == "full"`` and grad enabled each
+    block runs under ``torch.utils.checkpoint`` (its activations are
+    recomputed in the backward pass, as under ``jax.checkpoint``)."""
     h = _embed_inputs(params, batch, cfg)
     b, s, _ = h.shape
     cos, sin = rope(_positions(batch, s, b, h.device), cfg.head_dim,
                     theta=cfg.rope_theta)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
+    aux = 0.0
     for p in unbind_layers(params):
         if remat:
-            h = checkpoint(_block, p, h, cfg, cos, sin, use_reentrant=False)
+            h, a = checkpoint(_block, p, h, cfg, cos, sin,
+                              use_reentrant=False)
         else:
-            h = _block(p, h, cfg, cos, sin)
-    return _logits(params, h, cfg)
+            h, a = _block(p, h, cfg, cos, sin)
+        aux = aux + a
+    return _logits(params, h, cfg), aux
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """-> logits ``[B, S, V]`` (the JAX ``forward``'s first output)."""
+    return _forward(params, batch, cfg)[0]
 
 
 def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Next-token cross-entropy over the token positions (the JAX
-    ``loss_fn``): logits cast to float32, log-softmax, the negative
+    """Next-token cross-entropy over the token positions plus
+    ``cfg.router_aux_coef`` times the auxiliary loss summed over the layers
+    (the JAX ``loss_fn``): logits cast to float32, log-softmax, the negative
     log-likelihood of ``labels`` averaged over the positions with
-    ``labels >= 0``.  The dense family adds no router loss."""
-    logits = forward(params, batch, cfg)
+    ``labels >= 0``.  The dense family's auxiliary loss is zero."""
+    logits, aux = _forward(params, batch, cfg)
     labels = batch["labels"].long()
     logits = logits[:, -labels.shape[1]:].float()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return loss + cfg.router_aux_coef * aux
 
 
 # -----------------------------------------------------------------------------
@@ -296,7 +326,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: KVCache
         out = gqa_attention(q, k, v, causal=True, impl=cfg.attention_impl,
                             chunk=cfg.attention_chunk)
         h = h + out.reshape(b, s, -1) @ p["wo"]
-        h = h + _ffn(p, _norm(h, p["mlp_norm"], cfg), cfg)
+        h = h + _ffn(p, _norm(h, p["mlp_norm"], cfg), cfg)[0]
     logits = _logits(params, h[:, -1:], cfg)
     return logits, KVCache(k=cache.k, v=cache.v, length=s)
 
@@ -313,7 +343,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     pos = torch.full((b, s), cache.length, device=h.device)
     cos, sin = rope(pos, cfg.head_dim, theta=cfg.rope_theta)
     for i, p in enumerate(unbind_layers(params)):
-        h = _block(p, h, cfg, cos, sin,
-                   cache=(cache.k[i], cache.v[i], cache.length))
+        h, _ = _block(p, h, cfg, cos, sin,
+                      cache=(cache.k[i], cache.v[i], cache.length))
     logits = _logits(params, h, cfg)
     return logits, KVCache(k=cache.k, v=cache.v, length=cache.length + s)

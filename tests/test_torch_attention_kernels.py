@@ -184,10 +184,16 @@ def test_cpu_calls_do_not_count_as_launches():
 
 # -- on the card ---------------------------------------------------------------
 
+# the zoo's other head shapes (QH, KH): moonshot-v1-16b-a3b (16, 16),
+# llama3-8b and phi3.5-moe-42b-a6.6b (32, 8), phi3-medium-14b (40, 10)
+ZOO_HEADS = ((16, 16), (32, 8), (40, 10))
 CUDA_FLASH = [(1, 64, 2, 1, 128), (2, 200, 4, 2, 64),          # small
-              (8, 1024, 16, 8, 128), (8, 1000, 16, 8, 128)]    # serving
+              (8, 1024, 16, 8, 128), (8, 1000, 16, 8, 128),    # serving
+              *((8, 1024, qh, kh, 128) for qh, kh in ZOO_HEADS)]
 CUDA_DECODE = [(1, 64, 2, 1, 128, 37), (2, 256, 8, 2, 16, 256),
-               (8, 1536, 16, 8, 128, 1), (8, 1536, 16, 8, 128, 1279)]
+               (8, 1536, 16, 8, 128, 1), (8, 1536, 16, 8, 128, 1279),
+               *((8, 1536, qh, kh, 128, n) for qh, kh in ZOO_HEADS
+                 for n in (1, 1152))]
 
 
 @pytest.fixture

@@ -225,6 +225,7 @@ def test_mesh_is_not_ported():
     system.add_camera("cam0")
     sess = system.edge.open_session("app")
     spec = TA.SubscribeSpec("app", "cam0", 0.0, 1.0, 0.1, 0.9)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1, fleet mesh and sharding"):
         system.edge.create_subscription(
             sess, (spec,), options=TA.SubscriptionOptions(fleet=True, mesh=1))

@@ -1,5 +1,6 @@
 """The port's serving driver (``repro_torch.launch.serve``) on the reduced
-``qwen3-1.7b``: the loop and the dict it returns against the JAX package's
+``qwen3-1.7b`` (and, for the dict it returns, every other arch it
+serves): the loop and the dict it returns against the JAX package's
 ``serve``, greedy and sampled decoding, the cache size, and that the
 ``"kernel"`` attention route computes what the einsum routes compute (on
 the CPU the kernel route takes the kernels' plain versions).
@@ -43,6 +44,22 @@ def test_serve_dict_matches_jax(jax_serve):
     assert got["tokens"].shape == want["tokens"].shape == (2, 4)
     assert got["cache_len"] == want["cache_len"] == 11
     assert got["tokens"].dtype == np.int32
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "internlm2-1.8b",
+                                  "phi3-medium-14b", "moonshot-v1-16b-a3b",
+                                  "phi3.5-moe-42b-a6.6b"])
+def test_zoo_serve_dict_matches_jax(jax_serve, arch):
+    """The other dense configs and the MoE family serve through the same
+    entry point, reduced on the CPU: the JAX ``serve``'s keys, token shape
+    and cache length, tokens inside the real vocabulary."""
+    kw = dict(batch=2, prompt_len=8, gen=3)
+    want = jax_serve(arch, **kw)
+    got = TS.serve(arch, device="cpu", **kw)
+    assert sorted(got) == sorted(want)
+    assert got["tokens"].shape == want["tokens"].shape == (2, 4)
+    assert got["cache_len"] == want["cache_len"] == 11
+    assert 0 <= got["tokens"].min() and got["tokens"].max() < 512
 
 
 @pytest.mark.parametrize("gen", [0, 1, 6])

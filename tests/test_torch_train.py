@@ -528,7 +528,8 @@ def test_train_compressed_grads_train():
 
 
 def test_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1, fleet mesh and sharding"):
         train("qwen3-1.7b", steps=1, mesh_shape=(1, 1), device="cpu")
 
 
@@ -548,5 +549,6 @@ def test_remat_dots_is_refused():
 
 def test_ssm_training_is_not_ported():
     cfg = t_get_config("rwkv6-1.6b").reduced()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1, rwkv6 training"):
         t_build(cfg).loss_fn({}, {})

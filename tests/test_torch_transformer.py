@@ -1,7 +1,11 @@
 """The port's dense transformer against the JAX package: each ``layers``
 function against its JAX namesake, and the serving slice as a whole on
 ``qwen3-1.7b`` reduced (2 layers, d_model 64, float32) with the JAX
-model's own parameters carried over by ``convert.model_params_from_numpy``.
+model's own parameters carried over by ``convert.model_params_from_numpy``;
+the other dense configs (``llama3-8b``, ``internlm2-1.8b``,
+``phi3-medium-14b``) the same way, and every config's published and reduced
+fields against ``repro.configs`` (the MoE family's own tests are
+``test_torch_moe.py``).
 
 Tolerances: layers within 1e-6 absolute (float32, unit-scale inputs); the
 model's logits within 1e-4 absolute (two layers of float32 products summed
@@ -126,6 +130,62 @@ def test_init_linear_scale():
     w2 = TL.init_linear(g, 64, 8, scale=0.02, lead=(3,))
     assert w2.shape == (3, 64, 8)
     assert abs(float(w2.std()) - 0.02) < 2e-3
+
+
+@pytest.mark.parametrize("lead,block", [((), 1 << 24), ((3,), 1 << 24),
+                                        ((3,), 100), ((2, 3), 1000)])
+def test_init_linear_draws_in_blocks(monkeypatch, lead, block):
+    """The result is allocated in its dtype and drawn a block of rows at a
+    time: shapes, dtypes and scale hold at any block size, every slice of
+    ``lead`` is drawn apart, and the float32 temporaries never exceed one
+    block (``torch.randn`` is called with at most ``block`` elements, and
+    at most one ``[d_in, d_out]`` slice)."""
+    sizes = []
+    randn = torch.randn
+
+    def counting(shape, **kw):
+        sizes.append(int(np.prod(shape)))
+        return randn(shape, **kw)
+
+    monkeypatch.setattr(TL, "DRAW_BLOCK", block)
+    monkeypatch.setattr(torch, "randn", counting)
+    g = torch.Generator().manual_seed(0)
+    w = TL.init_linear(g, 64, 32, dtype=torch.bfloat16, lead=lead)
+    assert w.shape == (*lead, 64, 32) and w.dtype == torch.bfloat16
+    assert max(sizes) <= max(32, min(block, 64 * 32))
+    assert sum(sizes) == w.numel()
+    assert abs(float(w.float().std()) - 64 ** -0.5) < 1e-2
+    flat = w.reshape(-1, 64, 32)
+    assert all(not torch.equal(flat[0], m) for m in flat[1:])
+
+
+def test_unbind_layers_nested_dicts_carry_gradients():
+    """Nested dicts of any depth unbind into per-layer views, and the
+    gradients reach each stacked ``[L, ...]`` leaf."""
+    g = torch.Generator().manual_seed(0)
+    params = {"layers": {
+        "w": torch.randn((3, 4, 4), generator=g),
+        "norm": {"scale": torch.randn((3, 4), generator=g)},
+        "moe": {"router": torch.randn((3, 4, 2), generator=g),
+                "shared": {"w_up": torch.randn((3, 4, 4), generator=g)}}}}
+    leaves = [params["layers"]["w"], params["layers"]["norm"]["scale"],
+              params["layers"]["moe"]["router"],
+              params["layers"]["moe"]["shared"]["w_up"]]
+    for t in leaves:
+        t.requires_grad_(True)
+    layers = TL.unbind_layers(params)
+    assert len(layers) == 3
+    x = torch.ones(4)
+    loss = 0
+    for i, p in enumerate(layers):
+        assert p["moe"]["shared"]["w_up"].shape == (4, 4)
+        y = (x * p["norm"]["scale"]) @ p["w"] @ p["moe"]["shared"]["w_up"]
+        loss = loss + (i + 1) * ((y @ p["moe"]["router"]).sum())
+    loss.backward()
+    for t in leaves:
+        assert t.grad is not None and t.grad.shape == t.shape
+        for i in range(3):
+            assert t.grad[i].abs().sum() > 0
 
 
 def test_swiglu(jx):
@@ -274,16 +334,20 @@ def test_padded_vocab_never_wins(port_model):
     assert (logits[..., 500:] == TL.NEG_INF).all()
 
 
-@pytest.mark.parametrize("family", ["moe", "vlm", "hybrid"])
-def test_other_families_raise(family):
+@pytest.mark.parametrize("family,item", [
+    ("audio", "the audio enc-dec family"), ("vlm", "the VLM family"),
+    ("hybrid", "the hybrid family")])
+def test_other_families_raise(family, item):
     cfg = dataclasses.replace(port_cfg("naive"), family=family)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1, {item}"):
         t_build(cfg)
 
 
 def test_mrope_raises():
     cfg = dataclasses.replace(port_cfg("naive"), mrope_sections=(2, 3, 3))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP Queue 1, the VLM family"):
         TT.init_params(torch.Generator(), cfg, device="cpu")
 
 
@@ -304,10 +368,108 @@ def test_config_matches_jax_published_widths():
         == "kernel"
 
 
-@pytest.mark.parametrize("arch", ["llama3-8b", "zamba2-7b",
-                                  "phi3.5-moe-42b-a6.6b"])
-def test_unported_archs_raise(arch):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
+ZOO = ["llama3-8b", "internlm2-1.8b", "phi3-medium-14b",
+       "moonshot-v1-16b-a3b", "phi3.5-moe-42b-a6.6b"]
+DENSE_ZOO = ZOO[:3]
+ZOO_FIELDS = ("family", "num_layers", "d_model", "num_heads", "num_kv_heads",
+              "head_dim", "d_ff", "vocab_size", "qk_norm", "rope_theta",
+              "act", "tie_embeddings", "param_dtype", "compute_dtype",
+              "remat", "train_microbatches", "norm_type", "num_experts",
+              "num_experts_per_token", "num_shared_experts",
+              "capacity_factor", "router_aux_coef", "attention_chunk",
+              "padded_vocab")
+
+
+@pytest.mark.parametrize("arch", ZOO)
+def test_zoo_config_matches_jax(arch):
+    """Every field the port keeps, published and reduced, equals the JAX
+    package's."""
+    pytest.importorskip("jax")
+    from repro.configs import get_config
+    j, t = get_config(arch), t_get_config(arch)
+    for f in ZOO_FIELDS:
+        assert getattr(t, f) == getattr(j, f), f
+        assert getattr(t.reduced(), f) == getattr(j.reduced(), f), f
+
+
+@pytest.fixture(scope="module")
+def dense_zoo_runs():
+    """arch -> the reduced JAX model's tree (NumPy), tokens, prefill and
+    decode logits and greedy tokens, as ``jax_model`` for qwen3; computed
+    on first use."""
+    pytest.importorskip("jax")
+    import jax
+    from repro.configs import get_config
+    from repro.models.registry import build_model
+    from repro.sharding import api as shard_api
+    runs = {}
+
+    def run(arch):
+        if arch in runs:
+            return runs[arch]
+        shard_api.deactivate()
+        cfg = get_config(arch).reduced()
+        m = build_model(cfg)
+        params = m.init_params(jax.random.PRNGKey(2))
+        toks = np.random.default_rng(2).integers(
+            0, cfg.vocab_size, (B, S + STEPS), dtype=np.int32)
+        prefill, decode = jax.jit(m.prefill), jax.jit(m.decode_step)
+        logits, cache = prefill(params, {"tokens": toks[:, :S]},
+                                m.init_cache(B, S + STEPS + 4))
+        steps = [np.asarray(logits[:, 0])]
+        for t in range(STEPS):
+            logits, cache = decode(params, toks[:, S + t:S + t + 1], cache)
+            steps.append(np.asarray(logits[:, 0]))
+        logits, cache = prefill(params, {"tokens": toks[:, :S]},
+                                m.init_cache(B, S + STEPS + 4))
+        tok = np.asarray(logits[:, -1]).argmax(-1)[:, None].astype(np.int32)
+        greedy = [tok]
+        for _ in range(STEPS):
+            logits, cache = decode(params, tok, cache)
+            tok = np.asarray(logits[:, -1]).argmax(-1)[:, None].astype(
+                np.int32)
+            greedy.append(tok)
+        runs[arch] = (jax.tree_util.tree_map(np.asarray, params), toks,
+                      np.stack(steps), np.concatenate(greedy, 1))
+        return runs[arch]
+
+    return run
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("arch", DENSE_ZOO)
+def test_dense_zoo_prefill_decode_and_greedy_match_jax(dense_zoo_runs, arch,
+                                                       impl):
+    """Prefill, 8 teacher-forced decode steps and greedy tokens of each
+    other dense config, reduced, against the JAX model (the qwen3
+    tolerance: 1e-4 absolute on the logits)."""
+    from repro_torch.launch.serve import generate
+    tree, toks, want, greedy = dense_zoo_runs(arch)
+    cfg = dataclasses.replace(t_get_config(arch).reduced(),
+                              attention_impl=impl)
+    m = t_build(cfg)
+    params = convert.model_params_from_numpy(cfg, tree, device="cpu")
+    t = torch.from_numpy(toks)
+    cache = m.init_cache(B, S + STEPS + 4, device="cpu")
+    with torch.no_grad():
+        logits, cache = m.prefill(params, {"tokens": t[:, :S]}, cache)
+        got = [logits[:, 0]]
+        for i in range(STEPS):
+            logits, cache = m.decode_step(params, t[:, S + i:S + i + 1],
+                                          cache)
+            got.append(logits[:, 0])
+    close(torch.stack(got), want, atol=1e-4)
+    out = generate(m, params, {"tokens": t[:, :S]},
+                   m.init_cache(B, S + STEPS + 4, device="cpu"), gen=STEPS)
+    np.testing.assert_array_equal(out["tokens"], greedy)
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("qwen2-vl-72b", "the VLM family"), ("zamba2-7b", "the hybrid family"),
+    ("seamless-m4t-large-v2", "the audio enc-dec family")])
+def test_unported_archs_raise(arch, item):
+    with pytest.raises(NotImplementedError,
+                       match=f"ROADMAP Queue 1, {item}"):
         t_get_config(arch)
     with pytest.raises(KeyError):
         t_get_config("no-such-arch")
