@@ -82,6 +82,27 @@ each, with their wall seconds:
                 held to the parameters plus one float32 layer leaf
                 (``zoo_serve``, one line an arch); one traced moonshot
                 decode step (``zoo_trace``);
+  serve_families the VLM and hybrid families at their published widths:
+                both attention kernels against their plain versions at
+                ``qwen2-vl-72b``'s heads (QH 64 over KH 8, G = 8, D = 128;
+                flash at B=8 S=2048) and ``zamba2-7b``'s (32 heads of 112,
+                G = 1; flash at B=8 S=1024, and in bfloat16 also S=1 and
+                S=65), decode at each serve's lengths, float32 and
+                bfloat16, timed as in serve (``fam_kernels``); the float32
+                model with the kernels against naive attention, prefill and
+                8 teacher-forced decode steps -- qwen2-vl at 4 of its
+                layers with 3-stream M-RoPE positions (1024 patches on a 32
+                x 32 grid, then 1024 text tokens), zamba2 whole with its
+                LoRA redrawn nonzero (``fam_check``, one line an arch); a
+                timed bfloat16 ``generate`` after a warm-up -- qwen2-vl at
+                32 of its 80 layers (145.4 GB of weights do not fit the
+                card), batch 8, prompt 2048 (1024 patches + 1024 text),
+                zamba2 whole, batch 8, prompt 1024, gen 256 each -- with
+                the launches counted (flash once per attention layer, or
+                per shared-block invocation, each prefill; decode the same
+                each step) and the peak after ``init_params`` held as in
+                ``zoo_serve`` (``fam_serve``, one line an arch); one traced
+                zamba2 decode step (``fam_trace``);
   quant_kernels the approximate collective's quantize and dequantize
                 kernels against their plain versions, bit for bit, at every
                 gradient leaf shape of the full-width ``qwen3-1.7b`` step
@@ -152,7 +173,9 @@ each, with their wall seconds:
 Then a ``kernels`` line (every kernel: launches on its main path, error
 against its plain version, its time beside its bound, the plain version's
 and the library call's; the attention pair also its ``kernel_route`` and
-``call_ms``, the wrapper's time with its host work), the card's ``name,
+``call_ms``, the wrapper's time with its host work, its launches on every
+serving path, and its rows at the zoo's and the families' head shapes),
+the card's ``name,
 power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
 line; without a CUDA device, or outside a checkout, it exits 2.
@@ -173,9 +196,11 @@ knob kernel (the build and frame_knobs_kernel phases).
 
     python3 chip_smoke.py --scenario-only
     python3 chip_smoke.py --zoo-only
+    python3 chip_smoke.py --families-only
 
 build ``frame_knob_grid`` and run only the scenario phase, or build the
-two attention kernels and run only the serve_zoo phase.
+two attention kernels and run only the serve_zoo or the serve_families
+phase.
 """
 
 from __future__ import annotations
@@ -280,6 +305,26 @@ ZOO_SERVE = (("llama3-8b", None), ("phi3-medium-14b", None),
              ("moonshot-v1-16b-a3b", None), ("phi3.5-moe-42b-a6.6b", 24))
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 8, 1024, 256
 ZOO_TRACE = "moonshot-v1-16b-a3b"
+
+# -- the serve_families phase ---------------------------------------------------
+# The VLM and hybrid families at their published widths (configs built as
+# zoo_config builds them, reduced under ZOO_REDUCED).  qwen2-vl-72b: QH 64
+# over KH 8 (G = 8) at D = 128, its prompt 1024 stub patch embeddings + 1024
+# text tokens; zamba2-7b: 32 heads of 112 (G = 1), a 1024-token prompt.
+# (arch, layers, prompt): qwen2-vl's 80 layers are 145.4 GB of bf16
+# weights; 32 layers (61.2 GB, and 2.7 GB of cache at B=8) fit the card.
+FAM_SERVE = (("qwen2-vl-72b", 32, 2048), ("zamba2-7b", None, 1024))
+FAM_BATCH, FAM_GEN = 8, 256
+# bfloat16 flash at zamba2's heads beside the serving shape: one query row
+# and one row past a 64-key tile (the D = 112 tile's ragged tails)
+FAM_FLASH_EXTRA = ((8, 1, 112), (8, 65, 112))
+# the float32 model, kernels against naive attention: (arch, layers,
+# prompt).  qwen2-vl at 4 layers (~24 GB) with 3-stream M-RoPE positions
+# (FAM_GRID x FAM_GRID patches), zamba2 whole (27 GB); zamba2's prompt is a
+# multiple of the SSD chunk (128), as the JAX function asserts.
+FAM_CHECK = (("qwen2-vl-72b", 4, 2048), ("zamba2-7b", None, 1024))
+FAM_GRID = 32
+FAM_TRACE = "zamba2-7b"
 
 # -- the training phases ------------------------------------------------------
 TRAIN_ARCH = "qwen3-1.7b"
@@ -703,11 +748,12 @@ def timed(fn, plain, library) -> dict:
 
 
 def phase_attention(dev, cfg, *, flash_shapes=FLASH_SHAPES,
-                    flash_extra=FLASH_EXTRA) -> list[dict]:
+                    flash_extra=FLASH_EXTRA, decode_s_max=DECODE_S_MAX,
+                    decode_lengths=DECODE_LENGTHS) -> list[dict]:
     """Both attention kernels against their plain versions at the heads of
     ``cfg``: flash at ``flash_shapes`` (B, S) with the config's head dim,
     and in bfloat16 also at ``flash_extra`` (B, S, D); decode over a
-    ``DECODE_S_MAX`` cache at ``DECODE_LENGTHS``; in float32 and bfloat16
+    ``decode_s_max`` cache at ``decode_lengths``; in float32 and bfloat16
     on seeded unit-normal inputs, each timed (``timed``) beside its plain
     version, SDPA (timed here only, called nowhere in the port) and its
     bound.  Raises when an error passes its tolerance."""
@@ -764,12 +810,12 @@ def phase_attention(dev, cfg, *, flash_shapes=FLASH_SHAPES,
             record(row, got, want)
             del q, k, v, qt, kt, vt, got, want
         b = SERVE_BATCH
-        shape = (b, DECODE_S_MAX, kh, d)
+        shape = (b, decode_s_max, kh, d)
         kc = torch.randn(shape, generator=g, device=dev).to(dtype)
         vc = torch.randn(shape, generator=g, device=dev).to(dtype)
         q = torch.randn((b, 1, qh, d), generator=g, device=dev).to(dtype)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, kc, vc))
-        for length in DECODE_LENGTHS:
+        for length in decode_lengths:
             got = DA.decode_attention(q, kc, vc, length)
             want = DA.decode_attention_plain(q, kc, vc, length)
             torch.cuda.synchronize()
@@ -777,8 +823,8 @@ def phase_attention(dev, cfg, *, flash_shapes=FLASH_SHAPES,
             b_ms, b_by = attn_bound_ms("decode", dtype, b, length, qh, kh, d)
             row = dict(
                 kernel="decode_attention", dtype=name, length=length,
-                kernel_route="cluster", group=qh // kh,
-                shape=f"B={b} S_max={DECODE_S_MAX} QH={qh} KH={kh} D={d} "
+                kernel_route="cluster", group=qh // kh, head_dim=d,
+                shape=f"B={b} S_max={decode_s_max} QH={qh} KH={kh} D={d} "
                       f"length={length}",
                 **timed(lambda: DA.decode_attention(q, kc, vc, length),
                         lambda: DA.decode_attention_plain(q, kc, vc, length),
@@ -794,14 +840,15 @@ def phase_attention(dev, cfg, *, flash_shapes=FLASH_SHAPES,
 
 def phase_model_check(dev, arch: str, *, reduced: bool, batch: int,
                       prompt: int, ref_impl: str, tweak=None, cfg=None,
-                      repeat: bool = False) -> dict:
+                      repeat: bool = False, inputs=None) -> dict:
     """The whole model at its published widths in float32, one seed: the
     prefill and ``CHECK_STEPS`` teacher-forced decode steps through the
     kernels (``attention_impl="kernel"``) and through ``ref_impl`` (the
     plain versions), on the same weights and tokens (``build_served``).
     ``cfg`` (a float32 config, e.g. one cut in depth) takes the place of
     ``serve_config(arch)``'s.  ``tweak(params, g)`` may redraw parameters
-    first.  Last-position logits of the real vocabulary (the padded columns
+    first, and ``inputs(cfg, batch)`` add inputs to the prompt batch (the
+    VLM's M-RoPE positions).  Last-position logits of the real vocabulary (the padded columns
     hold the mask value) must agree within ``LOGIT_RTOL`` of their max
     |logit| at each step and pick the same greedy token everywhere; with
     ``repeat``, a second kernel run must give the same bits.  For the MoE
@@ -820,6 +867,8 @@ def phase_model_check(dev, arch: str, *, reduced: bool, batch: int,
                                               prompt=prompt)
     if tweak is not None:
         tweak(params, g)
+    if inputs is not None:
+        pb.update(inputs(cfg, pb))
     forced = torch.randint(0, model.cfg.vocab_size,
                            (batch, CHECK_STEPS), generator=g,
                            device=dev, dtype=torch.int32)
@@ -924,17 +973,22 @@ def route_difference(a: list, b: list, n_layers: int) -> dict:
 def serve_kernels(arch: str, n_layers: int, gen: int) -> dict:
     """The kernels the serving path of ``arch`` launches: name -> (the
     wrapper that counts its launches, the launches one ``serve`` of
-    ``gen`` decode steps must make)."""
+    ``gen`` decode steps must make).  The hybrid family attends once per
+    invocation of its shared block (every ``shared_attn_period`` of its
+    ``n_layers`` Mamba2 layers), not once a layer."""
     from repro_torch.configs import get_config
-    if get_config(arch).family == "ssm":
+    cfg = get_config(arch)
+    if cfg.family == "ssm":
         from repro_torch.kernels import linear_scan as LS
         # every layer's time-mix, at prefill and at each decode step
         return {"wkv_linear_scan": (LS.wkv_linear_scan,
                                     n_layers * (1 + gen))}
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
-    return {"flash_attention": (FA.flash_attention, n_layers),
-            "decode_attention": (DA.decode_attention, n_layers * gen)}
+    n_attn = (n_layers // cfg.shared_attn_period if cfg.family == "hybrid"
+              else n_layers)
+    return {"flash_attention": (FA.flash_attention, n_attn),
+            "decode_attention": (DA.decode_attention, n_attn * gen)}
 
 
 def phase_serve_timed(dev, arch: str, *, reduced: bool, batch: int,
@@ -1350,14 +1404,16 @@ def build_served(dev, cfg, *, batch: int, prompt: int, rows: int = 0):
     return model, params, pb, cache, g, init
 
 
-def phase_zoo_serve(dev, arch: str, num_layers: "int | None") -> dict:
-    """A timed bfloat16 ``generate(batch=8, prompt_len=1024, gen=256)`` of
+def phase_zoo_serve(dev, arch: str, num_layers: "int | None", *,
+                    batch: int = ZOO_BATCH, prompt: int = ZOO_PROMPT,
+                    gen: int = ZOO_GEN) -> dict:
+    """A timed bfloat16 ``generate(batch, prompt_len=prompt, gen)`` of
     ``arch`` (cut to ``num_layers`` where given), after one untimed
     ``gen=2`` warm-up on the same weights and cache, with the attention
     kernels' launches counted from zero just before it.  The model is
     built by ``build_served`` so the peak of ``init_params`` can be read:
     it must stay within the parameters' bytes plus one layer's largest leaf
-    in float32."""
+    in float32 (the hybrid family's layers are its Mamba2 stack)."""
     import torch
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.launch.serve import generate
@@ -1365,21 +1421,21 @@ def phase_zoo_serve(dev, arch: str, num_layers: "int | None") -> dict:
     from repro_torch.tree import tree_leaves
     cfg = zoo_config(arch, num_layers)
     model, params, pb, cache, _, init = build_served(
-        dev, cfg, batch=ZOO_BATCH, prompt=ZOO_PROMPT,
-        rows=ZOO_PROMPT + ZOO_GEN + DECODE_SLACK)
+        dev, cfg, batch=batch, prompt=prompt, rows=prompt + gen + DECODE_SLACK)
     init_peak = init["peak_bytes"]
     param_bytes = sum(t.numel() * t.element_size()
                       for t in tree_leaves(params))
-    slice_f32 = max(t[0].numel() * 4 for t in tree_leaves(params["layers"]))
+    slice_f32 = max(t[0].numel() * 4 for t in tree_leaves(
+        params["layers"] if "layers" in params else params["mamba"]))
     generate(model, params, pb, cache, gen=2)
-    kernels = serve_kernels(arch, cfg.num_layers, ZOO_GEN)
+    kernels = serve_kernels(arch, cfg.num_layers, gen)
     torch.cuda.reset_peak_memory_stats()
     for fn, _ in kernels.values():
         fn.launches = 0
         if hasattr(fn, "launches_by_route"):
             fn.launches_by_route = dict.fromkeys(fn.launches_by_route, 0)
     t0 = time.monotonic()
-    out = generate(model, params, pb, cache, gen=ZOO_GEN)
+    out = generate(model, params, pb, cache, gen=gen)
     seconds = time.monotonic() - t0
     launches = {name: fn.launches for name, (fn, _) in kernels.items()}
     want = {name: n for name, (_, n) in kernels.items()}
@@ -1389,8 +1445,8 @@ def phase_zoo_serve(dev, arch: str, num_layers: "int | None") -> dict:
     toks = out["tokens"]
     res = dict(arch=arch, num_layers=cfg.num_layers,
                published_layers=zoo_config(arch).num_layers,
-               seconds=seconds, batch=ZOO_BATCH, prompt_len=ZOO_PROMPT,
-               gen=ZOO_GEN, prefill_ms=out["prefill_s"] * 1e3,
+               seconds=seconds, batch=batch, prompt_len=prompt,
+               gen=gen, prefill_ms=out["prefill_s"] * 1e3,
                decode_p50_ms=out["decode_p50_ms"],
                decode_p95_ms=out["decode_p95_ms"],
                tokens_per_s=out["tokens_per_s"], cache_len=out["cache_len"],
@@ -1410,8 +1466,8 @@ def phase_zoo_serve(dev, arch: str, num_layers: "int | None") -> dict:
         raise AssertionError(f"{arch}: init_params peaked at {init_peak} "
                              f"bytes, over the parameters' {param_bytes} "
                              f"plus one float32 layer leaf {slice_f32}")
-    if toks.shape != (ZOO_BATCH, ZOO_GEN + 1) or (
-            res["cache_len"] != ZOO_PROMPT + ZOO_GEN):
+    if toks.shape != (batch, gen + 1) or (
+            res["cache_len"] != prompt + gen):
         raise AssertionError(f"{arch}: tokens {toks.shape}, cache_len "
                              f"{res['cache_len']}")
     return res
@@ -1456,6 +1512,95 @@ def phase_serve_zoo(dev) -> tuple[list[dict], dict]:
                                batch=ZOO_BATCH, prompt=ZOO_PROMPT,
                                gen=ZOO_GEN)
     emit("zoo_trace", seconds=time.monotonic() - t0, **trace)
+    torch.cuda.empty_cache()
+    return rows, serves
+
+
+def decode_lengths_for(prompt: int, gen: int) -> tuple[int, ...]:
+    """``DECODE_LENGTHS`` for a serve of ``prompt`` and ``gen``: one row,
+    the prompt, the mean and the last decode step's length, and the
+    cache's ``prompt + gen + DECODE_SLACK`` rows."""
+    from repro_torch.models.registry import DECODE_SLACK
+    return (1, prompt, prompt + gen // 2, prompt + gen - 1,
+            prompt + gen + DECODE_SLACK)
+
+
+def mrope_grid_positions(cfg, batch: dict) -> dict:
+    """3-stream M-RoPE ids ``[3, B, S]`` for a VLM batch whose first
+    ``frontend_tokens`` positions are patches: the patches on a square grid
+    of side ``FAM_GRID`` (t = 0, h = i // side, w = i % side; the reduced
+    config's 16 patches on a 4 x 4 grid), the text from the largest id plus
+    one in all three streams."""
+    import torch
+    toks = batch["tokens"]
+    b, n_text, dev = toks.shape[0], toks.shape[1], toks.device
+    n_patch = batch["patch_embeds"].shape[1]
+    side = min(FAM_GRID, int(round(n_patch ** 0.5)))
+    i = torch.arange(n_patch, device=dev)
+    patch = torch.stack([torch.zeros_like(i), i // side, i % side])
+    text = (patch.max() + 1 + torch.arange(n_text, device=dev)).expand(3, -1)
+    pos = torch.cat([patch, text], dim=1)
+    return {"positions": pos[:, None].expand(3, b, -1).contiguous()}
+
+
+def zamba_tweak(params: dict, g) -> None:
+    """Redraw the LoRA ``qb``/``kb``/``vb`` stacks, which the init leaves
+    zero (as the JAX init does), so the check runs the LoRA path."""
+    import torch
+    for k in ("qb", "kb", "vb"):
+        t = params["lora"][k]
+        t.copy_(torch.randn(t.shape, generator=g, device=t.device) * 0.02)
+
+
+def phase_serve_families(dev) -> tuple[list[dict], dict]:
+    """The serve_families phase: the attention kernels at the families'
+    head shapes (``fam_kernels``: flash at each serve's prefill, decode at
+    ``decode_lengths_for`` its serve, bfloat16 flash at D = 112 also at
+    ``FAM_FLASH_EXTRA``), the float32 model checks (``fam_check``, one line
+    an arch), the timed serves (``fam_serve``, one line an arch) and one
+    traced zamba2 decode step (``fam_trace``).  Returns (attention rows,
+    arch -> timed serve)."""
+    import torch
+    t0 = time.monotonic()
+    rows = []
+    for arch, _, prompt in FAM_SERVE:
+        cfg = zoo_config(arch)
+        extra = FAM_FLASH_EXTRA if cfg.head_dim == 112 else ()
+        lengths = decode_lengths_for(prompt, FAM_GEN)
+        rows += [dict(r, arch=arch) for r in phase_attention(
+            dev, cfg, flash_shapes=((FAM_BATCH, prompt),), flash_extra=extra,
+            decode_s_max=lengths[-1], decode_lengths=lengths)]
+    off = [r["shape"] for r in rows if r["kernel"] == "flash_attention"
+           and r["dtype"] == "bfloat16" and r["kernel_route"] != "wgmma"]
+    if off and not ZOO_REDUCED:
+        raise AssertionError(f"bf16 flash off the wgmma route: {off}")
+    emit("fam_kernels", seconds=time.monotonic() - t0, cases=len(rows),
+         max_abs_err={f"{k}/{dt}/{a}": max(
+             r["max_abs_err"] for r in rows if r["kernel"] == k
+             and r["dtype"] == dt and r["arch"] == a)
+             for k in ("flash_attention", "decode_attention")
+             for dt in ("float32", "bfloat16")
+             for a, _, _ in FAM_SERVE},
+         limits={f"{k}/{dt}": v for (k, dt), v in ATTN_TOL.items()})
+    for arch, layers, prompt in FAM_CHECK:
+        cfg = zoo_config(arch, layers, "float32")
+        vlm = cfg.family == "vlm"
+        emit("fam_check", **phase_model_check(
+            dev, arch, reduced=ZOO_REDUCED, batch=CHECK_BATCH, prompt=prompt,
+            ref_impl="naive", cfg=cfg,
+            tweak=None if vlm else zamba_tweak,
+            inputs=mrope_grid_positions if vlm else None),
+            positions="3-stream grid" if vlm else "default")
+    serves = {}
+    for arch, layers, prompt in FAM_SERVE:
+        serves[arch] = phase_zoo_serve(dev, arch, layers, batch=FAM_BATCH,
+                                       prompt=prompt, gen=FAM_GEN)
+        emit("fam_serve", **serves[arch])
+    t0 = time.monotonic()
+    prompt = dict((a, p) for a, _, p in FAM_SERVE)[FAM_TRACE]
+    trace = phase_decode_trace(dev, FAM_TRACE, reduced=ZOO_REDUCED,
+                               batch=FAM_BATCH, prompt=prompt, gen=FAM_GEN)
+    emit("fam_trace", seconds=time.monotonic() - t0, **trace)
     torch.cuda.empty_cache()
     return rows, serves
 
@@ -2913,6 +3058,9 @@ def main(argv: list[str]) -> int:
     only.add_argument("--zoo-only", action="store_true",
                       help="run only the build of the attention kernels and "
                            "the serve_zoo phase")
+    only.add_argument("--families-only", action="store_true",
+                      help="run only the build of the attention kernels and "
+                           "the serve_families phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive "
                          "(default: this checkout's); with one of the "
@@ -2937,6 +3085,7 @@ def main(argv: list[str]) -> int:
      else run_wkv if args.wkv_only else run_knobs if args.knobs_only
      else run_scenario_phase if args.scenario_only
      else run_zoo if args.zoo_only
+     else run_families if args.families_only
      else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3054,6 +3203,16 @@ def run_zoo(dev) -> None:
     build_only("flash_attention", FA._load_lib)
     build_only("decode_attention", DA._load_lib)
     phase_serve_zoo(dev)
+
+
+def run_families(dev) -> None:
+    """``--families-only``: build the two attention kernels, then the
+    serve_families phase."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    build_only("flash_attention", FA._load_lib)
+    build_only("decode_attention", DA._load_lib)
+    phase_serve_families(dev)
 
 
 def run(dev) -> None:
@@ -3274,6 +3433,8 @@ def run(dev) -> None:
     wkv_kernel = wkv_kernel_row(*phase_serve_rwkv(dev))
     # -- the other dense configs and the MoE family, at published widths --
     zoo_rows, zoo_serves = phase_serve_zoo(dev)
+    # -- the VLM and hybrid families, at published widths -----------------
+    fam_rows, fam_serves = phase_serve_families(dev)
     # -- training qwen3-1.7b with the approximate collective's round trip --
     quant, train_run = phase_training(dev)
     # -- the camera node: device rings and the knob kernel ----------------
@@ -3295,7 +3456,8 @@ def run(dev) -> None:
             ("decode_attention", "decode_attention.cu",
              "src/repro/kernels/decode_attention.py:61",
              lambda r: r.get("length") == DECODE_LENGTHS[2])):
-        mine = [r for r in attn_rows + zoo_rows if r["kernel"] == name]
+        mine = [r for r in attn_rows + zoo_rows + fam_rows
+                if r["kernel"] == name]
         main_row = next(r for r in attn_rows if r["kernel"] == name
                         and r["dtype"] == "bfloat16" and pick(r))
         # the zoo's head shapes at the serve's prefill and mean decode
@@ -3316,7 +3478,7 @@ def run(dev) -> None:
             "launches_by_path": {
                 SERVE_ARCH: timed["launches"][name],
                 **{a: z["launches"][name]
-                   for a, z in zoo_serves.items()}},
+                   for a, z in {**zoo_serves, **fam_serves}.items()}},
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "max_abs_err_float32": max(r["max_abs_err"] for r in mine
@@ -3327,7 +3489,19 @@ def run(dev) -> None:
             "shape": main_row["shape"] + " bfloat16 (the serve's "
                      + ("prefill" if name == "flash_attention" else
                         "mean decode length") + ")",
-            "zoo_shapes": zoo})
+            "zoo_shapes": zoo,
+            # the VLM's G = 8 and the hybrid's D = 112, bfloat16: each
+            # serve's prefill and mean decode length, and D = 112's tails
+            "family_shapes": [
+                {k: r[k] for k in ("arch", "shape", "group", "head_dim",
+                                   "kernel_route", "ms", "plain_ms",
+                                   "bound_ms", "bound_by", "library_ms",
+                                   "call_ms", "max_abs_err")}
+                for r in fam_rows if r["kernel"] == name
+                and r["dtype"] == "bfloat16" and (
+                    name == "flash_attention" or r["length"] == dict(
+                        (a, p + FAM_GEN // 2)
+                        for a, _, p in FAM_SERVE)[r["arch"]])]})
 
     # the main path's kernel work: one characterize sweep and one re-sweep
     main = [r for r in rows if r["case"] in ("characterize", "resweep")]

@@ -5,7 +5,8 @@ from __future__ import annotations
 
 from repro_torch.configs import (internlm2_1_8b, llama3_8b,
                                  moonshot_v1_16b_a3b, phi3_5_moe_42b_a6_6b,
-                                 phi3_medium_14b, qwen3_1_7b, rwkv6_1_6b)
+                                 phi3_medium_14b, qwen2_vl_72b, qwen3_1_7b,
+                                 rwkv6_1_6b, zamba2_7b)
 from repro_torch.configs.base import ModelConfig, dtype_of
 
 __all__ = ["ARCHS", "PENDING_ARCHS", "PENDING_FAMILIES", "get_config",
@@ -19,14 +20,14 @@ ARCHS: dict[str, ModelConfig] = {
     "moonshot-v1-16b-a3b": moonshot_v1_16b_a3b.CONFIG,
     "phi3.5-moe-42b-a6.6b": phi3_5_moe_42b_a6_6b.CONFIG,
     "rwkv6-1.6b": rwkv6_1_6b.CONFIG,
+    "qwen2-vl-72b": qwen2_vl_72b.CONFIG,
+    "zamba2-7b": zamba2_7b.CONFIG,
 }
 
 # The JAX package's other families, each by the title of the ROADMAP Queue 1
 # item that ports it, and their architectures.
-PENDING_FAMILIES = {"vlm": "the VLM family", "hybrid": "the hybrid family",
-                    "audio": "the audio enc-dec family"}
-PENDING_ARCHS = {"zamba2-7b": "hybrid", "qwen2-vl-72b": "vlm",
-                 "seamless-m4t-large-v2": "audio"}
+PENDING_FAMILIES = {"audio": "the audio enc-dec family"}
+PENDING_ARCHS = {"seamless-m4t-large-v2": "audio"}
 
 
 def get_config(arch: str) -> ModelConfig:

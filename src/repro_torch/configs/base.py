@@ -6,18 +6,19 @@ what the ported families, their serving loop and the training step read:
 the dense family (embedding, GQA attention with RoPE and qk-norm,
 SwiGLU/GELU FFN, tied or separate head), the MoE family (routed and shared
 experts, capacity, the router's auxiliary loss), the SSM family (RWKV-6:
-the two LoRA ranks) and the training fields (``remat``,
-``train_microbatches``).  The fields of the hybrid and enc-dec families come
-with their ports (ROADMAP Queue 1, the hybrid family; the audio enc-dec
-family); ``family`` and ``mrope_sections`` stay so the model can refuse
-what it lacks.  ``ShapeCell`` and ``SHAPE_CELLS`` wait for the dry-run's
-port (ROADMAP Queue 1, the dry-run), and the MoE sharding hint
-``moe_parallel`` for its first reader (ROADMAP Queue 1, fleet mesh and
-sharding).
+the two LoRA ranks), the VLM family (``mrope_sections``, and
+``frontend_tokens`` stub patch embeddings before the text), the hybrid
+family (the Mamba2 backbone's ``ssm_*`` fields, ``shared_attn_period``
+and ``lora_rank``) and the training fields (``remat``,
+``train_microbatches``).  The enc-dec family's fields come with its port
+(ROADMAP Queue 1, the audio enc-dec family).  ``ShapeCell`` and
+``SHAPE_CELLS`` wait for the dry-run's port (ROADMAP Queue 1, the
+dry-run), and the MoE sharding hint ``moe_parallel`` for its first reader
+(ROADMAP Queue 1, fleet mesh and sharding).
 
 ``attention_impl`` takes ``"naive" | "chunked" | "kernel"``: ``"kernel"``
-is the port's hand-written CUDA kernels (attention for the dense family,
-the wkv scan for the SSM family), which take the place of the JAX
+is the port's hand-written CUDA kernels (attention for the dense, MoE,
+VLM and hybrid families, the wkv scan for the SSM family), which take the place of the JAX
 package's Pallas kernels, so the JAX value ``"pallas"`` converts to it.
 
 ``remat`` takes ``"none" | "full" | "dots"``: ``"full"`` recomputes each
@@ -72,6 +73,17 @@ class ModelConfig:
     capacity_factor: float = 1.25
     router_aux_coef: float = 0.01
 
+    # SSM (Mamba2 / zamba2 backbone)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_headdim: int = 64
+    ssm_conv: int = 4
+
+    # hybrid (zamba2): a SHARED full-attention block applied every
+    # ``shared_attn_period`` backbone layers, with per-invocation LoRA
+    shared_attn_period: int = 0
+    lora_rank: int = 0
+
     # RWKV6
     rwkv_decay_lora: int = 64        # rank of the data-dependent decay MLP
     rwkv_mix_lora: int = 32          # rank of the token-shift mix MLPs
@@ -87,6 +99,9 @@ class ModelConfig:
     # gradient accumulation: split the global batch into this many
     # microbatches per train step (activation memory ~ 1/M)
     train_microbatches: int = 1
+
+    # modality frontend stub (vlm): stub patch-embedding positions
+    frontend_tokens: int = 0
 
     def __post_init__(self):
         if self.head_dim == 0:
@@ -112,7 +127,9 @@ class ModelConfig:
     def reduced(self) -> "ModelConfig":
         """Smoke-test configuration: same family and wiring, tiny dims --
         the JAX package's ``reduced()`` for the fields kept here (at most 8
-        experts, 2 a token and 1 shared; ``remat`` and
+        experts, 2 a token and 1 shared; the hybrid family two
+        super-blocks deep, ``ssm_state <= 16``, ``ssm_headdim`` 16 and
+        ``lora_rank <= 4``; ``frontend_tokens <= 16``; ``remat`` and
         ``train_microbatches`` are kept, as there)."""
         kv = max(1, min(self.num_kv_heads, 2))
         heads = max(kv * 2, 4)
@@ -121,7 +138,8 @@ class ModelConfig:
             self,
             name=self.name + "-smoke",
             mrope_sections=mrope,
-            num_layers=min(self.num_layers, 2),
+            num_layers=min(self.num_layers, 2 * max(1, self.shared_attn_period)
+                           if self.shared_attn_period else 2),
             d_model=64,
             num_heads=heads,
             num_kv_heads=kv,
@@ -132,9 +150,13 @@ class ModelConfig:
             num_experts_per_token=(min(self.num_experts_per_token, 2)
                                    if self.num_experts_per_token else 0),
             num_shared_experts=min(self.num_shared_experts, 1),
+            ssm_state=min(self.ssm_state, 16) if self.ssm_state else 0,
+            ssm_headdim=16 if self.ssm_state else self.ssm_headdim,
+            lora_rank=min(self.lora_rank, 4),
             rwkv_decay_lora=8,
             rwkv_mix_lora=4,
             attention_chunk=32,
+            frontend_tokens=min(self.frontend_tokens, 16),
             param_dtype="float32",
             compute_dtype="float32",
         )

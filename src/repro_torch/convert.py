@@ -4,9 +4,10 @@ Three kinds of state cross over.  For the closed loop: transform plans,
 characterization tables (with their wire-size proxy), the latency regression
 and padded controller tables, so both packages can run the loop from one
 and the same characterization.  For the model zoo: a model's parameter tree
-(``model_params_from_numpy``), so both packages can serve with the same
-weights, and an RWKV recurrent state (``rwkv_state_from_numpy``), so both
-can decode from the same state.  For the camera node: a device frame ring
+(``model_params_from_numpy``, every family's), so both packages can serve
+with the same weights, and an RWKV recurrent state
+(``rwkv_state_from_numpy``) or a zamba2 cache (``zamba_cache_from_numpy``),
+so both can decode from the same state.  For the camera node: a device frame ring
 (``frame_log_from_numpy``), so both can query the same log.  Each function
 takes plain NumPy arrays and Python scalars -- nothing of the JAX package
 is imported -- and returns the port's object.
@@ -26,11 +27,14 @@ from repro_torch.core.log import FrameLog
 from repro_torch.device import resolve_device
 from repro_torch.kernels.frame_knobs import TransformPlan
 from repro_torch.models.registry import build_model
+from repro_torch.models.mamba2 import Mamba2State
 from repro_torch.models.rwkv6 import RWKVState
+from repro_torch.models.zamba2 import ZambaCache
 
 __all__ = ["plan_from_numpy", "table_from_numpy", "regression_from_numpy",
            "controller_tables_from_numpy", "model_params_from_numpy",
-           "rwkv_state_from_numpy", "opt_state_from_numpy",
+           "rwkv_state_from_numpy", "zamba_cache_from_numpy",
+           "opt_state_from_numpy",
            "frame_log_from_numpy"]
 
 
@@ -130,7 +134,10 @@ def model_params_from_numpy(cfg, tree: dict, *,
     tied head reads as ``embed.T``.  So every leaf crosses as it is, with
     no transpose; its key set and shape are checked against the family
     module's ``param_shapes(cfg)`` and anything else raises
-    ``ValueError``.  Dtypes are kept.  ``device`` defaults to ``"cuda"``."""
+    ``ValueError``.  Dtypes are kept (the float32 leaves of a bfloat16
+    tree -- norm scales, the MoE router, Mamba2's ``A_log``, ``D``,
+    ``dt_bias`` and ``norm_scale`` -- stay float32).  ``device`` defaults to
+    ``"cuda"``."""
     dev = resolve_device(device)
 
     def walk(shapes: dict, node: dict, path: str) -> dict:
@@ -170,6 +177,30 @@ def rwkv_state_from_numpy(*, wkv, shift_tm, shift_cm, length,
                          f"{tuple(tm.shape)}, {tuple(cm.shape)}")
     return RWKVState(wkv=wkv.float(), shift_tm=tm, shift_cm=cm,
                      length=int(length))
+
+
+def zamba_cache_from_numpy(*, ssm, conv, attn_k, attn_v, length,
+                           device: "str | torch.device | None" = None
+                           ) -> ZambaCache:
+    """The port's ``ZambaCache`` from the fields of a JAX ``ZambaCache`` as
+    NumPy arrays: ``ssm`` ``[L, B, H, P, N]`` (float32) and ``conv``
+    ``[L, B, K-1, C]`` (its ``Mamba2State``), ``attn_k`` / ``attn_v``
+    ``[n_inv, B, S_max, KH, HD]`` (dtypes kept) and ``length`` (a scalar
+    array or int, kept on the host).  ``device`` defaults to ``"cuda"``."""
+    dev = resolve_device(device)
+    st = _tensor_from_numpy(ssm, device=dev)
+    cv = _tensor_from_numpy(conv, device=dev)
+    k = _tensor_from_numpy(attn_k, device=dev)
+    v = _tensor_from_numpy(attn_v, device=dev)
+    if st.dim() != 5 or cv.dim() != 4 or st.shape[:2] != cv.shape[:2] \
+            or k.dim() != 5 or k.shape != v.shape \
+            or k.shape[1] != st.shape[1]:
+        raise ValueError(f"ZambaCache: ssm [L,B,H,P,N], conv [L,B,K-1,C] and "
+                         f"attn_k/attn_v [n_inv,B,S_max,KH,HD] expected, got "
+                         f"{tuple(st.shape)}, {tuple(cv.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    return ZambaCache(ssm=Mamba2State(ssm=st.float(), conv=cv), attn_k=k,
+                      attn_v=v, length=int(length))
 
 
 def opt_state_from_numpy(cfg, tree: dict, *,

@@ -33,13 +33,15 @@
 // max and the sum of exp per q head through shared memory in warp order.
 // Value pass: each thread owns one 16-byte column group and a residue class
 // of the chunk's rows, so a warp reads whole V rows; the partial sums over
-// the row classes are added in class order at the end.  Chunks of one split
-// follow each other with the running (m, l, acc) rescaled, as in the TPU
-// kernel's grid loop.
+// the row classes are added in class order at the end.  Where the column
+// groups do not divide the 128 threads (D = 112: 14 groups of bf16, 28 of
+// float32), the last NT % NCG threads form no whole class: they load and add
+// nothing in the value pass.  Chunks of one split follow each other with
+// the running (m, l, acc) rescaled, as in the TPU kernel's grid loop.
 //
 // Interface: plain C, bound with ctypes.  q [B, 1, QH, D]; caches
 // [B, S_max, KH, D]; out [B, 1, QH, D]; all contiguous, of one type
-// (0 = float32, 1 = bfloat16), 16-byte aligned; D in {16, 32, 64, 128};
+// (0 = float32, 1 = bfloat16), 16-byte aligned; D in {16, 32, 64, 112, 128};
 // QH / KH in {1, 2, 4, 8}.  The launch goes on the caller's stream and
 // returns cudaGetLastError().
 
@@ -106,6 +108,7 @@ struct Plan {
   static constexpr int KROW = ROW + 16;           // padded K row
   static constexpr int NCG = ROW / 16;            // 16-byte column groups
   static constexpr int NRC = NT / NCG;            // row classes (value pass)
+  static constexpr int NVT = NRC * NCG;           // value-pass threads
   static constexpr int RAW = CHUNK_BYTES / (KROW + ROW);
   static constexpr int CHUNK = RAW >= 256 ? 256 : RAW / 16 * 16;  // rows
   static constexpr int STAGE = CHUNK * (KROW + ROW);  // K then V
@@ -194,6 +197,7 @@ decode_fused(const T* __restrict__ q, const T* __restrict__ kc,
   const T* kb = kc + size_t(b) * S_max * row + size_t(kh) * D;
   const T* vb = vc + size_t(b) * S_max * row + size_t(kh) * D;
   const int cg_ = tid % P::NCG, rc = tid / P::NCG;  // value-pass role
+  const bool valued = tid < P::NVT;  // in a whole row class
 
   float m[G], l[G], acc[G][N];
 #pragma unroll
@@ -275,7 +279,7 @@ decode_fused(const T* __restrict__ q, const T* __restrict__ kc,
     __syncthreads();  // everyone's V copies
 
     // value pass: column group cg_ of rows rc, rc + NRC, ...
-    for (int r = rc; r < nr; r += P::NRC) {
+    for (int r = valued ? rc : nr; r < nr; r += P::NRC) {
       float vv[N];
       Vec<T>::load(Vs + r * P::ROW + 16 * cg_, vv);
 #pragma unroll
@@ -289,11 +293,13 @@ decode_fused(const T* __restrict__ q, const T* __restrict__ kc,
 
   // the split's partial result: acc summed over the row classes in order
   __syncthreads();  // the chunk buffer is free
+  if (valued) {
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+    for (int g = 0; g < G; ++g)
 #pragma unroll
-    for (int e = 0; e < N; ++e)
-      red_acc[(rc * G + g) * D + cg_ * N + e] = acc[g][e];
+      for (int e = 0; e < N; ++e)
+        red_acc[(rc * G + g) * D + cg_ * N + e] = acc[g][e];
+  }
   __syncthreads();
   for (int i = tid; i < G * D; i += NT) {
     float a = 0.f;
@@ -406,6 +412,9 @@ int launch_d(const void* q, const void* kc, const void* vc, void* out, int B,
     case 64:
       return launch_g<T, 64>(q, kc, vc, out, B, S_max, KH, G, length, scale,
                              s);
+    case 112:
+      return launch_g<T, 112>(q, kc, vc, out, B, S_max, KH, G, length,
+                              scale, s);
     case 128:
       return launch_g<T, 128>(q, kc, vc, out, B, S_max, KH, G, length,
                               scale, s);

@@ -14,9 +14,10 @@
 // KH=8, D=128, bf16) the work is ~34 GFLOP against ~8 MB of inputs and
 // outputs, so operations: the bf16 tensor cores' 989 TFLOP/s.
 //
-// Route "wgmma" (fa_launch_wgmma: bfloat16, D in {64, 128}).  Both products
-// run on the tensor cores.  A block owns 128 query rows of one (batch, q
-// head): two consumer warpgroups of 64 rows each share every K/V tile.
+// Route "wgmma" (fa_launch_wgmma: bfloat16, D in {64, 112, 128}).  Both
+// products run on the tensor cores.  A block owns 128 query rows of one
+// (batch, q head): two consumer warpgroups of 64 rows each share every K/V
+// tile.
 // Q, K and V tiles come by TMA (4-D tensor maps over [B, S, H, D], one
 // 64-column panel per box, 128-byte swizzle) into a two-stage ring of
 // 64-key tiles, each stage completed through an mbarrier for K and one for
@@ -38,7 +39,12 @@
 // 128 registers a thread, ~97 KB of shared memory), so four warpgroups
 // take turns on the tensor cores and hide each other's softmax; one block
 // per SM with the two products of neighbouring tiles overlapped inside a
-// warpgroup ran slower on the H100.
+// warpgroup ran slower on the H100.  D = 112 runs as a 128-wide tile: the
+// tensor maps declare the global inner extent as 112, so the TMA copies
+// fill columns 112-127 of the second panel with zeros; those zeros add
+// nothing to Q K^T (whose last 16-column step is skipped) or to P V (the
+// accumulator's columns 112-127 stay zero), and the store writes 112
+// columns.
 //
 // Route "ffma" (fa_launch: float32 at any D below, bfloat16 at D 16/32):
 // both products on the f32 CUDA cores (67 TFLOP/s peak), exact in f32.
@@ -49,12 +55,15 @@
 // K and V share one buffer (the score product ends before V is staged).
 // Row max and sum reduce over the 16 lanes of a half warp with shuffles.
 // P goes through shared memory for the P.V product, where each thread owns
-// D/16 output columns per row.  Nothing is carried between blocks.
+// D/16 output columns per row (as float4 groups where D/16 is a multiple of
+// 4; at D = 112, 7 single columns tx + 16 c).  Nothing is carried between
+// blocks.
 //
 // Interface: plain C, bound with ctypes.  q [B, Sq, QH, D], k/v
 // [B, Sk, KH, D], o [B, Sq, QH, D], all contiguous and of one type
-// (fa_launch: float32 at D in {16, 32, 64, 128}, bfloat16 at D in
-// {16, 32}; fa_launch_wgmma: bfloat16, D in {64, 128}, 16-byte aligned).
+// (fa_launch: float32 at D in {16, 32, 64, 112, 128}, bfloat16 at D in
+// {16, 32}; fa_launch_wgmma: bfloat16, D in {64, 112, 128}, 16-byte
+// aligned).
 // The tensor maps are encoded per call by cuTensorMapEncodeTiled, found
 // through the runtime's entry-point query (no link against libcuda).  A
 // launch goes on the caller's stream and returns cudaGetLastError().
@@ -94,12 +103,18 @@ constexpr size_t smem_bytes() {
                           size_t(BQ) * PS);
 }
 
-// Output column of the c-th value a thread owns (D/16 per row).  With at
-// least 4 per thread they come as float4 groups: 4 tx + 64 g + e, so a
-// quarter warp's float4 reads of a V row hit distinct banks.
+// Whether a thread's D/16 output columns of a row come as float4 groups.
+template <int D>
+__host__ __device__ constexpr bool vec4_cols() {
+  return D / 16 >= 4 && (D / 16) % 4 == 0;
+}
+
+// Output column of the c-th value a thread owns (D/16 per row).  As float4
+// groups: 4 tx + 64 g + e, so a quarter warp's float4 reads of a V row hit
+// distinct banks; otherwise tx + 16 c, consecutive across a half warp.
 template <int D>
 __device__ __forceinline__ int out_col(int tx, int c) {
-  if constexpr (D / 16 >= 4) {
+  if constexpr (vec4_cols<D>()) {
     return 4 * tx + 64 * (c / 4) + (c % 4);
   } else {
     return tx + 16 * c;
@@ -239,7 +254,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int u = 0; u < 4; ++u) {
         const float* vrow = &KVs[(kk + u) * DS];
         float vv[NC];
-        if constexpr (NC >= 4) {
+        if constexpr (vec4_cols<D>()) {
 #pragma unroll
           for (int g = 0; g < NC / 4; ++g) {
             const float4 w =
@@ -310,6 +325,9 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
     case 64:
       return launch<T, 64>(q, k, v, o, B, Sq, Sk, QH, KH, scale, causal,
                            stream);
+    case 112:
+      return launch<T, 112>(q, k, v, o, B, Sq, Sk, QH, KH, scale, causal,
+                            stream);
     case 128:
       return launch<T, 128>(q, k, v, o, B, Sq, Sk, QH, KH, scale, causal,
                             stream);
@@ -320,7 +338,7 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// -- route "wgmma": bf16, D in {64, 128}, tensor cores fed by TMA ------------
+// -- route "wgmma": bf16, D in {64, 112, 128}, tensor cores fed by TMA -------
 
 namespace hopper {
 
@@ -486,18 +504,20 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], uint32_t a0,
 
 
 // One block: 128 query rows of one (batch, q head), 256 threads = two
-// consumer warpgroups of 64 rows.  D = 64 * H.  Shared memory (1024-byte
-// aligned, as the 128-byte swizzle's atoms are): Q [NWG][H] panels, K and
-// V [STAGES][H] panels each, then the mbarriers.
-template <int H>
+// consumer warpgroups of 64 rows.  The tile is 64 * H columns wide, of which
+// the first D hold the head (D = 112 in a 128-wide tile; the rest read as
+// zeros).  Shared memory (1024-byte aligned, as the 128-byte swizzle's atoms
+// are): Q [NWG][H] panels, K and V [STAGES][H] panels each, then the
+// mbarriers.
+template <int H, int D>
 __global__ void __launch_bounds__(NT, 2)
 flash_wgmma(const __grid_constant__ CUtensorMap tq,
             const __grid_constant__ CUtensorMap tk,
             const __grid_constant__ CUtensorMap tv,
             __nv_bfloat16* __restrict__ o, int Sq, int Sk, int QH, int KH,
             float scale_log2, int causal) {
-  constexpr int D = 64 * H;
-  constexpr int NO = 32 * H;  // output accumulators per thread (64 x D)
+  static_assert(D % 16 == 0 && D > 64 * (H - 1) && D <= 64 * H, "tile");
+  constexpr int NO = 32 * H;  // output accumulators per thread (64 x 64 H)
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sK = sQ + NWG * H * PANEL;
@@ -591,6 +611,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
       wgmma_fence();
 #pragma unroll
       for (int j = 0; j < D / 16; ++j) {  // 16 columns of D per step
+        // (the zero columns past D are skipped)
         const uint32_t off = ((j / 4) * PANEL + (j % 4) * 32) >> 4;
         wgmma_ss_n64(sc, dq + off, dk + off, j > 0);
       }
@@ -680,7 +701,7 @@ flash_wgmma(const __grid_constant__ CUtensorMap tq,
     denom[r] = fmaxf(l, 1e-37f);
   }
 #pragma unroll
-  for (int c = 0; c < NO / 4; ++c) {  // 8-column chunks
+  for (int c = 0; c < D / 8; ++c) {  // 8-column chunks (the first D columns)
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const int qp = row0 + 8 * r;
@@ -722,7 +743,8 @@ EncodeTiledFn encode_tiled() {
 
 // A contiguous bf16 [B, S, NH, D] tensor as a 4-D map (D innermost) whose
 // box is 64 columns of one head over 64 rows, 128-byte swizzled; rows at
-// or past S read as zeros.
+// or past S, and columns at or past D (a box that starts below D and ends
+// past it), read as zeros.
 int encode(CUtensorMap* map, const void* ptr, int B, int S, int NH, int D) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -740,23 +762,23 @@ int encode(CUtensorMap* map, const void* ptr, int B, int S, int NH, int D) {
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
-template <int H>
+template <int H, int D>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int Sq, int Sk, int QH, int KH, float scale, int causal,
            cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
-  int rc = encode(&tq, q, B, Sq, QH, 64 * H);
-  if (rc == 0) rc = encode(&tk, k, B, Sk, KH, 64 * H);
-  if (rc == 0) rc = encode(&tv, v, B, Sk, KH, 64 * H);
+  int rc = encode(&tq, q, B, Sq, QH, D);
+  if (rc == 0) rc = encode(&tk, k, B, Sk, KH, D);
+  if (rc == 0) rc = encode(&tv, v, B, Sk, KH, D);
   if (rc != 0) return rc;
   constexpr size_t smem =
       1024 + size_t(NWG + 2 * STAGES) * H * PANEL + 8 * (NWG + 3 * STAGES);
   static const cudaError_t attr = cudaFuncSetAttribute(
-      flash_wgmma<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_wgmma<H, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const dim3 grid(QH, B, (Sq + BQ - 1) / BQ);
-  flash_wgmma<H><<<grid, NT, smem, stream>>>(
+  flash_wgmma<H, D><<<grid, NT, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, QH, KH,
       scale * 1.4426950408889634f, causal);
   return static_cast<int>(cudaGetLastError());
@@ -766,7 +788,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// The ffma route.  dtype: 0 = float32 (D in {16, 32, 64, 128}),
+// The ffma route.  dtype: 0 = float32 (D in {16, 32, 64, 112, 128}),
 // 1 = bfloat16 (D in {16, 32}).  Returns a cudaError_t (0 = success).
 int fa_launch(const void* q, const void* k, const void* v, void* o, int B,
               int Sq, int Sk, int QH, int KH, int D, float scale, int causal,
@@ -776,7 +798,7 @@ int fa_launch(const void* q, const void* k, const void* v, void* o, int B,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch_d<float>(q, k, v, o, B, Sq, Sk, QH, KH, D, scale, causal, s);
-  if (dtype == 1) {  // D 64 and 128 take the wgmma route (fa_launch_wgmma)
+  if (dtype == 1) {  // D 64, 112 and 128 take the wgmma route
     if (D == 16)
       return launch<__nv_bfloat16, 16>(q, k, v, o, B, Sq, Sk, QH, KH, scale,
                                        causal, s);
@@ -787,7 +809,7 @@ int fa_launch(const void* q, const void* k, const void* v, void* o, int B,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The wgmma route: bfloat16, D in {64, 128}; q, k, v and o 16-byte
+// The wgmma route: bfloat16, D in {64, 112, 128}; q, k, v and o 16-byte
 // aligned.  Returns a cudaError_t (0 = success).
 int fa_launch_wgmma(const void* q, const void* k, const void* v, void* o,
                     int B, int Sq, int Sk, int QH, int KH, int D, float scale,
@@ -796,9 +818,14 @@ int fa_launch_wgmma(const void* q, const void* k, const void* v, void* o,
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 64)
-    return hopper::launch<1>(q, k, v, o, B, Sq, Sk, QH, KH, scale, causal, s);
+    return hopper::launch<1, 64>(q, k, v, o, B, Sq, Sk, QH, KH, scale, causal,
+                                 s);
+  if (D == 112)
+    return hopper::launch<2, 112>(q, k, v, o, B, Sq, Sk, QH, KH, scale,
+                                  causal, s);
   if (D == 128)
-    return hopper::launch<2>(q, k, v, o, B, Sq, Sk, QH, KH, scale, causal, s);
+    return hopper::launch<2, 128>(q, k, v, o, B, Sq, Sk, QH, KH, scale,
+                                  causal, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -35,7 +35,7 @@ __all__ = ["decode_attention", "decode_attention_plain", "KERNEL_DTYPES",
            "KERNEL_HEAD_DIMS", "KERNEL_GROUPS"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
 KERNEL_GROUPS = (1, 2, 4, 8)
 
 _lib = None

@@ -14,10 +14,12 @@ kernel ``flash_attention``).  Two pieces:
                             in ``csrc/flash_attention.cu``), a CPU tensor
                             to the plain version, anything else raises.
 ``flash_route``             the route of a CUDA call, from dtype and head
-                            dim alone: "wgmma" (bfloat16, D 64/128: both
-                            products on the tensor cores, K/V tiles by
-                            TMA) or "ffma" (float32, or bfloat16 at D
-                            16/32: the f32 CUDA-core kernel).
+                            dim alone: "wgmma" (bfloat16, D 64/112/128:
+                            both products on the tensor cores, K/V tiles by
+                            TMA; D 112 as a 128-wide tile whose last 16
+                            columns the copies fill with zeros) or "ffma"
+                            (float32, or bfloat16 at D 16/32: the f32
+                            CUDA-core kernel).
 
 Shapes follow the JAX package: q ``[B, Sq, QH, D]``, k/v ``[B, Sk, KH, D]``
 with ``QH % KH == 0``; the output has q's shape and dtype.  The causal mask
@@ -35,9 +37,9 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_route",
            "KERNEL_DTYPES", "KERNEL_HEAD_DIMS", "ROUTES"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
 ROUTES = ("wgmma", "ffma")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 112, 128)
 
 _lib = None
 
@@ -104,8 +106,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel route a CUDA call with inputs of ``dtype`` and
     ``head_dim`` takes -- a choice by shape and type, made before any
-    launch, not a fallback: "wgmma" for bfloat16 at head_dim 64 or 128
-    (both products on the bf16 tensor cores), "ffma" for float32 at any
+    launch, not a fallback: "wgmma" for bfloat16 at head_dim 64, 112 or
+    128 (both products on the bf16 tensor cores), "ffma" for float32 at any
     head_dim in ``KERNEL_HEAD_DIMS`` and for bfloat16 at 16 or 32 (the f32
     CUDA-core kernel, which keeps float32 out of TF32).  Anything else
     raises ``RuntimeError``."""

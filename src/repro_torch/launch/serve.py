@@ -1,15 +1,21 @@
 """Batched serving driver: prefill a batch of prompts, then decode tokens
-against the model's cache (a preallocated KV cache for the dense and MoE
-families, the recurrent state for the SSM family).
+against the model's cache (a preallocated KV cache for the dense, MoE and
+VLM families, the recurrent state for the SSM family, both -- each Mamba2
+layer's state and each shared-block invocation's keys and values -- for
+the hybrid family).
 
 The port of the JAX package's ``launch/serve.py``: the same loop (prefill
 once, then ``gen`` decode steps for the whole batch, greedy or sampled),
 the same cache size (``prompt_len + gen + DECODE_SLACK``) and the same
 returned dict.  On a CUDA device the model runs with
-``attention_impl="kernel"``: for the dense and MoE families prefill goes
-through the hand-written flash attention kernel and every decode step
-through the decode kernel; for the SSM family (``rwkv6-1.6b``) every layer's time-mix,
-at prefill and at each decode step, goes through the wkv scan kernel.  Times
+``attention_impl="kernel"``: for the dense, MoE and VLM families prefill
+goes through the hand-written flash attention kernel and every decode step
+through the decode kernel, and so does each invocation of the hybrid
+family's shared block (``zamba2-7b``, head_dim 112); for the SSM family
+(``rwkv6-1.6b``) every layer's time-mix, at prefill and at each decode
+step, goes through the wkv scan kernel.  A VLM prompt of ``prompt_len``
+positions is ``frontend_tokens`` stub patch embeddings and the text after
+them (``registry.make_batch``).  Times
 end in ``torch.cuda.synchronize()`` on the card, so they cover the device
 work and not only its enqueueing; as in the JAX package, a decode step's
 time is the step alone, and the token pick after it is outside the span.
@@ -24,7 +30,8 @@ CPU):
       --arch moonshot-v1-16b-a3b --full --batch 8 --prompt-len 1024
 
 ``--full`` serves the published widths; of the port's archs all but
-``phi3.5-moe-42b-a6.6b`` (83.7 GB of bfloat16 weights) fit one 80 GB card.
+``phi3.5-moe-42b-a6.6b`` (83.7 GB of bfloat16 weights) and
+``qwen2-vl-72b`` (145.4 GB) fit one 80 GB card.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from repro_torch.models.registry import (DECODE_SLACK, Model, build_model,
                                          make_batch)
 from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.models.transformer import KVCache
+from repro_torch.models.zamba2 import ZambaCache
 
 __all__ = ["serve", "serve_config", "prepare", "generate"]
 
@@ -77,10 +85,10 @@ def prepare(arch: str, *, batch: int = 4, prompt_len: int = 64,
             attention_impl: str | None = None,
             param_dtype: str | None = None,
             device: "str | torch.device | None" = None
-            ) -> tuple[Model, dict, dict, "KVCache | RWKVState",
-                       torch.Generator]:
+            ) -> tuple[Model, dict, dict,
+                       "KVCache | RWKVState | ZambaCache", torch.Generator]:
     """The model of ``serve_config(arch, ...)``, random parameters, a
-    random prompt batch and an empty cache of ``prompt_len + gen +
+    random prompt batch and the family's empty cache of ``prompt_len + gen +
     DECODE_SLACK`` rows (the SSM family's state has no rows and ignores the
     length), all drawn from one generator seeded with ``seed`` on the
     device (returned for sampling)."""
@@ -99,7 +107,7 @@ def prepare(arch: str, *, batch: int = 4, prompt_len: int = 64,
 
 @torch.no_grad()
 def generate(model: Model, params: dict, batch: dict,
-             cache: "KVCache | RWKVState", *,
+             cache: "KVCache | RWKVState | ZambaCache", *,
              gen: int, temperature: float = 0.0,
              generator: torch.Generator | None = None) -> dict:
     """Prefill ``batch`` into ``cache``, then ``gen`` decode steps, greedy

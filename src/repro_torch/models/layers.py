@@ -12,7 +12,7 @@ tensors over parameter dictionaries, with the same conventions:
 
 Every random draw takes an explicit ``torch.Generator``; ``init_linear``
 fills a whole ``[L, ...]`` stack in place, so ``stack_layers`` has no use
-here.  M-RoPE (``mrope_frequencies``) waits for the VLM family.
+here.  ``mrope_frequencies`` is the VLM family's multimodal RoPE.
 """
 
 from __future__ import annotations
@@ -25,7 +25,8 @@ import torch.nn.functional as F
 from repro_torch.tree import tree_leaves
 
 __all__ = ["rms_norm", "layer_norm", "init_norm", "init_linear", "swiglu",
-           "gelu_mlp", "rope", "apply_rope", "mask_padded_vocab",
+           "gelu_mlp", "rope", "apply_rope", "mrope_frequencies",
+           "mask_padded_vocab",
            "unbind_layers", "NEG_INF", "DRAW_BLOCK"]
 
 NEG_INF = -2.3819763e38  # large finite negative, bf16-safe (the JAX value)
@@ -120,16 +121,42 @@ def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
 # -----------------------------------------------------------------------------
 
 
-def rope(positions: torch.Tensor, head_dim: int, *, theta: float = 10000.0
-         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """cos/sin tables (float32) for positions ``[...]`` -> ``[..., D/2]``."""
+def _rope_angles(positions: torch.Tensor, head_dim: int,
+                 theta: float) -> torch.Tensor:
+    """float32 angles ``positions[..., None] * freqs`` -> ``[..., D/2]``."""
     half = head_dim // 2
     exps = torch.arange(half, dtype=torch.float32,
                         device=positions.device) / half
     freqs = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
                                          device=positions.device), exps)
-    angles = positions[..., None].float() * freqs
+    return positions[..., None].float() * freqs
+
+
+def rope(positions: torch.Tensor, head_dim: int, *, theta: float = 10000.0
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables (float32) for positions ``[...]`` -> ``[..., D/2]``."""
+    angles = _rope_angles(positions, head_dim, theta)
     return torch.cos(angles), torch.sin(angles)
+
+
+def mrope_frequencies(positions: torch.Tensor, head_dim: int,
+                      sections: tuple[int, int, int], *,
+                      theta: float = 10000.0
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Multimodal RoPE (Qwen2-VL): the ``head_dim / 2`` frequency slots are
+    split into (temporal, height, width) sections, each rotated by its own
+    position stream.  positions ``[3, ...]`` (text tokens carry one id in
+    all three streams, image patches their grid coordinates) -> float32
+    cos/sin ``[..., D/2]``; ``sections`` must sum to ``D/2``."""
+    half = head_dim // 2
+    assert sum(sections) == half, (sections, half)
+    angles = _rope_angles(positions, head_dim, theta)   # [3, ..., half]
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(angles[i, ..., start:start + sec])
+        start += sec
+    merged = torch.cat(parts, dim=-1)
+    return torch.cos(merged), torch.sin(merged)
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,

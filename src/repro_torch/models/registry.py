@@ -1,10 +1,12 @@
 """Architecture registry: family -> model module, and random batches.
 
 The port of the JAX package's ``models/registry.py`` for the families the
-port has (dense, moe, ssm).  ``Model`` is the uniform facade over the family
-module (``init_params``, ``forward``, ``loss_fn``, ``init_cache``,
-``prefill``, ``decode_step``); ``make_batch`` draws random token batches,
-with labels for training, from a ``torch.Generator``.  ``input_specs`` /
+port has (dense, moe and vlm: ``transformer``; ssm: ``rwkv6``; hybrid:
+``zamba2``).  ``Model`` is the uniform facade over the family module
+(``init_params``, ``forward``, ``loss_fn``, ``init_cache``, ``prefill``,
+``decode_step``); ``make_batch`` draws random batches from a
+``torch.Generator``: tokens, with labels for training, and for the VLM
+family the stub frontend's patch embeddings before the text.  ``input_specs`` /
 ``cache_spec`` wait for the dry-run's port (ROADMAP Queue 1, the dry-run).
 """
 
@@ -16,9 +18,9 @@ from types import ModuleType
 import torch
 
 from repro_torch.configs import PENDING_FAMILIES
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
-from repro_torch.models import rwkv6, transformer
+from repro_torch.models import rwkv6, transformer, zamba2
 
 __all__ = ["Model", "build_model", "make_batch", "DECODE_SLACK"]
 
@@ -30,7 +32,9 @@ DECODE_SLACK = 256
 _FAMILY_MODULES: dict[str, ModuleType] = {
     "dense": transformer,
     "moe": transformer,
+    "vlm": transformer,
     "ssm": rwkv6,
+    "hybrid": zamba2,
 }
 
 
@@ -85,14 +89,27 @@ def make_batch(cfg: ModelConfig, b: int, s: int, *,
                generator: torch.Generator,
                device: "torch.device | str | None" = None,
                train: bool = False) -> dict:
-    """A random batch: ``tokens`` i32 ``[b, s]`` in ``[0, vocab_size)``
-    and, with ``train``, ``labels`` drawn the same way (as the JAX
-    package's ``make_batch``), from ``generator`` on ``device`` (default
-    ``"cuda"``)."""
+    """A random batch of ``s`` positions, as the JAX package's
+    ``make_batch``: ``tokens`` i32 ``[b, s]`` in ``[0, vocab_size)`` and,
+    with ``train``, ``labels`` drawn the same way.  For the VLM family the
+    first ``frontend_tokens`` positions are stub patch embeddings,
+    ``patch_embeds`` ``0.02 * normal`` ``[b, frontend_tokens, d_model]``
+    in the compute dtype, and the tokens (and labels) cover the text tail,
+    ``[b, max(1, s - frontend_tokens)]``.  Drawn from ``generator`` on
+    ``device`` (default ``"cuda"``)."""
     dev = resolve_device(device)
-    out = {}
-    for name in ("tokens", "labels") if train else ("tokens",):
-        out[name] = torch.randint(0, cfg.vocab_size, (b, s),
-                                  generator=generator, device=dev,
-                                  dtype=torch.int32)
+    s_text = max(1, s - cfg.frontend_tokens) if cfg.family == "vlm" else s
+
+    def tokens():
+        return torch.randint(0, cfg.vocab_size, (b, s_text),
+                             generator=generator, device=dev,
+                             dtype=torch.int32)
+
+    out = {"tokens": tokens()}
+    if cfg.family == "vlm":
+        out["patch_embeds"] = (torch.randn(
+            (b, cfg.frontend_tokens, cfg.d_model), generator=generator,
+            device=dev) * 0.02).to(dtype_of(cfg.compute_dtype))
+    if train:
+        out["labels"] = tokens()
     return out

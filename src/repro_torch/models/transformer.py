@@ -1,16 +1,20 @@
-"""Decoder-only transformer LM: the dense and MoE families.
+"""Decoder-only transformer LM: the dense, MoE and VLM families.
 
 The port of the JAX package's ``models/transformer.py`` for
-``family in ("dense", "moe")``: GQA attention with RoPE and optional
-per-head qk-norm (qwen3), a SwiGLU or GELU FFN or the MoE FFN
-(``models/moe.py``), tied or separate head, the training loss ``loss_fn``
-(with the router's auxiliary loss, each block recomputed in the backward
-pass under ``remat == "full"``), and the serving pair ``prefill`` /
-``decode_step`` over a preallocated KV cache, which drop the auxiliary
-loss as the JAX package's do.  The VLM family (M-RoPE, patch embeddings)
-and the other families raise ``NotImplementedError``, naming the ROADMAP
-Queue 1 item that ports them.  The JAX ``shard(...)`` constraints are
-no-ops without a mesh; the port has no mesh, so they are left out.
+``family in ("dense", "moe", "vlm")``: GQA attention with RoPE (M-RoPE
+under ``cfg.mrope_sections``: three position streams, ``positions [3, B,
+S]``) and optional per-head qk-norm (qwen3), a SwiGLU or GELU FFN or the
+MoE FFN (``models/moe.py``), tied or separate head, the training loss
+``loss_fn`` (with the router's auxiliary loss, each block recomputed in
+the backward pass under ``remat == "full"``; labels align with the text
+tail when patch embeddings come first), and the serving pair ``prefill``
+/ ``decode_step`` over a preallocated KV cache, which drop the auxiliary
+loss as the JAX package's do.  The VLM's stub frontend: ``batch
+["patch_embeds"]`` ``[B, P, D]`` go before the token embeddings, and a
+decode step may add ``extra_embeds`` to its token's embedding.  The
+audio family's ``embeds`` raise ``NotImplementedError``, naming the
+ROADMAP Queue 1 item that ports it.  The JAX ``shard(...)`` constraints
+are no-ops without a mesh; the port has no mesh, so they are left out.
 
 Parameter dict (the JAX tree's names and layouts, so
 ``repro_torch.convert.model_params_from_numpy`` copies it as it is):
@@ -44,7 +48,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import decode_attention, gqa_attention
 from repro_torch.models.layers import (apply_rope, gelu_mlp, init_linear,
                                        layer_norm, mask_padded_vocab,
-                                       rms_norm, rope, swiglu, unbind_layers)
+                                       mrope_frequencies, rms_norm, rope,
+                                       swiglu, unbind_layers)
 
 __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "KVCache", "attention_block",
@@ -53,14 +58,10 @@ __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's model lacks."""
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "vlm"):
         raise NotImplementedError(
-            f"family {cfg.family!r}: models.transformer serves the dense and "
-            f"MoE families")
-    if cfg.mrope_sections is not None:
-        raise NotImplementedError(
-            "M-RoPE waits for the VLM family (ROADMAP Queue 1, the VLM "
-            "family)")
+            f"family {cfg.family!r}: models.transformer serves the dense, "
+            f"MoE and VLM families")
     if cfg.remat == "dots":
         raise NotImplementedError(
             "remat='dots' (save the matmul outputs, recompute the rest) has "
@@ -214,20 +215,42 @@ def _block(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin, *,
     return h + ffn_out, aux
 
 
+_INPUTS = {"tokens", "positions", "labels", "patch_embeds"}
+
+
 def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
-    if set(batch) - {"tokens", "positions", "labels"}:
+    """The input sequence in the compute dtype: the VLM's stub patch
+    embeddings, then the token embeddings."""
+    if set(batch) - _INPUTS:
         raise NotImplementedError(
-            f"inputs {sorted(set(batch) - {'tokens', 'positions', 'labels'})}"
-            f" belong to the VLM/audio frontends (ROADMAP Queue 1, the VLM "
-            f"family; the audio enc-dec family)")
-    return params["embed"][batch["tokens"].long()].to(
-        dtype_of(cfg.compute_dtype))
+            f"inputs {sorted(set(batch) - _INPUTS)} belong to the audio "
+            f"frontend (ROADMAP Queue 1, the audio enc-dec family)")
+    compute = dtype_of(cfg.compute_dtype)
+    h = params["embed"][batch["tokens"].long()].to(compute)
+    if "patch_embeds" in batch:
+        h = torch.cat([batch["patch_embeds"].to(compute), h], dim=1)
+    return h
 
 
-def _positions(batch: dict, s: int, b: int, device) -> torch.Tensor:
+def _positions(batch: dict, cfg: ModelConfig, s: int, b: int,
+               device) -> torch.Tensor:
+    """``batch["positions"]``, else ``0 .. S-1`` per row: ``[B, S]``, or
+    ``[3, B, S]`` (one id in all three streams) under M-RoPE."""
     if "positions" in batch:
         return batch["positions"]
-    return torch.arange(s, device=device)[None, :].expand(b, s)
+    pos = torch.arange(s, device=device)[None, :].expand(b, s)
+    if cfg.mrope_sections is not None:
+        pos = pos[None].expand(3, b, s)
+    return pos
+
+
+def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
+    """positions ``[B, S]`` (RoPE) or ``[3, B, S]`` (M-RoPE) -> float32
+    cos/sin ``[B, S, HD/2]``."""
+    if cfg.mrope_sections is not None:
+        return mrope_frequencies(positions, cfg.head_dim, cfg.mrope_sections,
+                                 theta=cfg.rope_theta)
+    return rope(positions, cfg.head_dim, theta=cfg.rope_theta)
 
 
 def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -249,8 +272,7 @@ def _forward(params: dict, batch: dict, cfg: ModelConfig
     recomputed in the backward pass, as under ``jax.checkpoint``)."""
     h = _embed_inputs(params, batch, cfg)
     b, s, _ = h.shape
-    cos, sin = rope(_positions(batch, s, b, h.device), cfg.head_dim,
-                    theta=cfg.rope_theta)
+    cos, sin = _rope_tables(cfg, _positions(batch, cfg, s, b, h.device))
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux = 0.0
     for p in unbind_layers(params):
@@ -273,7 +295,9 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     ``cfg.router_aux_coef`` times the auxiliary loss summed over the layers
     (the JAX ``loss_fn``): logits cast to float32, log-softmax, the negative
     log-likelihood of ``labels`` averaged over the positions with
-    ``labels >= 0``.  The dense family's auxiliary loss is zero."""
+    ``labels >= 0``.  The labels align with the logits' last
+    ``labels.shape[1]`` positions (the text tail, after a VLM's patch
+    embeddings).  The dense family's auxiliary loss is zero."""
     logits, aux = _forward(params, batch, cfg)
     labels = batch["labels"].long()
     logits = logits[:, -labels.shape[1]:].float()
@@ -316,8 +340,7 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: KVCache
     last position's logits ``[B, 1, V]`` and the cache at length ``S``."""
     h = _embed_inputs(params, batch, cfg)
     b, s, _ = h.shape
-    cos, sin = rope(_positions(batch, s, b, h.device), cfg.head_dim,
-                    theta=cfg.rope_theta)
+    cos, sin = _rope_tables(cfg, _positions(batch, cfg, s, b, h.device))
     for i, p in enumerate(unbind_layers(params)):
         attn_in = _norm(h, p["attn_norm"], cfg)
         q, k, v = _qkv(p, attn_in, cfg, cos, sin)
@@ -332,16 +355,25 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: KVCache
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
-                cache: KVCache) -> tuple[torch.Tensor, KVCache]:
+                cache: KVCache, *, extra_embeds: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, KVCache]:
     """One decode step.  tokens ``[B, 1]`` -> (logits ``[B, 1, V]``, the
-    cache one row longer)."""
-    h = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    cache one row longer).  ``extra_embeds`` ``[B, 1, D]`` (the VLM's
+    per-step frontend input) are added to the token's embedding in the
+    compute dtype.  The position is ``cache.length``, in all three streams
+    under M-RoPE."""
+    compute = dtype_of(cfg.compute_dtype)
+    h = params["embed"][tokens.long()].to(compute)
+    if extra_embeds is not None:
+        h = h + extra_embeds.to(compute)
     b, s, _ = h.shape
     if cache.length + s > cache.k.shape[2]:
         raise RuntimeError(f"KV cache full: length {cache.length} + {s} > "
                            f"{cache.k.shape[2]}")
     pos = torch.full((b, s), cache.length, device=h.device)
-    cos, sin = rope(pos, cfg.head_dim, theta=cfg.rope_theta)
+    if cfg.mrope_sections is not None:
+        pos = pos[None].expand(3, b, s)
+    cos, sin = _rope_tables(cfg, pos)
     for i, p in enumerate(unbind_layers(params)):
         h, _ = _block(p, h, cfg, cos, sin,
                       cache=(cache.k[i], cache.v[i], cache.length))

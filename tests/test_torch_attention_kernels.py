@@ -64,7 +64,8 @@ def _f32(x):
 
 
 FLASH_CASES = [(causal, group, s, d) for causal in (True, False)
-               for group in (1, 2, 4) for s in (64, 300) for d in (16, 128)]
+               for group in (1, 2, 4) for s in (64, 300)
+               for d in (16, 128, 112)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -86,8 +87,8 @@ def test_flash_plain_matches_jax(jx, causal, group, s, d, dtype):
     np.testing.assert_allclose(got, _f32(model), rtol=0, atol=TOL[dtype])
 
 
-DECODE_CASES = [(group, d, length) for group in (1, 2, 4) for d in (16, 128)
-                for length in (1, 77, 128)]
+DECODE_CASES = [(group, d, length) for group in (1, 2, 4)
+                for d in (16, 128, 112) for length in (1, 77, 128)]
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -156,10 +157,11 @@ def test_wrappers_check_inputs():
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "ffma"), (torch.bfloat16, 32, "ffma"),
     (torch.float32, 16, "ffma"), (torch.float32, 32, "ffma"),
-    (torch.float32, 64, "ffma"), (torch.float32, 128, "ffma")])
+    (torch.float32, 64, "ffma"), (torch.float32, 128, "ffma"),
+    (torch.bfloat16, 112, "wgmma"), (torch.float32, 112, "ffma")])
 def test_flash_route_choice(dtype, d, route):
-    """bfloat16 at D 64/128 takes the tensor-core route, float32 and the
-    narrow bfloat16 heads the f32 CUDA-core route."""
+    """bfloat16 at D 64/112/128 takes the tensor-core route, float32 and
+    the narrow bfloat16 heads the f32 CUDA-core route."""
     assert FA.flash_route(dtype, d) == route
 
 
@@ -187,13 +189,19 @@ def test_cpu_calls_do_not_count_as_launches():
 # the zoo's other head shapes (QH, KH): moonshot-v1-16b-a3b (16, 16),
 # llama3-8b and phi3.5-moe-42b-a6.6b (32, 8), phi3-medium-14b (40, 10)
 ZOO_HEADS = ((16, 16), (32, 8), (40, 10))
+# head_dim 112 (zamba2-7b: QH 32 = KH, G = 1; and G = 8) and G = 8 at
+# D = 128 (qwen2-vl-72b: QH 64, KH 8, a 2048-row prefill)
 CUDA_FLASH = [(1, 64, 2, 1, 128), (2, 200, 4, 2, 64),          # small
               (8, 1024, 16, 8, 128), (8, 1000, 16, 8, 128),    # serving
-              *((8, 1024, qh, kh, 128) for qh, kh in ZOO_HEADS)]
+              *((8, 1024, qh, kh, 128) for qh, kh in ZOO_HEADS),
+              (8, 1024, 32, 32, 112), (2, 200, 8, 1, 112),
+              (2, 65, 32, 32, 112), (4, 2048, 64, 8, 128)]
 CUDA_DECODE = [(1, 64, 2, 1, 128, 37), (2, 256, 8, 2, 16, 256),
                (8, 1536, 16, 8, 128, 1), (8, 1536, 16, 8, 128, 1279),
                *((8, 1536, qh, kh, 128, n) for qh, kh in ZOO_HEADS
-                 for n in (1, 1152))]
+                 for n in (1, 1152)),
+               *((8, 1536, 32, 32, 112, n) for n in (1, 1152, 1536)),
+               (2, 256, 8, 1, 112, 200), (8, 2560, 64, 8, 128, 2304)]
 
 
 @pytest.fixture
@@ -249,7 +257,7 @@ WGMMA_CASES = [(g, s) for g in (1, 2, 4, 8) for s in WGMMA_SEQS]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 112])
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 @pytest.mark.parametrize("group,s", WGMMA_CASES,
                          ids=[f"g{g}-s{s}" for g, s in WGMMA_CASES])

@@ -335,20 +335,46 @@ def test_padded_vocab_never_wins(port_model):
 
 
 @pytest.mark.parametrize("family,item", [
-    ("audio", "the audio enc-dec family"), ("vlm", "the VLM family"),
-    ("hybrid", "the hybrid family")])
+    ("audio", "the audio enc-dec family"), ("vlm", "transformer"),
+    ("hybrid", "zamba2")])
 def test_other_families_raise(family, item):
-    cfg = dataclasses.replace(port_cfg("naive"), family=family)
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1, {item}"):
-        t_build(cfg)
+    """The audio family still raises, naming its ROADMAP item; the VLM and
+    hybrid families build (``transformer`` and ``zamba2``)."""
+    if family == "audio":
+        cfg = dataclasses.replace(port_cfg("naive"), family=family)
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1, {item}"):
+            t_build(cfg)
+        return
+    arch = {"vlm": "qwen2-vl-72b", "hybrid": "zamba2-7b"}[family]
+    m = t_build(t_get_config(arch).reduced())
+    assert m.cfg.family == family
+    assert m.module.__name__ == f"repro_torch.models.{item}"
 
 
-def test_mrope_raises():
-    cfg = dataclasses.replace(port_cfg("naive"), mrope_sections=(2, 3, 3))
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, the VLM family"):
-        TT.init_params(torch.Generator(), cfg, device="cpu")
+def test_mrope_raises(jx):
+    """``mrope_frequencies`` against JAX's with three distinct position
+    streams (the reduced split (2, 3, 3) and qwen2-vl's (16, 24, 24), float32
+    angles), within 1e-6; a split that does not sum to ``head_dim / 2``
+    raises, as JAX asserts."""
+    _, jnp, JL = jx
+    rng = np.random.default_rng(7)
+    pos = rng.integers(0, 64, (3, B, S)).astype(np.int32)
+    for sections in ((2, 3, 3), (16, 24, 24)):
+        hd = 2 * sum(sections)
+        got = TL.mrope_frequencies(torch.from_numpy(pos), hd, sections,
+                                   theta=1e6)
+        want = JL.mrope_frequencies(jnp.asarray(pos), hd, sections,
+                                    theta=1e6)
+        for g, w in zip(got, want):
+            assert g.dtype == torch.float32 and g.shape == (B, S, hd // 2)
+            close(g, w, atol=1e-6)
+        # the streams differ, so no single stream's RoPE gives the tables
+        for i in range(3):
+            assert not torch.allclose(got[0], TL.rope(
+                torch.from_numpy(pos[i]), hd, theta=1e6)[0])
+        with pytest.raises(AssertionError):
+            TL.mrope_frequencies(torch.from_numpy(pos), hd + 2, sections)
 
 
 def test_config_matches_jax_published_widths():
@@ -464,12 +490,28 @@ def test_dense_zoo_prefill_decode_and_greedy_match_jax(dense_zoo_runs, arch,
     np.testing.assert_array_equal(out["tokens"], greedy)
 
 
+FAMILY_FIELDS = ZOO_FIELDS + ("mrope_sections", "frontend_tokens",
+                              "ssm_state", "ssm_expand", "ssm_headdim",
+                              "ssm_conv", "shared_attn_period", "lora_rank")
+
+
 @pytest.mark.parametrize("arch,item", [
     ("qwen2-vl-72b", "the VLM family"), ("zamba2-7b", "the hybrid family"),
     ("seamless-m4t-large-v2", "the audio enc-dec family")])
 def test_unported_archs_raise(arch, item):
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP Queue 1, {item}"):
-        t_get_config(arch)
+    """``seamless-m4t-large-v2`` still raises, naming its ROADMAP item; the
+    VLM and hybrid configs now carry the JAX package's published and
+    reduced field values."""
     with pytest.raises(KeyError):
         t_get_config("no-such-arch")
+    if arch == "seamless-m4t-large-v2":
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP Queue 1, {item}"):
+            t_get_config(arch)
+        return
+    pytest.importorskip("jax")
+    from repro.configs import get_config
+    j, t = get_config(arch), t_get_config(arch)
+    for f in FAMILY_FIELDS:
+        assert getattr(t, f) == getattr(j, f), f
+        assert getattr(t.reduced(), f) == getattr(j.reduced(), f), f
