@@ -95,14 +95,31 @@ each, with their wall seconds:
                 x 32 grid, then 1024 text tokens), zamba2 whole with its
                 LoRA redrawn nonzero (``fam_check``, one line an arch); a
                 timed bfloat16 ``generate`` after a warm-up -- qwen2-vl at
-                32 of its 80 layers (145.4 GB of weights do not fit the
-                card), batch 8, prompt 2048 (1024 patches + 1024 text),
+                16 of its 80 layers (145.4 GB of weights do not fit the
+                card; the depth cut to 16 pays for the later phases),
+                batch 8, prompt 2048 (1024 patches + 1024 text),
                 zamba2 whole, batch 8, prompt 1024, gen 256 each -- with
                 the launches counted (flash once per attention layer, or
                 per shared-block invocation, each prefill; decode the same
                 each step) and the peak after ``init_params`` held as in
                 ``zoo_serve`` (``fam_serve``, one line an arch); one traced
                 zamba2 decode step (``fam_trace``);
+  serve_encdec  the audio enc-dec family at its published widths,
+                ``seamless-m4t-large-v2`` (24 encoder + 24 decoder layers,
+                16 heads of 64): both attention kernels against their
+                plain versions at the serve's shapes, float32 and
+                bfloat16, timed as in serve -- flash full (not causal)
+                over the encoder's B=8 x 1024 frames, full with the
+                decoder's 128 tokens over the 1024 frames (cross, Sq !=
+                Sk), causal over the 128 tokens; decode over the decoder's
+                cache and over the cross cache at length = S_max = 1024
+                (``enc_kernels``, every bfloat16 flash launch on
+                ``wgmma``); the float32 model at 4 + 4 layers with the
+                kernels against naive attention (``enc_check``); the timed
+                bfloat16 ``serve(batch=8, prompt_len=1024, gen=256)`` at
+                the whole depth, after a warm-up, with 24 + 24 + 24 flash
+                launches a prefill and 48 decode launches a step
+                (``enc_serve``); one traced decode step (``enc_trace``);
   quant_kernels the approximate collective's quantize and dequantize
                 kernels against their plain versions, bit for bit, at every
                 gradient leaf shape of the full-width ``qwen3-1.7b`` step
@@ -133,6 +150,17 @@ each, with their wall seconds:
                 bits 8 and 4, the exact mean at 16), and the
                 ``CollectiveController`` over a 60-step contention sequence
                 with decisions identical to the host ``LatencyController``;
+  train_families every model family trained at its published widths
+                through ``build_train_step`` with ``grad_bits=8`` and
+                attention ``"chunked"`` (``TF_FAMILIES``): seamless and
+                rwkv6 whole, moonshot at 4 layers, phi3.5-moe at 2,
+                qwen2-vl at 2 (batch 1, its 1024 patches + 1024 text),
+                zamba2 at 12 (two shared-block invocations).  Each: step
+                0's gradients through the kernels' 8-bit round trip bit
+                for bit against the plain one, then 4 AdamW steps on one
+                repeated batch with the quantize kernels' launches counted
+                (every launch contiguous) and the loss falling; step p50
+                and peak memory (one line a family);
   frame_knobs_kernel  the camera node's knob kernel against its plain
                 version, bit for bit, at 1080x1920 (N=25, uint8 and float32,
                 blur 1/5/8/10/15, identical frames, N=1, and the camera
@@ -174,7 +202,9 @@ Then a ``kernels`` line (every kernel: launches on its main path, error
 against its plain version, its time beside its bound, the plain version's
 and the library call's; the attention pair also its ``kernel_route`` and
 ``call_ms``, the wrapper's time with its host work, its launches on every
-serving path, and its rows at the zoo's and the families' head shapes),
+serving path, and its rows at the zoo's and the families' head shapes and
+at the enc-dec serve's full, cross and cross-decode shapes; the quantize
+pair its launches on every training path),
 the card's ``name,
 power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -197,10 +227,13 @@ knob kernel (the build and frame_knobs_kernel phases).
     python3 chip_smoke.py --scenario-only
     python3 chip_smoke.py --zoo-only
     python3 chip_smoke.py --families-only
+    python3 chip_smoke.py --encdec-only
+    python3 chip_smoke.py --train-families-only
 
 build ``frame_knob_grid`` and run only the scenario phase, or build the
-two attention kernels and run only the serve_zoo or the serve_families
-phase.
+two attention kernels and run only the serve_zoo, the serve_families or
+the serve_encdec phase, or build the quantize pair and run only the
+train_families phase.
 """
 
 from __future__ import annotations
@@ -312,8 +345,10 @@ ZOO_TRACE = "moonshot-v1-16b-a3b"
 # over KH 8 (G = 8) at D = 128, its prompt 1024 stub patch embeddings + 1024
 # text tokens; zamba2-7b: 32 heads of 112 (G = 1), a 1024-token prompt.
 # (arch, layers, prompt): qwen2-vl's 80 layers are 145.4 GB of bf16
-# weights; 32 layers (61.2 GB, and 2.7 GB of cache at B=8) fit the card.
-FAM_SERVE = (("qwen2-vl-72b", 32, 2048), ("zamba2-7b", None, 1024))
+# weights; 32 layers (61.2 GB) fit the card, and 16 (33.1 GB, and 1.4 GB of
+# cache at B=8) run here, cut to pay for the later enc-dec and training
+# phases within the time limit.
+FAM_SERVE = (("qwen2-vl-72b", 16, 2048), ("zamba2-7b", None, 1024))
 FAM_BATCH, FAM_GEN = 8, 256
 # bfloat16 flash at zamba2's heads beside the serving shape: one query row
 # and one row past a 64-key tile (the D = 112 tile's ragged tails)
@@ -325,6 +360,33 @@ FAM_FLASH_EXTRA = ((8, 1, 112), (8, 65, 112))
 FAM_CHECK = (("qwen2-vl-72b", 4, 2048), ("zamba2-7b", None, 1024))
 FAM_GRID = 32
 FAM_TRACE = "zamba2-7b"
+
+# -- the serve_encdec phase ---------------------------------------------------
+# The audio enc-dec family at its published widths: seamless-m4t-large-v2,
+# 24 encoder + 24 decoder layers, 16 heads of 64 (G = 1).  A serve prompt of
+# ENC_PROMPT stub audio frames and ENC_PROMPT // 8 decoder tokens
+# (registry.make_batch), then ENC_GEN decode steps; its decoder cache holds
+# ENC_PROMPT + ENC_GEN + DECODE_SLACK rows, its cross cache ENC_PROMPT.
+ENC_ARCH = "seamless-m4t-large-v2"
+ENC_BATCH, ENC_PROMPT, ENC_GEN = 8, 1024, 256
+ENC_CHECK_LAYERS = 4        # the float32 check: 4 encoder + 4 decoder layers
+
+# -- the train_families phase -------------------------------------------------
+# Every model family trained at its published widths through the training
+# step (launch.steps.build_train_step, as launch/train.py builds it) with
+# grad_bits=8 and attention "chunked": (arch, layers or None for the whole
+# depth, batch, seq).  Depth cuts fit one card: bf16 parameters and
+# gradients plus float32 AdamW moments are ~12 bytes a parameter, and the
+# config's microbatches add float32 gradient sums (4 more).  qwen2-vl's
+# batch is cut to 1 (one microbatch: no float32 sums) and its sequence is
+# its 1024 stub patches + 1024 text tokens.
+TF_FAMILIES = (("seamless-m4t-large-v2", None, 8, 512),
+               ("rwkv6-1.6b", None, 8, 512),
+               ("moonshot-v1-16b-a3b", 4, 8, 512),
+               ("phi3.5-moe-42b-a6.6b", 2, 8, 512),
+               ("qwen2-vl-72b", 2, 1, 2048),
+               ("zamba2-7b", 12, 8, 512))
+TF_STEPS = 4
 
 # -- the training phases ------------------------------------------------------
 TRAIN_ARCH = "qwen3-1.7b"
@@ -709,18 +771,23 @@ def phase_profile(dev) -> dict:
 
 
 def attn_bound_ms(kind: str, dtype, b: int, s: int, qh: int, kh: int,
-                  d: int) -> tuple[float, str]:
+                  d: int, *, sk: "int | None" = None,
+                  causal: bool = True) -> tuple[float, str]:
     """Least time of one attention call on the card: inputs read once and
     the output written once over the memory rate, against 4 FLOP per (q
     head, key, column) pair -- the two products -- over the peak rate of
     the inputs' type (bf16 tensor cores; float32 outside them).  ``kind``
-    "flash": causal prefill over ``s`` tokens (s (s + 1) / 2 pairs per q
-    head); "decode": one query against the ``s`` valid cache rows."""
+    "flash": ``s`` queries over ``sk`` keys (default ``s``), causal (query
+    i sees min(i + 1, sk) keys; s (s + 1) / 2 pairs per q head at sk = s)
+    or full (s sk pairs); "decode": one query against the ``s`` valid
+    cache rows."""
     import torch
     esz = torch.finfo(dtype).bits // 8
     if kind == "flash":
-        nbytes = esz * (2 * b * s * qh * d + 2 * b * s * kh * d)
-        pairs = s * (s + 1) // 2
+        sk = s if sk is None else sk
+        nbytes = esz * (2 * b * s * qh * d + 2 * b * sk * kh * d)
+        pairs = (sum(min(i + 1, sk) for i in range(s)) if causal
+                 else s * sk)
     else:
         nbytes = esz * (2 * b * qh * d + 2 * b * s * kh * d)
         pairs = s
@@ -751,8 +818,9 @@ def phase_attention(dev, cfg, *, flash_shapes=FLASH_SHAPES,
                     flash_extra=FLASH_EXTRA, decode_s_max=DECODE_S_MAX,
                     decode_lengths=DECODE_LENGTHS) -> list[dict]:
     """Both attention kernels against their plain versions at the heads of
-    ``cfg``: flash at ``flash_shapes`` (B, S) with the config's head dim,
-    and in bfloat16 also at ``flash_extra`` (B, S, D); decode over a
+    ``cfg``: flash at ``flash_shapes`` with the config's head dim -- (B, S)
+    causal self-attention, or (B, Sq, Sk, causal) --, and in bfloat16 also
+    at ``flash_extra`` (B, S, D) causal; decode over a
     ``decode_s_max`` cache at ``decode_lengths``; in float32 and bfloat16
     on seeded unit-normal inputs, each timed (``timed``) beside its plain
     version, SDPA (timed here only, called nowhere in the port) and its
@@ -778,34 +846,42 @@ def phase_attention(dev, cfg, *, flash_shapes=FLASH_SHAPES,
 
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).removeprefix("torch.")
-        shapes = [(b, s, d) for b, s in flash_shapes]
+        # (B, Sq, Sk, D, causal): (B, S) causal self-attention at the
+        # config's head dim, or (B, Sq, Sk, causal); extras (B, S, D)
+        cases = [(sh[0], sh[1], sh[1], d, True) if len(sh) == 2
+                 else (sh[0], sh[1], sh[2], d, sh[3]) for sh in flash_shapes]
         if dtype == torch.bfloat16:
-            shapes += flash_extra
-        for b, s, hd in shapes:
+            cases += [(b, s, s, hd, True) for b, s, hd in flash_extra]
+        for b, s, sk, hd, causal in cases:
             q = torch.randn((b, s, qh, hd), generator=g, device=dev).to(dtype)
-            k = torch.randn((b, s, kh, hd), generator=g, device=dev).to(dtype)
-            v = torch.randn((b, s, kh, hd), generator=g, device=dev).to(dtype)
+            k = torch.randn((b, sk, kh, hd), generator=g,
+                            device=dev).to(dtype)
+            v = torch.randn((b, sk, kh, hd), generator=g,
+                            device=dev).to(dtype)
             route = FA.flash_route(dtype, hd)
             before = dict(FA.flash_attention.launches_by_route)
-            got = FA.flash_attention(q, k, v, causal=True)
+            got = FA.flash_attention(q, k, v, causal=causal)
             took = {r: n - before[r] for r, n in
                     FA.flash_attention.launches_by_route.items()}
             if q.is_cuda and took != {r: int(r == route) for r in FA.ROUTES}:
                 raise AssertionError(f"flash {name} D={hd}: routes {took}, "
                                      f"want one launch of {route}")
-            want = FA.flash_attention_plain(q, k, v, causal=True)
+            want = FA.flash_attention_plain(q, k, v, causal=causal)
             torch.cuda.synchronize()
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            b_ms, b_by = attn_bound_ms("flash", dtype, b, s, qh, kh, hd)
+            b_ms, b_by = attn_bound_ms("flash", dtype, b, s, qh, kh, hd,
+                                       sk=sk, causal=causal)
+            lens = f"S={s}" if s == sk else f"Sq={s} Sk={sk}"
             row = dict(
                 kernel="flash_attention", dtype=name, kernel_route=route,
-                head_dim=hd, group=qh // kh,
-                shape=f"B={b} S={s} QH={qh} KH={kh} D={hd} causal",
-                **timed(lambda: FA.flash_attention(q, k, v, causal=True),
+                head_dim=hd, group=qh // kh, causal=causal,
+                shape=f"B={b} {lens} QH={qh} KH={kh} D={hd} "
+                      f"{'causal' if causal else 'full'}",
+                **timed(lambda: FA.flash_attention(q, k, v, causal=causal),
                         lambda: FA.flash_attention_plain(q, k, v,
-                                                         causal=True),
+                                                         causal=causal),
                         lambda: F.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True, enable_gqa=True)),
+                            qt, kt, vt, is_causal=causal, enable_gqa=True)),
                 bound_ms=b_ms, bound_by=b_by)
             record(row, got, want)
             del q, k, v, qt, kt, vt, got, want
@@ -876,8 +952,11 @@ def phase_model_check(dev, arch: str, *, reduced: bool, batch: int,
     vocab = model.cfg.vocab_size
     moe = model.cfg.family == "moe"
 
+    # the enc-dec family's cache also holds the prompt's frames
+    enc = {"enc_len": prompt} if model.cfg.family == "audio" else {}
+
     def run(m):
-        cache = m.init_cache(batch, prompt + CHECK_STEPS, device=dev)
+        cache = m.init_cache(batch, prompt + CHECK_STEPS, device=dev, **enc)
         with torch.no_grad(), RouteRecorder(moe) as rec:
             logits, cache = m.prefill(params, pb, cache)
             out = [logits[:, -1, :vocab].float()]
@@ -970,14 +1049,16 @@ def route_difference(a: list, b: list, n_layers: int) -> dict:
                 calls=len(a), min_topk_gap=gap, first_difference=first)
 
 
-def serve_kernels(arch: str, n_layers: int, gen: int) -> dict:
-    """The kernels the serving path of ``arch`` launches: name -> (the
-    wrapper that counts its launches, the launches one ``serve`` of
-    ``gen`` decode steps must make).  The hybrid family attends once per
-    invocation of its shared block (every ``shared_attn_period`` of its
-    ``n_layers`` Mamba2 layers), not once a layer."""
-    from repro_torch.configs import get_config
-    cfg = get_config(arch)
+def serve_kernels(cfg, gen: int) -> dict:
+    """The kernels the serving path of ``cfg`` (as served: reduced or cut)
+    launches: name -> (the wrapper that counts its launches, the launches
+    one ``serve`` of ``gen`` decode steps must make).  The hybrid family
+    attends once per invocation of its shared block (every
+    ``shared_attn_period`` of its ``num_layers`` Mamba2 layers), not once a
+    layer; the enc-dec family's ``num_layers`` encoder layers attend once
+    at prefill, and each of its ``num_decoder_layers`` decoder layers twice
+    (self and cross) at prefill and at each decode step."""
+    n_layers = cfg.num_layers
     if cfg.family == "ssm":
         from repro_torch.kernels import linear_scan as LS
         # every layer's time-mix, at prefill and at each decode step
@@ -985,6 +1066,10 @@ def serve_kernels(arch: str, n_layers: int, gen: int) -> dict:
                                     n_layers * (1 + gen))}
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    if cfg.family == "audio":
+        n_dec = cfg.num_decoder_layers
+        return {"flash_attention": (FA.flash_attention, n_layers + 2 * n_dec),
+                "decode_attention": (DA.decode_attention, 2 * n_dec * gen)}
     n_attn = (n_layers // cfg.shared_attn_period if cfg.family == "hybrid"
               else n_layers)
     return {"flash_attention": (FA.flash_attention, n_attn),
@@ -1002,8 +1087,7 @@ def phase_serve_timed(dev, arch: str, *, reduced: bool, batch: int,
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import serve
     cfg = get_config(arch)
-    n_layers = (cfg.reduced() if reduced else cfg).num_layers
-    kernels = serve_kernels(arch, n_layers, gen)
+    kernels = serve_kernels(cfg.reduced() if reduced else cfg, gen)
     serve(arch, batch=batch, prompt_len=prompt, gen=2, reduced=reduced,
           device=dev)
     torch.cuda.reset_peak_memory_stats()
@@ -1037,7 +1121,9 @@ def phase_serve_timed(dev, arch: str, *, reduced: bool, batch: int,
         # the bf16 serve's prefill (D=128) runs on the tensor cores
         raise AssertionError(f"serve's flash routes {routes}, want every "
                              f"launch on wgmma")
-    if toks.shape != (batch, gen + 1) or out["cache_len"] != prompt + gen:
+    # the enc-dec family's cache counts its decoder tokens
+    n_tok = max(1, prompt // 8) if cfg.family == "audio" else prompt
+    if toks.shape != (batch, gen + 1) or out["cache_len"] != n_tok + gen:
         raise AssertionError(f"serve returned tokens {toks.shape}, "
                              f"cache_len {out['cache_len']}")
     return res
@@ -1364,19 +1450,26 @@ def phase_serve_rwkv(dev) -> tuple[list[dict], dict]:
     torch.cuda.empty_cache()
     return rows, timed
 
+def cut_depth(cfg, num_layers: "int | None"):
+    """``cfg`` with its depth cut to ``num_layers`` where given (an enc-dec
+    config's encoder and decoder each; the widths kept)."""
+    import dataclasses
+    if not num_layers:
+        return cfg
+    return dataclasses.replace(
+        cfg, num_layers=min(num_layers, cfg.num_layers),
+        num_decoder_layers=min(num_layers, cfg.num_decoder_layers))
+
+
 def zoo_config(arch: str, num_layers: "int | None" = None,
                param_dtype: "str | None" = None):
     """``launch.serve.serve_config(arch)`` as it serves on the card
     (``attention_impl="kernel"``), reduced under ``ZOO_REDUCED``, its depth
-    cut to ``num_layers`` where given (the widths kept)."""
-    import dataclasses
+    cut to ``num_layers`` where given (``cut_depth``)."""
     from repro_torch.launch.serve import serve_config
-    cfg = serve_config(arch, reduced=ZOO_REDUCED, attention_impl="kernel",
-                       param_dtype=param_dtype)
-    if num_layers:
-        cfg = dataclasses.replace(cfg, num_layers=min(num_layers,
-                                                      cfg.num_layers))
-    return cfg
+    return cut_depth(serve_config(arch, reduced=ZOO_REDUCED,
+                                  attention_impl="kernel",
+                                  param_dtype=param_dtype), num_layers)
 
 
 def build_served(dev, cfg, *, batch: int, prompt: int, rows: int = 0):
@@ -1428,7 +1521,7 @@ def phase_zoo_serve(dev, arch: str, num_layers: "int | None", *,
     slice_f32 = max(t[0].numel() * 4 for t in tree_leaves(
         params["layers"] if "layers" in params else params["mamba"]))
     generate(model, params, pb, cache, gen=2)
-    kernels = serve_kernels(arch, cfg.num_layers, gen)
+    kernels = serve_kernels(cfg, gen)
     torch.cuda.reset_peak_memory_stats()
     for fn, _ in kernels.values():
         fn.launches = 0
@@ -1603,6 +1696,198 @@ def phase_serve_families(dev) -> tuple[list[dict], dict]:
     emit("fam_trace", seconds=time.monotonic() - t0, **trace)
     torch.cuda.empty_cache()
     return rows, serves
+
+
+def enc_path(row: dict) -> str:
+    """Which prefill attention of the enc-dec serve a flash row of
+    ``enc_kernels`` stands for: causal (the decoder's self-attention),
+    full over Sq == Sk (the encoder) or full with Sq != Sk (cross)."""
+    return ("decoder_self" if row["causal"] else "cross"
+            if "Sq=" in row["shape"] else "encoder")
+
+
+def phase_serve_encdec(dev) -> tuple[list[dict], dict]:
+    """The serve_encdec phase: both attention kernels against their plain
+    versions at the enc-dec serve's shapes (``enc_kernels``: flash full
+    over the encoder's frames, full with the decoder's tokens over the
+    frames -- cross, Sq != Sk --, causal over the decoder's tokens; decode
+    over the decoder's cache at ``decode_lengths_for``-style lengths and
+    over the cross cache at length = S_max = ``ENC_PROMPT``), the float32
+    model at ``ENC_CHECK_LAYERS`` + ``ENC_CHECK_LAYERS`` layers with the
+    kernels against naive attention (``enc_check``), the timed bfloat16
+    ``serve`` at the whole depth (``enc_serve``) and one traced decode step
+    (``enc_trace``).  Returns (attention rows, timed serve)."""
+    import torch
+    from repro_torch.models.registry import DECODE_SLACK
+    cfg = zoo_config(ENC_ARCH)
+    n_tok = max(1, ENC_PROMPT // 8)
+    s_max = ENC_PROMPT + ENC_GEN + DECODE_SLACK
+    t0 = time.monotonic()
+    rows = [dict(r, path=enc_path(r) if r["kernel"] == "flash_attention"
+                 else "decoder_self") for r in phase_attention(
+        dev, cfg, flash_shapes=((ENC_BATCH, ENC_PROMPT, ENC_PROMPT, False),
+                                (ENC_BATCH, n_tok, ENC_PROMPT, False),
+                                (ENC_BATCH, n_tok, n_tok, True)),
+        flash_extra=(), decode_s_max=s_max,
+        decode_lengths=(1, n_tok, n_tok + ENC_GEN // 2,
+                        n_tok + ENC_GEN - 1, s_max))]
+    rows += [dict(r, path="cross") for r in phase_attention(
+        dev, cfg, flash_shapes=(), flash_extra=(), decode_s_max=ENC_PROMPT,
+        decode_lengths=(ENC_PROMPT,))]
+    rows = [dict(r, arch=ENC_ARCH) for r in rows]
+    off = [r["shape"] for r in rows if r["kernel"] == "flash_attention"
+           and r["dtype"] == "bfloat16" and r["kernel_route"] != "wgmma"]
+    if off and not ZOO_REDUCED:
+        raise AssertionError(f"bf16 flash off the wgmma route: {off}")
+    emit("enc_kernels", seconds=time.monotonic() - t0, cases=len(rows),
+         max_abs_err={f"{r['kernel']}/{r['dtype']}/{r['path']}": max(
+             x["max_abs_err"] for x in rows if x["kernel"] == r["kernel"]
+             and x["dtype"] == r["dtype"] and x["path"] == r["path"])
+             for r in rows},
+         limits={f"{k}/{dt}": v for (k, dt), v in ATTN_TOL.items()})
+    ccfg = zoo_config(ENC_ARCH, ENC_CHECK_LAYERS, "float32")
+    emit("enc_check", **phase_model_check(
+        dev, ENC_ARCH, reduced=ZOO_REDUCED, batch=CHECK_BATCH,
+        prompt=ENC_PROMPT, ref_impl="naive", cfg=ccfg),
+        num_decoder_layers=ccfg.num_decoder_layers, decoder_tokens=n_tok)
+    kw = dict(reduced=ZOO_REDUCED, batch=ENC_BATCH, prompt=ENC_PROMPT,
+              gen=ENC_GEN)
+    timed = phase_serve_timed(dev, ENC_ARCH, **kw)
+    emit("enc_serve", decoder_tokens=n_tok, **timed)
+    t0 = time.monotonic()
+    trace = phase_decode_trace(dev, ENC_ARCH, **kw)
+    emit("enc_trace", seconds=time.monotonic() - t0, **trace)
+    torch.cuda.empty_cache()
+    return rows, timed
+
+
+def tf_config(arch: str, layers: "int | None"):
+    """``arch``'s published config (reduced under ``ZOO_REDUCED``) as it
+    trains -- its own attention impl (``"chunked"``), microbatches and
+    remat --, its depth cut to ``layers`` where given (``cut_depth``)."""
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    return cut_depth(cfg.reduced() if ZOO_REDUCED else cfg, layers)
+
+
+def phase_train_family(dev, arch: str, layers: "int | None", batch: int,
+                       seq: int) -> dict:
+    """One family's training at its published widths (``tf_config``):
+    step 0's gradients (the config's microbatches) computed once, each
+    leaf the step's hook quantizes sent through the kernels' round trip
+    (``make_grad_compressor``, as the step does) and through the plain
+    one, bit for bit; then ``TF_STEPS`` steps of ``build_train_step`` (the
+    8-bit hook, AdamW as ``launch/train.py`` runs it) on one repeated
+    batch, with the quantize kernels' launches counted from zero just
+    before them.  Raises unless the round trips are identical, every
+    launch is on the contiguous route, and the losses are finite and
+    falling."""
+    import numpy as np
+    import torch
+    from repro_torch.core.approx_comm import make_grad_compressor
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch.steps import (build_train_step, compute_grads,
+                                          microbatch_count)
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.tree import tree_items
+    t0 = time.monotonic()
+    cfg = tf_config(arch, layers)
+    model = build_model(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = model.init_params(g, device=dev)
+    data = make_batch(cfg, batch, seq, generator=g, device=dev, train=True)
+    n_params = sum(t.numel() for _, t in tree_items(params))
+    param_bytes = sum(t.numel() * t.element_size()
+                      for _, t in tree_items(params))
+    m = microbatch_count(cfg, batch)
+    hook = make_grad_compressor(TRAIN_BITS, min_size=GRAD_MIN_SIZE)
+
+    t1 = time.monotonic()
+    loss0, grads = compute_grads(model, params, data, m)
+    n0 = (Q.quantize_blocks.launches, Q.dequantize_blocks.launches)
+    diffs, leaves = [], 0
+    for key, gr in tree_items(grads):
+        if gr.numel() >= GRAD_MIN_SIZE:
+            leaves += 1
+            if not torch.equal(hook({"g": gr})["g"],
+                               plain_roundtrip(gr, TRAIN_BITS)):
+                diffs.append(key)
+    torch.cuda.synchronize()
+    check_launches = [Q.quantize_blocks.launches - n0[0],
+                      Q.dequantize_blocks.launches - n0[1]]
+    grad_dtype = str(tree_items(grads)[0][1].dtype).removeprefix("torch.")
+    check_s = time.monotonic() - t1
+    del grads, gr           # the loop's last leaf too (2.5 GB for qwen2-vl)
+    # the check's cached blocks go back before the moments are allocated
+    torch.cuda.empty_cache()
+
+    state = init_opt_state(params, device=dev)
+    step = build_train_step(cfg, AdamWConfig(), hook)
+    Q.quantize_blocks.launches = Q.dequantize_blocks.launches = 0
+    for f in (Q.quantize_blocks, Q.dequantize_blocks):
+        f.launches_by_route = dict.fromkeys(Q.ROUTES, 0)
+    losses, step_s = [], []
+    for _ in range(TF_STEPS):
+        t1 = time.monotonic()
+        params, state, metrics = step(params, state, data)
+        torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        losses.append(float(metrics["loss"]))
+    launches = {"quantize_blocks": Q.quantize_blocks.launches,
+                "dequantize_blocks": Q.dequantize_blocks.launches}
+    routes = route_delta({k: dict.fromkeys(Q.ROUTES, 0) for k in launches},
+                         route_counts())
+    p50 = float(np.percentile(step_s, 50))
+    n_tokens = data["tokens"].numel() + sum(
+        data[k].shape[0] * data[k].shape[1] for k in ("patch_embeds",
+                                                      "embeds") if k in data)
+    res = dict(arch=arch, num_layers=cfg.num_layers,
+               num_decoder_layers=cfg.num_decoder_layers or None,
+               published_layers=tf_config(arch, None).num_layers,
+               batch=batch, seq=seq, positions=n_tokens, microbatches=m,
+               grad_bits=TRAIN_BITS, attention_impl=cfg.attention_impl,
+               params_b=n_params / 1e9, param_gb=param_bytes / 1e9,
+               reckoned_gb=n_params * (12 + (4 if m > 1 else 0)) / 1e9,
+               step0_loss=float(loss0), grad_dtype=grad_dtype,
+               leaves=leaves, check_launches=check_launches,
+               roundtrips_bitwise_identical=not diffs, check_seconds=check_s,
+               losses=losses, loss_falling=losses[-1] < losses[0],
+               step_s=step_s, step_p50_s=p50,
+               positions_per_s=n_tokens / p50, launches=launches,
+               launches_by_route=routes,
+               max_memory_allocated_gb=torch.cuda.max_memory_allocated()
+               / 1e9,
+               max_memory_reserved_gb=torch.cuda.max_memory_reserved() / 1e9,
+               seconds=time.monotonic() - t0)
+    del model, params, state, data, step
+    torch.cuda.empty_cache()
+    if diffs or check_launches != [leaves, leaves]:
+        raise AssertionError(f"{arch}: step 0's round trips differ at "
+                             f"{diffs} ({check_launches} launches, "
+                             f"{leaves} leaves)")
+    if launches != {k: leaves * TF_STEPS for k in launches} \
+            or routes != contiguous_only(leaves * TF_STEPS):
+        raise AssertionError(f"{arch}: the steps launched {launches} "
+                             f"({routes}), want {leaves * TF_STEPS} of "
+                             f"each, all contiguous")
+    if not (np.isfinite(losses).all() and res["loss_falling"]):
+        raise AssertionError(f"{arch}: losses {losses}")
+    return res
+
+
+def phase_train_families(dev) -> dict:
+    """The train_families phase: ``phase_train_family`` for each of
+    ``TF_FAMILIES``, one ``train_families`` line each; returns arch ->
+    result."""
+    out = {}
+    for arch, layers, batch, seq in TF_FAMILIES:
+        out[arch] = phase_train_family(dev, arch, layers, batch, seq)
+        emit("train_families", **out[arch])
+    return out
 
 
 def grad_leaves(cfg) -> list[tuple[str, tuple[int, int], int]]:
@@ -1913,10 +2198,10 @@ def phase_train_check(dev, cfg) -> dict:
     import torch
     from repro_torch.core.approx_comm import make_grad_compressor
     from repro_torch.kernels import quantize as Q
-    from repro_torch.launch.steps import (apply_grads, compute_grads,
-                                          microbatch_count)
+    from repro_torch.launch.steps import compute_grads, microbatch_count
     from repro_torch.models.registry import build_model, make_batch
-    from repro_torch.optim.adamw import AdamWConfig, init_opt_state
+    from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                         init_opt_state)
     from repro_torch.tree import tree_items, tree_map
     t0 = time.monotonic()
     model = build_model(cfg)
@@ -1932,18 +2217,18 @@ def phase_train_check(dev, cfg) -> dict:
     opt = AdamWConfig()
     n0 = (Q.quantize_blocks.launches, Q.dequantize_blocks.launches)
     r0 = route_counts()
-    p_k, _, cg_k = apply_grads(opt, tree_map(torch.clone, params),
-                               init_opt_state(params, device=dev), grads,
-                               make_grad_compressor(TRAIN_BITS,
-                                                    min_size=GRAD_MIN_SIZE))
+    # the rest of build_train_step's step: the hook, then AdamW
+    cg_k = make_grad_compressor(TRAIN_BITS, min_size=GRAD_MIN_SIZE)(grads)
+    p_k, _ = adamw_update(opt, tree_map(torch.clone, params), cg_k,
+                          init_opt_state(params, device=dev))
     torch.cuda.synchronize()
     launches = (Q.quantize_blocks.launches - n0[0],
                 Q.dequantize_blocks.launches - n0[1])
     routes = route_delta(r0, route_counts())
     torch.cuda.empty_cache()
-    p_p, _, cg_p = apply_grads(opt, params, init_opt_state(params,
-                                                           device=dev),
-                               grads, plain_hook(TRAIN_BITS))
+    cg_p = plain_hook(TRAIN_BITS)(grads)
+    p_p, _ = adamw_update(opt, params, cg_p,
+                          init_opt_state(params, device=dev))
     torch.cuda.synchronize()
     n_leaves = len(grad_leaves(cfg))
     diffs = [k for (k, a), (_, b) in zip(tree_items(cg_k), tree_items(cg_p))
@@ -2184,9 +2469,11 @@ def phase_training(dev) -> tuple[dict, dict]:
     return quant, run
 
 
-def quant_kernel_rows(quant: dict, run: dict) -> list[dict]:
+def quant_kernel_rows(quant: dict, run: dict,
+                      families: "dict | None" = None) -> list[dict]:
     """The ``kernels`` line's rows of the quantize pair: launches from the
-    timed training run; device ms, plain ms and the bound of the step's 13
+    timed training run (and, by path, from each family's steps in
+    ``families``); device ms, plain ms and the bound of the step's 13
     launches each (float32, bits 8), the largest leaf's beside them."""
     big, step = quant["largest_leaf"], quant["step"]
     rows = []
@@ -2199,6 +2486,10 @@ def quant_kernel_rows(quant: dict, run: dict) -> list[dict]:
             "replaces": f"src/repro/kernels/quantize.py:{src_line}",
             "launches": run["launches"][name],
             "launches_by_route": run["launches_by_route"][name],
+            "launches_by_path": {
+                TRAIN_ARCH: run["launches"][name],
+                **{a: f["launches"][name]
+                   for a, f in (families or {}).items()}},
             "max_abs_err": quant["max_abs_err"],
             "ms": step[f"{key}_ms"], "plain_ms": step[f"{key}_plain_ms"],
             "bound_ms": step["bound_ms"], "bound_by": step["bound_by"],
@@ -3061,6 +3352,12 @@ def main(argv: list[str]) -> int:
     only.add_argument("--families-only", action="store_true",
                       help="run only the build of the attention kernels and "
                            "the serve_families phase")
+    only.add_argument("--encdec-only", action="store_true",
+                      help="run only the build of the attention kernels and "
+                           "the serve_encdec phase")
+    only.add_argument("--train-families-only", action="store_true",
+                      help="run only the build of the quantize pair and "
+                           "the train_families phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive "
                          "(default: this checkout's); with one of the "
@@ -3086,6 +3383,8 @@ def main(argv: list[str]) -> int:
      else run_scenario_phase if args.scenario_only
      else run_zoo if args.zoo_only
      else run_families if args.families_only
+     else run_encdec if args.encdec_only
+     else run_train_families if args.train_families_only
      else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3213,6 +3512,24 @@ def run_families(dev) -> None:
     build_only("flash_attention", FA._load_lib)
     build_only("decode_attention", DA._load_lib)
     phase_serve_families(dev)
+
+
+def run_encdec(dev) -> None:
+    """``--encdec-only``: build the two attention kernels, then the
+    serve_encdec phase."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    build_only("flash_attention", FA._load_lib)
+    build_only("decode_attention", DA._load_lib)
+    phase_serve_encdec(dev)
+
+
+def run_train_families(dev) -> None:
+    """``--train-families-only``: build the quantize pair, then the
+    train_families phase."""
+    from repro_torch.kernels import quantize as Q
+    build_only("quantize_blocks", Q._load_lib)
+    phase_train_families(dev)
 
 
 def run(dev) -> None:
@@ -3435,8 +3752,12 @@ def run(dev) -> None:
     zoo_rows, zoo_serves = phase_serve_zoo(dev)
     # -- the VLM and hybrid families, at published widths -----------------
     fam_rows, fam_serves = phase_serve_families(dev)
+    # -- the audio enc-dec family, at published widths --------------------
+    enc_rows, enc_timed = phase_serve_encdec(dev)
     # -- training qwen3-1.7b with the approximate collective's round trip --
     quant, train_run = phase_training(dev)
+    # -- training every family, at published widths (some cut in depth) --
+    families = phase_train_families(dev)
     # -- the camera node: device rings and the knob kernel ----------------
     knobs_row = knobs_kernel_row(*phase_camera(dev))
     # -- the scripted-experiment path: scenarios, federation, MQTT ---------
@@ -3456,7 +3777,7 @@ def run(dev) -> None:
             ("decode_attention", "decode_attention.cu",
              "src/repro/kernels/decode_attention.py:61",
              lambda r: r.get("length") == DECODE_LENGTHS[2])):
-        mine = [r for r in attn_rows + zoo_rows + fam_rows
+        mine = [r for r in attn_rows + zoo_rows + fam_rows + enc_rows
                 if r["kernel"] == name]
         main_row = next(r for r in attn_rows if r["kernel"] == name
                         and r["dtype"] == "bfloat16" and pick(r))
@@ -3478,7 +3799,8 @@ def run(dev) -> None:
             "launches_by_path": {
                 SERVE_ARCH: timed["launches"][name],
                 **{a: z["launches"][name]
-                   for a, z in {**zoo_serves, **fam_serves}.items()}},
+                   for a, z in {**zoo_serves, **fam_serves}.items()},
+                ENC_ARCH: enc_timed["launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "max_abs_err_float32": max(r["max_abs_err"] for r in mine
@@ -3501,7 +3823,21 @@ def run(dev) -> None:
                 and r["dtype"] == "bfloat16" and (
                     name == "flash_attention" or r["length"] == dict(
                         (a, p + FAM_GEN // 2)
-                        for a, _, p in FAM_SERVE)[r["arch"]])]})
+                        for a, _, p in FAM_SERVE)[r["arch"]])],
+            # the enc-dec serve's, bfloat16: flash full over the encoder's
+            # frames, cross (Sq != Sk) and causal over the decoder's
+            # tokens; decode over the cross cache (length = S_max) and the
+            # decoder's cache at its mean length
+            "encdec_shapes": [
+                {k: r[k] for k in ("arch", "path", "shape", "group",
+                                   "head_dim", "kernel_route", "ms",
+                                   "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "call_ms", "max_abs_err")}
+                for r in enc_rows if r["kernel"] == name
+                and r["dtype"] == "bfloat16" and (
+                    name == "flash_attention" or r["path"] == "cross"
+                    or r["length"] == max(1, ENC_PROMPT // 8)
+                    + ENC_GEN // 2)]})
 
     # the main path's kernel work: one characterize sweep and one re-sweep
     main = [r for r in rows if r["case"] in ("characterize", "resweep")]
@@ -3532,7 +3868,8 @@ def run(dev) -> None:
         # the scenario path's own launches at 144x256, checked and timed
         "scenario_path": scen["kernel"]},
         *serve_kernels, wkv_kernel,
-        *quant_kernel_rows(quant, train_run), knobs_row]}), flush=True)
+        *quant_kernel_rows(quant, train_run, families), knobs_row]}),
+        flush=True)
 
 
 if __name__ == "__main__":

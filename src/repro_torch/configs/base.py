@@ -9,17 +9,18 @@ experts, capacity, the router's auxiliary loss), the SSM family (RWKV-6:
 the two LoRA ranks), the VLM family (``mrope_sections``, and
 ``frontend_tokens`` stub patch embeddings before the text), the hybrid
 family (the Mamba2 backbone's ``ssm_*`` fields, ``shared_attn_period``
-and ``lora_rank``) and the training fields (``remat``,
-``train_microbatches``).  The enc-dec family's fields come with its port
-(ROADMAP Queue 1, the audio enc-dec family).  ``ShapeCell`` and
+and ``lora_rank``), the enc-dec family (``is_encoder_decoder`` and
+``num_decoder_layers``: ``num_layers`` counts the encoder's layers) and
+the training fields (``remat``, ``train_microbatches``).  ``ShapeCell`` and
 ``SHAPE_CELLS`` wait for the dry-run's port (ROADMAP Queue 1, the
 dry-run), and the MoE sharding hint ``moe_parallel`` for its first reader
 (ROADMAP Queue 1, fleet mesh and sharding).
 
 ``attention_impl`` takes ``"naive" | "chunked" | "kernel"``: ``"kernel"``
 is the port's hand-written CUDA kernels (attention for the dense, MoE,
-VLM and hybrid families, the wkv scan for the SSM family), which take the place of the JAX
-package's Pallas kernels, so the JAX value ``"pallas"`` converts to it.
+VLM, hybrid and enc-dec families, the wkv scan for the SSM family), which
+take the place of the JAX package's Pallas kernels, so the JAX value
+``"pallas"`` converts to it.
 
 ``remat`` takes ``"none" | "full" | "dots"``: ``"full"`` recomputes each
 block in the backward pass (``torch.utils.checkpoint``, as ``jax.checkpoint``
@@ -88,6 +89,10 @@ class ModelConfig:
     rwkv_decay_lora: int = 64        # rank of the data-dependent decay MLP
     rwkv_mix_lora: int = 32          # rank of the token-shift mix MLPs
 
+    # enc-dec (seamless): num_layers counts the encoder's layers
+    is_encoder_decoder: bool = False
+    num_decoder_layers: int = 0
+
     # numerics
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -100,7 +105,8 @@ class ModelConfig:
     # microbatches per train step (activation memory ~ 1/M)
     train_microbatches: int = 1
 
-    # modality frontend stub (vlm): stub patch-embedding positions
+    # modality frontend stub (vlm): stub patch-embedding positions (the
+    # audio family's encoder input is the stub embedding stream itself)
     frontend_tokens: int = 0
 
     def __post_init__(self):
@@ -129,7 +135,8 @@ class ModelConfig:
         the JAX package's ``reduced()`` for the fields kept here (at most 8
         experts, 2 a token and 1 shared; the hybrid family two
         super-blocks deep, ``ssm_state <= 16``, ``ssm_headdim`` 16 and
-        ``lora_rank <= 4``; ``frontend_tokens <= 16``; ``remat`` and
+        ``lora_rank <= 4``; ``frontend_tokens <= 16``; at most 2 decoder
+        layers; ``remat`` and
         ``train_microbatches`` are kept, as there)."""
         kv = max(1, min(self.num_kv_heads, 2))
         heads = max(kv * 2, 4)
@@ -140,6 +147,7 @@ class ModelConfig:
             mrope_sections=mrope,
             num_layers=min(self.num_layers, 2 * max(1, self.shared_attn_period)
                            if self.shared_attn_period else 2),
+            num_decoder_layers=min(self.num_decoder_layers, 2),
             d_model=64,
             num_heads=heads,
             num_kv_heads=kv,

@@ -6,8 +6,8 @@ Source: the JAX package's ``configs/rwkv6_1_6b.py``, after the RWKV-6
 64, channel-mix width 3.5 x d_model = 7168, vocab 65536, decay LoRA rank
 64, token-shift mix LoRA rank 32), layer norm, squared-ReLU channel mix,
 bfloat16.  The training fields are the JAX package's copy's (full remat,
-4 microbatches); training the SSM family is not ported yet (ROADMAP Queue 1,
-rwkv6 training), so nothing reads them here.
+4 microbatches), read by ``models/rwkv6.py::loss_fn`` and the training
+step.
 """
 
 from repro_torch.configs.base import ModelConfig

@@ -6,8 +6,9 @@ and padded controller tables, so both packages can run the loop from one
 and the same characterization.  For the model zoo: a model's parameter tree
 (``model_params_from_numpy``, every family's), so both packages can serve
 with the same weights, and an RWKV recurrent state
-(``rwkv_state_from_numpy``) or a zamba2 cache (``zamba_cache_from_numpy``),
-so both can decode from the same state.  For the camera node: a device frame ring
+(``rwkv_state_from_numpy``), a zamba2 cache (``zamba_cache_from_numpy``)
+or an enc-dec cache (``encdec_cache_from_numpy``), so both can decode from
+the same state.  For the camera node: a device frame ring
 (``frame_log_from_numpy``), so both can query the same log.  Each function
 takes plain NumPy arrays and Python scalars -- nothing of the JAX package
 is imported -- and returns the port's object.
@@ -26,15 +27,16 @@ from repro_torch.core.knobs import KnobSetting
 from repro_torch.core.log import FrameLog
 from repro_torch.device import resolve_device
 from repro_torch.kernels.frame_knobs import TransformPlan
-from repro_torch.models.registry import build_model
+from repro_torch.models.encdec import EncDecCache
 from repro_torch.models.mamba2 import Mamba2State
+from repro_torch.models.registry import build_model
 from repro_torch.models.rwkv6 import RWKVState
 from repro_torch.models.zamba2 import ZambaCache
 
 __all__ = ["plan_from_numpy", "table_from_numpy", "regression_from_numpy",
            "controller_tables_from_numpy", "model_params_from_numpy",
            "rwkv_state_from_numpy", "zamba_cache_from_numpy",
-           "opt_state_from_numpy",
+           "encdec_cache_from_numpy", "opt_state_from_numpy",
            "frame_log_from_numpy"]
 
 
@@ -201,6 +203,30 @@ def zamba_cache_from_numpy(*, ssm, conv, attn_k, attn_v, length,
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
     return ZambaCache(ssm=Mamba2State(ssm=st.float(), conv=cv), attn_k=k,
                       attn_v=v, length=int(length))
+
+
+def encdec_cache_from_numpy(*, enc_out, self_k, self_v, cross_k, cross_v,
+                            length,
+                            device: "str | torch.device | None" = None
+                            ) -> EncDecCache:
+    """The port's ``EncDecCache`` from the fields of a JAX ``EncDecCache``
+    as NumPy arrays: ``enc_out`` ``[B, S_enc, D]``, ``self_k`` / ``self_v``
+    ``[L, B, S_max, KH, HD]``, ``cross_k`` / ``cross_v`` ``[L, B, S_enc,
+    KH, HD]`` (dtypes kept) and ``length`` (a scalar array or int, kept on
+    the host).  ``device`` defaults to ``"cuda"``."""
+    dev = resolve_device(device)
+    eo, sk, sv, ck, cv = (_tensor_from_numpy(a, device=dev) for a in
+                          (enc_out, self_k, self_v, cross_k, cross_v))
+    if eo.dim() != 3 or sk.dim() != 5 or sk.shape != sv.shape \
+            or ck.shape != cv.shape or ck.shape[:2] != sk.shape[:2] \
+            or ck.shape[3:] != sk.shape[3:] \
+            or (ck.shape[1], ck.shape[2]) != tuple(eo.shape[:2]):
+        raise ValueError(f"EncDecCache: enc_out [B,S_enc,D], self_k/self_v "
+                         f"[L,B,S_max,KH,HD] and cross_k/cross_v "
+                         f"[L,B,S_enc,KH,HD] expected, got {tuple(eo.shape)}, "
+                         f"{tuple(sk.shape)}, {tuple(ck.shape)}")
+    return EncDecCache(enc_out=eo, self_k=sk, self_v=sv, cross_k=ck,
+                       cross_v=cv, length=int(length))
 
 
 def opt_state_from_numpy(cfg, tree: dict, *,

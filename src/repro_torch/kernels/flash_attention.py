@@ -23,8 +23,11 @@ kernel ``flash_attention``).  Two pieces:
 
 Shapes follow the JAX package: q ``[B, Sq, QH, D]``, k/v ``[B, Sk, KH, D]``
 with ``QH % KH == 0``; the output has q's shape and dtype.  The causal mask
-is top-left aligned (``q_pos >= k_pos``), as the TPU kernel's; prefill
-always has ``Sq == Sk``.
+is top-left aligned (``q_pos >= k_pos``), as the TPU kernel's.  The
+decoder-only families' prefill is causal with ``Sq == Sk``; the enc-dec
+family also runs full (``causal=False``) attention, over ``Sq == Sk`` in
+its encoder and with ``Sq`` (decoder tokens) ``!= Sk`` (encoder frames) in
+its cross-attention.
 """
 
 from __future__ import annotations

@@ -202,8 +202,18 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``impl == "kernel"``, ``wkv_plain`` (chunk ``min(chunk, S)``) for CPU
     tensors and for any other impl.  Either way ``min(chunk, S)`` must
     divide ``S`` (``ValueError`` otherwise), so both routes accept the same
-    inputs, as ``wkv_chunked`` does."""
+    inputs, as ``wkv_chunked`` does.  ``impl == "kernel"`` with an input
+    that requires grad (under autograd) raises ``NotImplementedError`` on
+    any device, rather than differentiating the plain version quietly:
+    the kernel has no backward."""
     _chunk_len(r.shape[1], chunk)
+    if impl == "kernel" and torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (r, k, v, logw, u, state0)):
+        raise NotImplementedError(
+            "wkv(impl='kernel') has no backward (the scan kernel, like the "
+            "JAX package's, is forward only): train with 'chunked', as the "
+            "JAX package's rwkv6 trains through wkv_chunked")
     if impl == "kernel" and r.device.type != "cpu":
         return wkv_linear_scan(r, k, v, logw, u, state0=state0)
     return wkv_plain(r, k, v, logw, u, state0=state0, chunk=chunk)

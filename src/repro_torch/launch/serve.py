@@ -2,7 +2,8 @@
 against the model's cache (a preallocated KV cache for the dense, MoE and
 VLM families, the recurrent state for the SSM family, both -- each Mamba2
 layer's state and each shared-block invocation's keys and values -- for
-the hybrid family).
+the hybrid family, the decoder's keys and values with the encoder's output
+and its cross keys and values for the enc-dec family).
 
 The port of the JAX package's ``launch/serve.py``: the same loop (prefill
 once, then ``gen`` decode steps for the whole batch, greedy or sampled),
@@ -13,10 +14,16 @@ goes through the hand-written flash attention kernel and every decode step
 through the decode kernel, and so does each invocation of the hybrid
 family's shared block (``zamba2-7b``, head_dim 112); for the SSM family
 (``rwkv6-1.6b``) every layer's time-mix, at prefill and at each decode
-step, goes through the wkv scan kernel.  A VLM prompt of ``prompt_len``
-positions is ``frontend_tokens`` stub patch embeddings and the text after
-them (``registry.make_batch``).  Times
-end in ``torch.cuda.synchronize()`` on the card, so they cover the device
+step, goes through the wkv scan kernel; for the enc-dec family
+(``seamless-m4t-large-v2``) the encoder's full self-attention, the
+decoder's causal self-attention and its cross-attention (decoder tokens
+over encoder frames) go through the flash kernel at prefill, and each
+decode step's self- and cross-attention through the decode kernel.  A VLM
+prompt of ``prompt_len`` positions is ``frontend_tokens`` stub patch
+embeddings and the text after them; an enc-dec prompt is ``prompt_len``
+stub audio frames for the encoder and ``max(1, prompt_len // 8)`` decoder
+tokens, and its cache holds ``prompt_len`` encoder rows
+(``registry.make_batch``).  Times end in ``torch.cuda.synchronize()`` on the card, so they cover the device
 work and not only its enqueueing; as in the JAX package, a decode step's
 time is the step alone, and the token pick after it is outside the span.
 
@@ -28,6 +35,8 @@ CPU):
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \
       --arch moonshot-v1-16b-a3b --full --batch 8 --prompt-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch seamless-m4t-large-v2 --device cpu
 
 ``--full`` serves the published widths; of the port's archs all but
 ``phi3.5-moe-42b-a6.6b`` (83.7 GB of bfloat16 weights) and
@@ -46,6 +55,7 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models.encdec import EncDecCache
 from repro_torch.models.registry import (DECODE_SLACK, Model, build_model,
                                          make_batch)
 from repro_torch.models.rwkv6 import RWKVState
@@ -86,12 +96,14 @@ def prepare(arch: str, *, batch: int = 4, prompt_len: int = 64,
             param_dtype: str | None = None,
             device: "str | torch.device | None" = None
             ) -> tuple[Model, dict, dict,
-                       "KVCache | RWKVState | ZambaCache", torch.Generator]:
+                       "KVCache | RWKVState | ZambaCache | EncDecCache",
+                       torch.Generator]:
     """The model of ``serve_config(arch, ...)``, random parameters, a
     random prompt batch and the family's empty cache of ``prompt_len + gen +
     DECODE_SLACK`` rows (the SSM family's state has no rows and ignores the
-    length), all drawn from one generator seeded with ``seed`` on the
-    device (returned for sampling)."""
+    length; the enc-dec family's also holds ``prompt_len`` encoder rows, as
+    the JAX ``serve`` makes it), all drawn from one generator seeded with
+    ``seed`` on the device (returned for sampling)."""
     dev = resolve_device(device)
     cfg = serve_config(arch, reduced=reduced, attention_impl=attention_impl,
                        param_dtype=param_dtype, device=dev)
@@ -100,14 +112,15 @@ def prepare(arch: str, *, batch: int = 4, prompt_len: int = 64,
     g.manual_seed(seed)
     params = model.init_params(g, device=dev)
     pb = make_batch(cfg, batch, prompt_len, generator=g, device=dev)
+    kw = {"enc_len": prompt_len} if cfg.family == "audio" else {}
     cache = model.init_cache(batch, prompt_len + gen + DECODE_SLACK,
-                             device=dev)
+                             device=dev, **kw)
     return model, params, pb, cache, g
 
 
 @torch.no_grad()
 def generate(model: Model, params: dict, batch: dict,
-             cache: "KVCache | RWKVState | ZambaCache", *,
+             cache: "KVCache | RWKVState | ZambaCache | EncDecCache", *,
              gen: int, temperature: float = 0.0,
              generator: torch.Generator | None = None) -> dict:
     """Prefill ``batch`` into ``cache``, then ``gen`` decode steps, greedy
@@ -161,8 +174,9 @@ def serve(arch: str, *, batch: int = 4, prompt_len: int = 64, gen: int = 32,
     raises ``RuntimeError`` (pass ``device="cpu"``).
 
     Returns ``prefill_s``, ``decode_p50_ms``, ``decode_p95_ms``,
-    ``tokens_per_s``, ``tokens`` (``[batch, gen + 1]``) and ``cache_len``,
-    as the JAX package's ``serve``."""
+    ``tokens_per_s``, ``tokens`` (``[batch, gen + 1]``) and ``cache_len``
+    (the tokens in the cache: for the enc-dec family the decoder's, its
+    prompt tokens plus ``gen``), as the JAX package's ``serve``."""
     model, params, pb, cache, g = prepare(
         arch, batch=batch, prompt_len=prompt_len, gen=gen, reduced=reduced,
         seed=seed, device=device)

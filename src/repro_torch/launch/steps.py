@@ -9,10 +9,10 @@ gradient hook (the approximate collective's quantize round trip,
 ``core.approx_comm.make_grad_compressor``) -> AdamW.  The microbatch
 count follows the JAX adaptive rule with a data-parallel size of 1 (the
 port has no mesh): ``cfg.train_microbatches``, lowered until it divides the
-batch.  The two halves are also exposed (``compute_grads``,
-``apply_grads``), so a caller can run the update on gradients it already
-has.  AdamW writes the new parameters and moments into the tensors it is
-given, where the JAX step donates them.
+batch.  The first half is also exposed (``compute_grads``), so a caller
+can run the hook and ``optim.adamw.adamw_update`` on gradients it already
+has, as the step does.  AdamW writes the new parameters and moments into
+the tensors it is given, where the JAX step donates them.
 
 The prefill and serve step functions and the shardings wait for ROADMAP
 Queue 1, the dry-run.
@@ -29,8 +29,7 @@ from repro_torch.models.registry import Model, build_model
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
 from repro_torch.tree import tree_leaves, tree_map
 
-__all__ = ["build_train_step", "microbatch_count", "compute_grads",
-           "apply_grads"]
+__all__ = ["build_train_step", "microbatch_count", "compute_grads"]
 
 
 def microbatch_count(cfg: ModelConfig, global_batch: int,
@@ -88,17 +87,6 @@ def compute_grads(model: Model, params: dict, batch: dict,
     return loss_sum / microbatches, acc
 
 
-def apply_grads(opt: AdamWConfig, params: dict, opt_state: dict,
-                grads: dict, grad_compress: Callable | None = None
-                ) -> tuple[dict, dict, dict]:
-    """The gradient hook (when given), then AdamW; returns (params,
-    opt_state, the gradients AdamW took)."""
-    if grad_compress is not None:
-        grads = grad_compress(grads)
-    params, opt_state = adamw_update(opt, params, grads, opt_state)
-    return params, opt_state, grads
-
-
 def build_train_step(cfg: ModelConfig, opt: AdamWConfig | None = None,
                      grad_compress: Callable | None = None) -> Callable:
     """The full training step of ``cfg``'s model: loss -> gradients ->
@@ -112,8 +100,12 @@ def build_train_step(cfg: ModelConfig, opt: AdamWConfig | None = None,
                    ) -> tuple[dict, dict, dict[str, Any]]:
         m = microbatch_count(cfg, batch["tokens"].shape[0])
         loss, grads = compute_grads(model, params, batch, m)
-        params, opt_state, _ = apply_grads(opt, params, opt_state, grads,
-                                           grad_compress)
+        if grad_compress is not None:
+            # rebinding drops the uncompressed gradients before AdamW's
+            # float32 temporaries (no second copy of every gradient at the
+            # update's peak)
+            grads = grad_compress(grads)
+        params, opt_state = adamw_update(opt, params, grads, opt_state)
         return params, opt_state, {"loss": loss.float()}
 
     return train_step

@@ -16,15 +16,19 @@ fault philosophy (the paper's Section 4.4) on the training plane:
 With ``grad_bits < 16`` every gradient leaf of at least 1024 elements
 takes the approximate collective's quantize round trip
 (``make_grad_compressor``) before AdamW: on the card through the
-hand-written quantize and dequantize kernels.  Attention trains through the
-config's own impl (``"chunked"``), as the JAX package does: the flash kernel
-has no backward.  ``mesh_shape`` (a multi-GPU mesh) waits for ROADMAP
-Queue 1, fleet mesh and sharding.
+hand-written quantize and dequantize kernels.  Attention (and rwkv6's wkv
+scan) trains through the config's own impl (``"chunked"``), as the JAX
+package does: the flash and scan kernels have no backward.  Every family
+trains: the VLM family's batch carries zero patch embeddings, the audio
+family's seeded frame embeddings (``step_batch``).  ``mesh_shape`` (a
+multi-GPU mesh) waits for ROADMAP Queue 1, fleet mesh and sharding.
 
 Usage (on the card; add ``--device cpu`` to train the reduced config on
 the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
       --steps 50 --batch 8 --seq 128 --checkpoint-dir /tmp/ckpt
+  PYTHONPATH=src python -m repro_torch.launch.train \
+      --arch seamless-m4t-large-v2 --steps 5 --device cpu
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
@@ -44,7 +49,7 @@ from repro_torch.launch.steps import build_train_step
 from repro_torch.models.registry import build_model
 from repro_torch.optim.adamw import AdamWConfig, init_opt_state
 
-__all__ = ["StepWatchdog", "train", "main"]
+__all__ = ["StepWatchdog", "step_batch", "train", "main"]
 
 
 class StepWatchdog:
@@ -66,6 +71,24 @@ class StepWatchdog:
         return out
 
 
+def step_batch(cfg, raw: dict, step: int, dev: torch.device) -> dict:
+    """Step ``step``'s batch, as the JAX ``train`` builds it from the
+    stream's ``tokens`` / ``labels`` ``[batch, seq]``: the VLM family adds
+    zero patch embeddings ``[batch, frontend_tokens, d_model]``, the audio
+    family frame embeddings ``[batch, seq, d_model]`` drawn from
+    ``np.random.default_rng(step).normal(0, 0.02, ...)``; both float32."""
+    b = {k: torch.from_numpy(raw[k]).to(dev) for k in ("tokens", "labels")}
+    n = raw["tokens"].shape[0]
+    if cfg.family == "vlm":
+        b["patch_embeds"] = torch.zeros((n, cfg.frontend_tokens, cfg.d_model),
+                                        dtype=torch.float32, device=dev)
+    if cfg.family == "audio":
+        b["embeds"] = torch.from_numpy(np.random.default_rng(step).normal(
+            0, 0.02, (n, raw["tokens"].shape[1], cfg.d_model)).astype(
+                np.float32)).to(dev)
+    return b
+
+
 def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
           reduced: bool = True, checkpoint_dir: str | None = None,
           checkpoint_every: int = 20, restore: bool = False,
@@ -74,8 +97,9 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
           seed: int = 0, log_every: int = 10,
           device: "str | torch.device | None" = None) -> dict:
     """Train ``arch`` with random weights drawn from ``seed`` on synthetic
-    token batches (``TokenStream``), as the JAX ``train``: ``reduced``
-    takes the smoke config with one microbatch.  ``device`` (default
+    token batches (``TokenStream``, with each family's extra inputs:
+    ``step_batch``), as the JAX ``train``: ``reduced`` takes the smoke
+    config with one microbatch.  ``device`` (default
     ``"cuda"``) is where it runs; without a CUDA device the default raises
     ``RuntimeError`` (pass ``device="cpu"``).
 
@@ -118,9 +142,7 @@ def train(arch: str, *, steps: int = 50, batch: int = 8, seq: int = 128,
     t_start = time.time()
     step = start_step
     while step < steps:
-        raw = next(stream)
-        b = {k: torch.from_numpy(raw[k]).to(dev)
-             for k in ("tokens", "labels")}
+        b = step_batch(cfg, next(stream), step, dev)
         try:
             if step == inject_failure_at:
                 # simulated node failure mid-run

@@ -22,6 +22,15 @@ The JAX semantics are kept, not upstream RWKV's: ``ln_x`` is a layer norm
 over all H*K channels (not a per-head group norm), and ``decode_step`` is
 ``prefill`` of one token.
 
+Training: ``loss_fn`` (the JAX one) runs ``forward``, which starts from a
+zero state and writes nothing in place, so autograd sees every layer's
+state; under ``remat == "full"`` with grad enabled each block runs under
+``torch.utils.checkpoint`` (as ``jax.checkpoint`` there).  The wkv scan
+kernel has no backward (neither has the JAX one, which trains through
+``wkv_chunked``), so a training config keeps ``attention_impl`` off
+``"kernel"`` and the time-mix takes ``wkv_plain``; ``wkv(impl="kernel")``
+raises under autograd.
+
 Dtype flow, as in the JAX package: ``init_cache`` makes the token-shift
 states float32 zeros, so at prefill ``_token_shift`` promotes the shifted
 stream to float32 and the mix runs in float32 before its cast to the
@@ -48,6 +57,7 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
@@ -55,8 +65,8 @@ from repro_torch.kernels.linear_scan import wkv
 from repro_torch.models.layers import (init_linear, layer_norm,
                                        mask_padded_vocab, unbind_layers)
 
-__all__ = ["init_params", "param_shapes", "forward", "init_cache", "prefill",
-           "decode_step", "RWKVState", "check_supported"]
+__all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
+           "prefill", "decode_step", "RWKVState", "check_supported"]
 
 _MIX_NAMES = ("r", "k", "v", "g", "w")
 
@@ -66,6 +76,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "ssm":
         raise NotImplementedError(
             f"models.rwkv6 runs the ssm family, not {cfg.family!r}")
+    if cfg.remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save the matmul outputs, recompute the rest) has "
+            "no torch counterpart yet (ROADMAP Queue 1, remat=\"dots\"); use "
+            "'full' or 'none'")
 
 
 # -----------------------------------------------------------------------------
@@ -251,15 +266,31 @@ def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
     return layer_norm(h, params["ln_in"]["scale"], params["ln_in"]["bias"])
 
 
-def _run(params: dict, h: torch.Tensor, cfg: ModelConfig, cache: RWKVState
-         ) -> tuple[torch.Tensor, RWKVState]:
+def _run(params: dict, h: torch.Tensor, cfg: ModelConfig, cache: RWKVState,
+         *, keep_state: bool = True
+         ) -> tuple[torch.Tensor, RWKVState | None]:
+    """Every block from ``cache``'s state.  With ``keep_state`` the new
+    ``wkv`` states are written into ``cache.wkv`` in place and the new
+    state is returned (the serving pair); without it nothing is written and
+    the state is dropped (``forward``, which autograd differentiates).
+    Under ``remat == "full"`` with grad enabled each block runs under
+    ``torch.utils.checkpoint``."""
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     tms, cms = [], []
     for i, p in enumerate(unbind_layers(params)):
-        h, new_wkv, tm, cm = _block(p, h, cfg, cache.wkv[i],
-                                    cache.shift_tm[i], cache.shift_cm[i])
-        cache.wkv[i].copy_(new_wkv)
-        tms.append(tm)
-        cms.append(cm)
+        args = (p, h, cfg, cache.wkv[i], cache.shift_tm[i],
+                cache.shift_cm[i])
+        if remat:
+            h, new_wkv, tm, cm = checkpoint(_block, *args,
+                                            use_reentrant=False)
+        else:
+            h, new_wkv, tm, cm = _block(*args)
+        if keep_state:
+            cache.wkv[i].copy_(new_wkv)
+            tms.append(tm)
+            cms.append(cm)
+    if not keep_state:
+        return h, None
     return h, RWKVState(wkv=cache.wkv, shift_tm=torch.stack(tms),
                         shift_cm=torch.stack(cms),
                         length=cache.length + h.shape[1])
@@ -277,8 +308,21 @@ def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     first output; the SSM family has no auxiliary loss)."""
     h = _embed(params, batch["tokens"], cfg)
     h, _ = _run(params, h, cfg, init_cache(cfg, h.shape[0], 0,
-                                           device=h.device))
+                                           device=h.device),
+                keep_state=False)
     return _logits(params, h, cfg)
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """Next-token cross-entropy (the JAX ``loss_fn``): ``forward``'s logits
+    cast to float32, log-softmax, the negative log-likelihood of
+    ``labels`` averaged over the positions with ``labels >= 0``."""
+    logits = forward(params, batch, cfg).float()
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: RWKVState

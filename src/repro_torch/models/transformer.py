@@ -11,10 +11,11 @@ tail when patch embeddings come first), and the serving pair ``prefill``
 / ``decode_step`` over a preallocated KV cache, which drop the auxiliary
 loss as the JAX package's do.  The VLM's stub frontend: ``batch
 ["patch_embeds"]`` ``[B, P, D]`` go before the token embeddings, and a
-decode step may add ``extra_embeds`` to its token's embedding.  The
-audio family's ``embeds`` raise ``NotImplementedError``, naming the
-ROADMAP Queue 1 item that ports it.  The JAX ``shard(...)`` constraints
-are no-ops without a mesh; the port has no mesh, so they are left out.
+decode step may add ``extra_embeds`` to its token's embedding.  Inputs
+of another family (the audio family's ``embeds``, which
+``models/encdec.py`` reads) raise ``ValueError``.  The JAX ``shard(...)``
+constraints are no-ops without a mesh; the port has no mesh, so they are
+left out.
 
 Parameter dict (the JAX tree's names and layouts, so
 ``repro_torch.convert.model_params_from_numpy`` copies it as it is):
@@ -222,9 +223,10 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
     """The input sequence in the compute dtype: the VLM's stub patch
     embeddings, then the token embeddings."""
     if set(batch) - _INPUTS:
-        raise NotImplementedError(
-            f"inputs {sorted(set(batch) - _INPUTS)} belong to the audio "
-            f"frontend (ROADMAP Queue 1, the audio enc-dec family)")
+        raise ValueError(
+            f"inputs {sorted(set(batch) - _INPUTS)} are not the "
+            f"{cfg.family} family's (models.encdec reads the audio "
+            f"family's embeds)")
     compute = dtype_of(cfg.compute_dtype)
     h = params["embed"][batch["tokens"].long()].to(compute)
     if "patch_embeds" in batch:

@@ -11,8 +11,12 @@ parameter's dtype.
 Where the JAX step donates its parameter and optimizer buffers
 (``donate_argnums``), ``adamw_update`` writes the new parameters, m and v
 into the tensors it is given: at the published widths that saves a second
-copy of the float32 moments (13.8 GB for qwen3-1.7b).  A caller that still
-needs the old values passes copies.
+copy of the float32 moments (13.8 GB for qwen3-1.7b).  It updates a
+leaf in flat blocks of ``UPDATE_BLOCK`` elements, so its float32
+temporaries stay at most three blocks (three of qwen2-vl-72b's
+embedding leaf whole would be 15 GB), and the global norm squares one
+float32 copy of a leaf at a time.  A caller that still needs the old
+values passes copies.
 """
 
 from __future__ import annotations
@@ -26,6 +30,9 @@ from repro_torch.device import resolve_device
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
 __all__ = ["AdamWConfig", "init_opt_state", "adamw_update"]
+
+# the elements of a leaf updated at once (256 MB a float32 temporary)
+UPDATE_BLOCK = 1 << 26
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +68,9 @@ def init_opt_state(params: Any, *,
 def _global_norm(leaves: list) -> torch.Tensor:
     total = None
     for x in leaves:
-        s = torch.square(x.float()).sum()
+        # one float32 copy squared in place (the same bits as square of
+        # float, without its second leaf-sized temporary)
+        s = x.to(torch.float32, copy=True).square_().sum()
         total = s if total is None else total + s
     return torch.sqrt(total)
 
@@ -94,19 +103,30 @@ def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict
     bc1 = 1 - torch.pow(_f32(cfg.b1, dev), cnt)
     bc2 = 1 - torch.pow(_f32(cfg.b2, dev), cnt)
 
-    def upd(p, g, m, v):
+    def upd_block(p, g, m, v, decay):
+        # the JAX expressions, evaluated in place where an operand is not
+        # read again (the same elementwise ops, so the same bits)
         g32 = g.float() * scale
-        m_new = (cfg.b1 * m).add_((1 - cfg.b1) * g32)
-        v_new = (cfg.b2 * v).add_(torch.square(g32).mul_(1 - cfg.b2))
+        m.mul_(cfg.b1).add_((1 - cfg.b1) * g32)
+        v.mul_(cfg.b2).add_(g32.square_().mul_(1 - cfg.b2))
         del g32
-        step = (m_new / bc1).div_((v_new / bc2).sqrt_().add_(cfg.eps))
-        m.copy_(m_new)
-        v.copy_(v_new)
-        del m_new, v_new
-        # decoupled weight decay on matrices only (ndim >= 2)
-        if p.dim() >= 2:
+        step = (m / bc1).div_((v / bc2).sqrt_().add_(cfg.eps))
+        if decay:
             step.add_(cfg.weight_decay * p.float())
-        p.copy_(p.float() - lr * step)
+        p.copy_(p.float() - step.mul_(lr))
+
+    def upd(p, g, m, v):
+        # decoupled weight decay on matrices only (ndim >= 2)
+        decay = p.dim() >= 2
+        if not all(t.is_contiguous() for t in (p, g, m, v)):
+            upd_block(p, g, m, v, decay)
+            return
+        # elementwise, so a leaf runs in flat blocks: at most three
+        # float32 temporaries of UPDATE_BLOCK elements live at once
+        p, g, m, v = (t.view(-1) for t in (p, g, m, v))
+        for i in range(0, p.numel(), UPDATE_BLOCK):
+            j = i + UPDATE_BLOCK
+            upd_block(p[i:j], g[i:j], m[i:j], v[i:j], decay)
 
     tree_map(upd, params, grads, state["m"], state["v"])
     return params, {"m": state["m"], "v": state["v"], "count": count}

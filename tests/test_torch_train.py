@@ -44,8 +44,9 @@ from repro_torch.kernels import quantize as TQ  # noqa: E402
 from repro_torch.launch import steps as TS  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models.registry import build_model as t_build  # noqa: E402
+from repro_torch.models.registry import make_batch  # noqa: E402
 from repro_torch.optim import adamw as TO  # noqa: E402
-from repro_torch.tree import tree_items  # noqa: E402
+from repro_torch.tree import tree_items, tree_map  # noqa: E402
 
 B, S = 4, 32
 LR = dict(learning_rate=1e-2, warmup_steps=1)
@@ -251,6 +252,27 @@ def test_adamw_writes_in_place(mid):
     pp, ps = TO.adamw_update(TO.AdamWConfig(**LR), tp, g, ts)
     assert pp["embed"] is embed and ps["m"]["embed"] is m_embed
     assert not torch.equal(embed, before)
+
+
+@pytest.mark.parametrize("block", [1, 7, 1000])
+def test_adamw_blocks_match_the_whole_leaf(mid, monkeypatch, block):
+    """A leaf updated in flat blocks of ``block`` elements (ragged tails,
+    0-d leaves, a transposed gradient on the whole-leaf path) gives the
+    bits of the update in one piece."""
+    def run(n):
+        monkeypatch.setattr(TO, "UPDATE_BLOCK", n)
+        _, tp, ts = port_state(1, mid)
+        gen = torch.Generator().manual_seed(5)
+        tg = tree_map(lambda v: torch.randn(v.shape, generator=gen)
+                      .to(v.dtype), tp)
+        tg["embed"] = tg["embed"].t().contiguous().t()
+        assert not tg["embed"].is_contiguous()
+        return TO.adamw_update(TO.AdamWConfig(**LR), tp, tg, ts)
+
+    whole, blocked = run(1 << 40), run(block)
+    for got, want in zip(blocked, whole):
+        for (k, a), (_, b) in zip(tree_items(got), tree_items(want)):
+            assert torch.equal(a, b), k
 
 
 def test_adamw_quadratic_converges():
@@ -548,7 +570,17 @@ def test_remat_dots_is_refused():
 
 
 def test_ssm_training_is_not_ported():
+    """rwkv6 training is ported now: the facade's ``loss_fn`` runs (the
+    cross-entropy of ``forward``'s logits) and differentiates every leaf
+    (``tests/test_torch_train_families.py`` holds it to JAX)."""
     cfg = t_get_config("rwkv6-1.6b").reduced()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, rwkv6 training"):
-        t_build(cfg).loss_fn({}, {})
+    m = t_build(cfg)
+    g = torch.Generator().manual_seed(0)
+    params = m.init_params(g, device="cpu")
+    batch = make_batch(cfg, 2, 32, generator=g, device="cpu", train=True)
+    loss, grads = TS.compute_grads(m, params, batch, 1)
+    with torch.no_grad():
+        logp = torch.log_softmax(m.forward(params, batch).float(), -1)
+    want = -logp.gather(-1, batch["labels"].long()[..., None]).mean()
+    torch.testing.assert_close(loss, want, rtol=1e-6, atol=0)
+    assert all(torch.isfinite(v).all() for _, v in tree_items(grads))

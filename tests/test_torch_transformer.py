@@ -338,18 +338,18 @@ def test_padded_vocab_never_wins(port_model):
     ("audio", "the audio enc-dec family"), ("vlm", "transformer"),
     ("hybrid", "zamba2")])
 def test_other_families_raise(family, item):
-    """The audio family still raises, naming its ROADMAP item; the VLM and
-    hybrid families build (``transformer`` and ``zamba2``)."""
-    if family == "audio":
-        cfg = dataclasses.replace(port_cfg("naive"), family=family)
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1, {item}"):
-            t_build(cfg)
-        return
-    arch = {"vlm": "qwen2-vl-72b", "hybrid": "zamba2-7b"}[family]
+    """Every family of the JAX package builds: the VLM and hybrid families
+    on ``transformer`` and ``zamba2``, the audio family (``item``: the
+    title of the ROADMAP item that ported it) on ``encdec``; an unknown
+    family still raises."""
+    arch = {"vlm": "qwen2-vl-72b", "hybrid": "zamba2-7b",
+            "audio": "seamless-m4t-large-v2"}[family]
+    module = "encdec" if family == "audio" else item
     m = t_build(t_get_config(arch).reduced())
     assert m.cfg.family == family
-    assert m.module.__name__ == f"repro_torch.models.{item}"
+    assert m.module.__name__ == f"repro_torch.models.{module}"
+    with pytest.raises(NotImplementedError, match="unknown family"):
+        t_build(dataclasses.replace(port_cfg("naive"), family="speech"))
 
 
 def test_mrope_raises(jx):
@@ -492,23 +492,19 @@ def test_dense_zoo_prefill_decode_and_greedy_match_jax(dense_zoo_runs, arch,
 
 FAMILY_FIELDS = ZOO_FIELDS + ("mrope_sections", "frontend_tokens",
                               "ssm_state", "ssm_expand", "ssm_headdim",
-                              "ssm_conv", "shared_attn_period", "lora_rank")
+                              "ssm_conv", "shared_attn_period", "lora_rank",
+                              "is_encoder_decoder", "num_decoder_layers")
 
 
 @pytest.mark.parametrize("arch,item", [
     ("qwen2-vl-72b", "the VLM family"), ("zamba2-7b", "the hybrid family"),
     ("seamless-m4t-large-v2", "the audio enc-dec family")])
 def test_unported_archs_raise(arch, item):
-    """``seamless-m4t-large-v2`` still raises, naming its ROADMAP item; the
-    VLM and hybrid configs now carry the JAX package's published and
-    reduced field values."""
+    """Only an unknown arch raises; the VLM, hybrid and audio configs (each
+    ported by the ROADMAP item ``item`` names) carry the JAX package's
+    published and reduced field values."""
     with pytest.raises(KeyError):
         t_get_config("no-such-arch")
-    if arch == "seamless-m4t-large-v2":
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP Queue 1, {item}"):
-            t_get_config(arch)
-        return
     pytest.importorskip("jax")
     from repro.configs import get_config
     j, t = get_config(arch), t_get_config(arch)
