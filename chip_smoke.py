@@ -75,7 +75,8 @@ each, with their wall seconds:
                 bit for bit, and its routing in both runs compared:
                 ``zoo_check``, one line an arch); a timed bfloat16
                 ``generate(batch=8, prompt_len=1024, gen=256)`` of
-                llama3-8b, phi3-medium-14b, moonshot-v1-16b-a3b and
+                llama3-8b, phi3-medium-14b, moonshot-v1-16b-a3b at 24 of
+                its 48 layers (cut to pay for the later phases) and
                 phi3.5-moe-42b-a6.6b at 24 of its 32 layers (83.7 GB of
                 weights do not fit the card), after a warm-up, with the
                 launches counted and the peak right after ``init_params``
@@ -98,7 +99,8 @@ each, with their wall seconds:
                 16 of its 80 layers (145.4 GB of weights do not fit the
                 card; the depth cut to 16 pays for the later phases),
                 batch 8, prompt 2048 (1024 patches + 1024 text),
-                zamba2 whole, batch 8, prompt 1024, gen 256 each -- with
+                zamba2 at 42 of its 81 layers (both cut to pay for the
+                later phases), batch 8, prompt 1024, gen 256 each -- with
                 the launches counted (flash once per attention layer, or
                 per shared-block invocation, each prefill; decode the same
                 each step) and the peak after ``init_params`` held as in
@@ -161,6 +163,20 @@ each, with their wall seconds:
                 repeated batch with the quantize kernels' launches counted
                 (every launch contiguous) and the loss falling; step p50
                 and peak memory (one line a family);
+  dryrun        the dry-run (``launch/dryrun.py``): every runnable (arch
+                x shape) cell of ``SHAPE_CELLS`` accounted on the meta
+                device in a subprocess (32 ok, 0 failed, 8 skipped; one
+                ``dryrun_meta`` line a cell: bytes, FLOPs, fits, cut)
+                while five cells cut to the card are served on it
+                (``DRYRUN_CELLS``: qwen3 ``prefill_32k`` at batch 2 and
+                ``decode_32k`` at batch 8, rwkv6 ``prefill_32k`` at batch
+                4 and ``long_500k``, zamba2 ``long_500k`` at 36 layers):
+                each kernel at the cell's shape against its plain version
+                and timed beside its bound and SDPA, the step through the
+                kernels with its launches counted against the same step
+                through the plain routes, and each run's measured bytes
+                beside the meta pass's reckoning (one ``dryrun_cut`` line
+                a cell, then a ``dryrun`` line);
   frame_knobs_kernel  the camera node's knob kernel against its plain
                 version, bit for bit, at 1080x1920 (N=25, uint8 and float32,
                 blur 1/5/8/10/15, identical frames, N=1, and the camera
@@ -203,7 +219,8 @@ against its plain version, its time beside its bound, the plain version's
 and the library call's; the attention pair also its ``kernel_route`` and
 ``call_ms``, the wrapper's time with its host work, its launches on every
 serving path, and its rows at the zoo's and the families' head shapes and
-at the enc-dec serve's full, cross and cross-decode shapes; the quantize
+at the enc-dec serve's full, cross and cross-decode shapes, and with
+the wkv scan at the dry-run's 32k and 500k shapes; the quantize
 pair its launches on every training path),
 the card's ``name,
 power.limit``, and as the last line
@@ -229,16 +246,19 @@ knob kernel (the build and frame_knobs_kernel phases).
     python3 chip_smoke.py --families-only
     python3 chip_smoke.py --encdec-only
     python3 chip_smoke.py --train-families-only
+    python3 chip_smoke.py --dryrun-only
 
 build ``frame_knob_grid`` and run only the scenario phase, or build the
 two attention kernels and run only the serve_zoo, the serve_families or
 the serve_encdec phase, or build the quantize pair and run only the
-train_families phase.
+train_families phase, or build the attention and wkv kernels and run
+only the dryrun phase.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -334,8 +354,10 @@ ZOO_CHECK = (("llama3-8b", None), ("internlm2-1.8b", None),
              ("phi3.5-moe-42b-a6.6b", 4))
 # the timed bfloat16 serves: (arch, layers).  phi3.5-moe's 32 layers are
 # 83.7 GB of weights; at 24 layers 62.9 GB (and 1.2 GB of cache) fit.
+# moonshot's 48 layers run at 24 since the dryrun phase came (its whole
+# serve took ~32 s of the smoke's time limit).
 ZOO_SERVE = (("llama3-8b", None), ("phi3-medium-14b", None),
-             ("moonshot-v1-16b-a3b", None), ("phi3.5-moe-42b-a6.6b", 24))
+             ("moonshot-v1-16b-a3b", 24), ("phi3.5-moe-42b-a6.6b", 24))
 ZOO_BATCH, ZOO_PROMPT, ZOO_GEN = 8, 1024, 256
 ZOO_TRACE = "moonshot-v1-16b-a3b"
 
@@ -347,8 +369,9 @@ ZOO_TRACE = "moonshot-v1-16b-a3b"
 # (arch, layers, prompt): qwen2-vl's 80 layers are 145.4 GB of bf16
 # weights; 32 layers (61.2 GB) fit the card, and 16 (33.1 GB, and 1.4 GB of
 # cache at B=8) run here, cut to pay for the later enc-dec and training
-# phases within the time limit.
-FAM_SERVE = (("qwen2-vl-72b", 16, 2048), ("zamba2-7b", None, 1024))
+# phases within the time limit; zamba2's 81 layers at 42 (7 shared-block
+# invocations; its whole serve took ~23 s) since the dryrun phase came.
+FAM_SERVE = (("qwen2-vl-72b", 16, 2048), ("zamba2-7b", 42, 1024))
 FAM_BATCH, FAM_GEN = 8, 256
 # bfloat16 flash at zamba2's heads beside the serving shape: one query row
 # and one row past a 64-key tile (the D = 112 tile's ragged tails)
@@ -387,6 +410,49 @@ TF_FAMILIES = (("seamless-m4t-large-v2", None, 8, 512),
                ("qwen2-vl-72b", 2, 1, 2048),
                ("zamba2-7b", 12, 8, 512))
 TF_STEPS = 4
+
+# -- the dryrun phase ---------------------------------------------------------
+# The dry-run (launch/dryrun.py).  (a) Every runnable (arch x shape) cell of
+# the JAX package's SHAPE_CELLS accounted on the meta device, in a
+# subprocess of DRYRUN_JOBS workers (the card's host has 8 cores) while (b)
+# five cells, cut to one card, are served on it through the kernels:
+# (arch, shape, batch or None for the cell's, layers or None for all).
+# qwen3's prefill at 2 of 32 sequences (7.6 GB of cache) and decode at 8 of
+# 128 (30.3 GB), rwkv6's prefill at 4 of 32 (at 8 its time-mix's float32
+# [B, S, 5, D] mixes, 10.7 GB each, took the card past 75 GB), both rwkv6
+# long_500k and zamba2's at 36 of 81 layers (6 shared-attention
+# invocations: 45.1 GB of its 97.9 GB cache).
+DRYRUN_CELLS = (("qwen3-1.7b", "prefill_32k", 2, None),
+                ("qwen3-1.7b", "decode_32k", 8, None),
+                ("rwkv6-1.6b", "prefill_32k", 4, None),
+                ("rwkv6-1.6b", "long_500k", None, None),
+                ("zamba2-7b", "long_500k", None, 36))
+DRYRUN_JOBS = 5
+DRYRUN_META_ARCH = None     # None: every arch (a CPU rehearsal: one)
+DRYRUN_META_TIMEOUT_S = 600
+DRYRUN_REDUCED = False      # the published widths (a CPU rehearsal: True)
+DRYRUN_SEQ = {}             # shape -> sequence (a CPU rehearsal: short)
+# a prefill's plain step runs on its first rows: the chunked attention's
+# float32 scores at S = 32768 are ~0.4 s of card time a layer a row
+DRYRUN_PLAIN_ROWS = 1
+# the kernel step against the plain step: launch.dryrun.STEP_RTOL.  The
+# cuts whose step a fault planted in every launch (every layer's attention
+# or scan) must move past it: 77-111% on the H100 against 1.3-4.4% sound
+DRYRUN_STEP_FAULTS = (("qwen3-1.7b", "decode_32k"),
+                      ("rwkv6-1.6b", "prefill_32k"),
+                      ("rwkv6-1.6b", "long_500k"))
+# the kernels at the cut cells' shapes, on seeded unit-normal inputs and at
+# each launch of a cut step: the largest over rows (a query head's D values;
+# a wkv row's K values, y in bf16 and the state in float32) of ||kernel -
+# plain|| / ||plain||.  An absolute limit sees nothing at long context:
+# decode over 524288 unit-normal keys gives |o| ~ 2e-3.  Sound, the two
+# round apart by about a bf16 step (2^-8) in some of a row's values;
+# skipping m of n near-uniform keys moves a row by about sqrt(m e / n):
+# 3.6% for the last 256 of 524288 rows, 35% for the last split of 8.
+DRYRUN_ROW_RTOL = {"bfloat16": 2.0 ** -6, "state": 1e-4}
+DRYRUN_TAIL_ROWS = 256      # a flash launch in a step: its last query rows
+DRYRUN_SCAN_HEADS = 4       # a wkv launch in a step: every 4th head,
+DRYRUN_SCAN_CHUNK = 256     # the plain scan at this chunk (a launch each)
 
 # -- the training phases ------------------------------------------------------
 TRAIN_ARCH = "qwen3-1.7b"
@@ -1452,13 +1518,10 @@ def phase_serve_rwkv(dev) -> tuple[list[dict], dict]:
 
 def cut_depth(cfg, num_layers: "int | None"):
     """``cfg`` with its depth cut to ``num_layers`` where given (an enc-dec
-    config's encoder and decoder each; the widths kept)."""
-    import dataclasses
-    if not num_layers:
-        return cfg
-    return dataclasses.replace(
-        cfg, num_layers=min(num_layers, cfg.num_layers),
-        num_decoder_layers=min(num_layers, cfg.num_decoder_layers))
+    config's encoder and decoder each; the widths kept:
+    ``launch.dryrun.depth_cut``)."""
+    from repro_torch.launch.dryrun import depth_cut
+    return depth_cut(cfg, num_layers) if num_layers else cfg
 
 
 def zoo_config(arch: str, num_layers: "int | None" = None,
@@ -1887,6 +1950,552 @@ def phase_train_families(dev) -> dict:
     for arch, layers, batch, seq in TF_FAMILIES:
         out[arch] = phase_train_family(dev, arch, layers, batch, seq)
         emit("train_families", **out[arch])
+    return out
+
+
+def dryrun_share(got, want) -> float:
+    """max |got - want| as a share of max |want|, in float32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max().clamp_min(
+        1e-30))
+
+
+def row_rel_err(got, want) -> float:
+    """The largest over rows (every index but the last) of ||got - want||
+    / ||want||, in float32."""
+    import torch
+    got, want = got.float(), want.float()
+    norm = torch.linalg.vector_norm
+    return float((norm(got - want, dim=-1)
+                  / norm(want, dim=-1).clamp_min(1e-30)).max())
+
+
+def tail_attention_plain(q, k, v, rows: int, *, causal: bool = True,
+                         scale: "float | None" = None):
+    """``flash_attention_plain``'s float32 softmax attention for the last
+    ``rows`` query rows only (at S = 32768 they read every key tile), in
+    q's dtype: ``[B, rows, QH, D]``."""
+    import torch
+    sq, qh, d = q.shape[1], q.shape[2], q.shape[3]
+    g = qh // k.shape[2]
+    scale = scale if scale is not None else d ** -0.5
+    kx = k.repeat_interleave(g, dim=2).float()
+    vx = v.repeat_interleave(g, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q[:, sq - rows:].float(), kx) * scale
+    if causal:
+        qpos = torch.arange(sq - rows, sq, device=q.device)[:, None]
+        kpos = torch.arange(k.shape[1], device=q.device)[None, :]
+        s = s.masked_fill(qpos < kpos, float("-inf"))
+    return torch.einsum("bhqk,bkhd->bqhd", s.softmax(-1), vx).to(q.dtype)
+
+
+def decode_plain(q, kc, vc, length: int, *, scale: "float | None" = None,
+                 heads: int = 8):
+    """``decode_attention_plain``, ``heads`` kv heads at a time (its
+    float32 copies of a 524288-row cache would take 15 GB at once)."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    g = q.shape[2] // kc.shape[2]
+    return torch.cat([DA.decode_attention_plain(
+        q[:, :, h * g:(h + heads) * g], kc[:, :, h:h + heads],
+        vc[:, :, h:h + heads], length, scale=scale)
+        for h in range(0, kc.shape[2], heads)], dim=2)
+
+
+# Planted faults: each runs the real wrapper (its first argument) on
+# arguments changed the way a faulty kernel would read them.
+def fault_flash_tile(real, q, k, v, **kw):
+    """Flash with its last key tile (64 keys) read from the tile before."""
+    kf, vf = k.clone(), v.clone()
+    kf[:, -64:], vf[:, -64:] = k[:, -128:-64], v[:, -128:-64]
+    return real(q, kf, vf, **kw)
+
+
+def fault_decode_split(real, q, kc, vc, length, **kw):
+    """Decode with the last of its 8 splits skipped."""
+    return real(q, kc, vc, length - (length + 7) // 8, **kw)
+
+
+def fault_decode_rows(real, q, kc, vc, length, **kw):
+    """Decode with its last 256 rows skipped."""
+    return real(q, kc, vc, length - 256, **kw)
+
+
+def fault_wkv_chunk(real, r, k, v, logw, u, **kw):
+    """The scan with one 16-step chunk's keys (the last but one) read as
+    zero."""
+    kf = k.clone()
+    kf[:, -32:-16] = 0
+    return real(r, kf, v, logw, u, **kw)
+
+
+def fault_wkv_state(real, r, k, v, logw, u, *, state0, **kw):
+    """The scan with each head's state read from the next head's."""
+    return real(r, k, v, logw, u, state0=state0.roll(1, 1), **kw)
+
+
+def dryrun_faults(name: str, s: int) -> list:
+    """The faults planted in ``name``'s launches at sequence length ``s``
+    (a wkv decode step has no chunk to drop: its state is misread)."""
+    if name == "flash_attention":
+        return [fault_flash_tile]
+    if name == "decode_attention":
+        return [fault_decode_split, fault_decode_rows]
+    return [fault_wkv_chunk if s > 32 else fault_wkv_state]
+
+
+class LaunchCheck:
+    """Inside ``with``, each launch a step makes of the flash, decode and
+    wkv kernels is held against the kernel's plain version on the same
+    arguments: ``errs[name]`` gathers each launch's ``row_rel_err`` --
+    flash on batch row 0's last ``DRYRUN_TAIL_ROWS`` query rows
+    (``tail_attention_plain``), decode over the whole cache
+    (``decode_plain``), the wkv scan on batch row 0 and every
+    ``DRYRUN_SCAN_HEADS``-th head (``wkv_plain`` at chunk
+    ``gcd(S, DRYRUN_SCAN_CHUNK)``: its chunks' launches bound it; its
+    float32 state under ``"wkv_state"``).
+    ``fault`` (kernel name -> a planted fault) runs in place of that
+    kernel's launches, held against the plain version of the true
+    arguments.  It replaces the models' references to the wrappers
+    (``models.attention``'s kernel modules, ``models.rwkv6.wkv``): a
+    wrapper counts its launches through its own module's name."""
+
+    def __init__(self, fault: "dict | None" = None):
+        self.fault, self.errs = fault or {}, {}
+
+    def __enter__(self):
+        import types
+
+        from repro_torch.models import attention as TA
+        from repro_torch.models import rwkv6
+        fk, dk = TA._flash_kernel, TA._decode_kernel
+        self.real = [(TA, "_flash_kernel", fk), (TA, "_decode_kernel", dk),
+                     (rwkv6, "wkv", rwkv6.wkv)]
+        TA._flash_kernel = types.SimpleNamespace(
+            flash_attention=self._wrap("flash_attention",
+                                       fk.flash_attention))
+        TA._decode_kernel = types.SimpleNamespace(
+            decode_attention=self._wrap("decode_attention",
+                                        dk.decode_attention))
+        rwkv6.wkv = self._wrap("wkv_linear_scan", rwkv6.wkv)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, real in self.real:
+            setattr(mod, name, real)
+
+    def _wrap(self, name, real):
+        plant = self.fault.get(name)
+
+        def call(*args, **kwargs):
+            out = (plant(real, *args, **kwargs) if plant
+                   else real(*args, **kwargs))
+            for key, err in self._hold(name, out, args, kwargs):
+                self.errs.setdefault(key, []).append(err)
+            return out
+        return call
+
+    @staticmethod
+    def _hold(name, out, args, kwargs) -> list:
+        from repro_torch.kernels import linear_scan as LS
+        if name == "flash_attention":
+            q, k, v = args
+            rows = min(DRYRUN_TAIL_ROWS, q.shape[1])
+            want = tail_attention_plain(
+                q[:1], k[:1], v[:1], rows, causal=kwargs.get("causal", True),
+                scale=kwargs.get("scale"))
+            return [(name, row_rel_err(out[:1, -rows:], want))]
+        if name == "decode_attention":
+            q, kc, vc, length = args
+            return [(name, row_rel_err(out, decode_plain(
+                q, kc, vc, length, scale=kwargs.get("scale"))))]
+        h = slice(None, None, DRYRUN_SCAN_HEADS)
+        r, k, v, logw = (t[:1, :, h] for t in args[:4])
+        s0 = kwargs.get("state0")
+        y, st = LS.wkv_plain(r, k, v, logw, args[4][h],
+                             state0=None if s0 is None else s0[:1, h],
+                             chunk=math.gcd(r.shape[1], DRYRUN_SCAN_CHUNK))
+        return [(name, row_rel_err(out[0][:1, :, h], y)),
+                ("wkv_state", row_rel_err(out[1][:1, h], st))]
+
+
+def dryrun_kernel_rows(dev, cfg, cell, arch: str) -> list[dict]:
+    """The kernels a cut cell's step launches, at its shapes, bfloat16 on
+    seeded unit-normal inputs, held to their plain versions by
+    ``row_rel_err`` within ``DRYRUN_ROW_RTOL`` and timed behind the spin
+    kernel beside the bound, the plain version (one call, CUDA events: the
+    plain versions run for seconds here) and SDPA.  Each planted fault of
+    ``dryrun_faults`` must read above the limit, so the check is shown to
+    see a skipped split, skipped rows or a misread key tile or chunk.
+    Flash at S = 32768: the plain version's float32 scores would take ``B *
+    QH * S^2 * 4`` bytes (137 GB at B = 2), so batch row 0 is held, all its
+    query rows, against the chunked plain route (``models.attention``,
+    ``impl="chunked"``, itself timed as the plain version).  Decode over
+    ``seq_len`` of ``seq_len + DECODE_SLACK`` rows.  The wkv scan from a
+    zero state at a prefill (the model's prefill state) and from a random
+    one at a decode step, against ``wkv_plain`` at chunk
+    ``plain_chunk(S)``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import linear_scan as LS
+    from repro_torch.models import attention as TA
+    from repro_torch.models.registry import DECODE_SLACK
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    bf16 = torch.bfloat16
+    b, s = cell.global_batch, cell.seq_len
+    qh, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    limit = DRYRUN_ROW_RTOL["bfloat16"]
+
+    def normal(*shape, dtype=bf16):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def once_ms(fn) -> float:
+        start, stop = (torch.cuda.Event(enable_timing=True)
+                       for _ in range(2))
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        return start.elapsed_time(stop)
+
+    def device_only(fn) -> float:
+        ms, hidden = device_ms(fn, ATTN_REPS)
+        if not hidden:
+            raise AssertionError("the host outlasted the spin")
+        return ms
+
+    def faults(name, real, want, args, kw, pick=lambda out: out) -> dict:
+        """Each planted fault's reading against the sound ``want``."""
+        return {" ".join(f.__doc__.split()).rstrip("."): row_rel_err(
+            pick(f(real, *args, **kw)), want)
+            for f in dryrun_faults(name, s)}
+
+    if cfg.family == "ssm":
+        h, kd = cfg.num_heads, cfg.head_dim
+        s = 1 if cell.kind == "decode" else s
+        r, k, v = normal(b, s, h, kd), normal(b, s, h, kd), \
+            normal(b, s, h, kd)
+        logw = -torch.exp(normal(b, s, h, kd, dtype=torch.float32) - 1.0)
+        u = normal(h, kd, dtype=torch.float32)
+        s0 = normal(b, h, kd, kd, dtype=torch.float32) if s == 1 else None
+        chunk = plain_chunk(s)
+        y, st = LS.wkv_linear_scan(r, k, v, logw, u, state0=s0)
+        yw, stw = LS.wkv_plain(r, k, v, logw, u, state0=s0, chunk=chunk)
+        kw = {"state0": s0} if s0 is not None else {}
+        planted = faults("wkv_linear_scan", LS.wkv_linear_scan, yw,
+                         (r, k, v, logw, u), kw, pick=lambda out: out[0])
+        torch.cuda.synchronize()
+        b_ms, b_by = wkv_bound_ms(bf16, b, s, h, kd)
+        row = dict(
+            kernel="wkv_linear_scan", arch=arch, cell=cell.name,
+            shape=f"B={b} S={s} H={h} K={kd} state0="
+                  f"{'random' if s0 is not None else 'zero'} bfloat16",
+            max_abs_err=float((y.float() - yw.float()).abs().max()),
+            max_row_rel_err=row_rel_err(y, yw),
+            state_max_row_rel_err=row_rel_err(st, stw),
+            limits=[limit, DRYRUN_ROW_RTOL["state"]], faults=planted,
+            ms=device_only(lambda: LS.wkv_linear_scan(r, k, v, logw, u,
+                                                      state0=s0)),
+            plain_ms=once_ms(lambda: LS.wkv_plain(r, k, v, logw, u,
+                                                  state0=s0, chunk=chunk)),
+            plain="wkv_plain", bound_ms=b_ms, bound_by=b_by,
+            library_ms=None)
+        ok = row["state_max_row_rel_err"] <= DRYRUN_ROW_RTOL["state"]
+        del r, k, v, logw, u, s0, y, st, yw, stw
+    elif cell.kind == "prefill":
+        q, k, v = normal(b, s, qh, d), normal(b, s, kh, d), \
+            normal(b, s, kh, d)
+        route = FA.flash_route(bf16, d)
+        got = FA.flash_attention(q, k, v, causal=True)
+        want = TA.gqa_attention(q[:1], k[:1], v[:1], causal=True,
+                                impl="chunked")
+        planted = faults("flash_attention", FA.flash_attention, want,
+                         (q[:1], k[:1], v[:1]), {"causal": True})
+        torch.cuda.synchronize()
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        b_ms, b_by = attn_bound_ms("flash", bf16, b, s, qh, kh, d)
+        row = dict(
+            kernel="flash_attention", arch=arch, cell=cell.name,
+            kernel_route=route,
+            shape=f"B={b} S={s} QH={qh} KH={kh} D={d} causal bfloat16",
+            max_abs_err=float((got[:1].float() - want.float()).abs().max()),
+            max_row_rel_err=row_rel_err(got[:1], want), limit=limit,
+            faults=planted,
+            ms=device_only(lambda: FA.flash_attention(q, k, v, causal=True)),
+            plain_ms=once_ms(lambda: TA.gqa_attention(
+                q[:1], k[:1], v[:1], causal=True, impl="chunked")),
+            plain="chunked route, batch row 0",
+            library_ms=device_only(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by)
+        ok = True
+        del q, k, v, got, want, qt, kt, vt
+    else:
+        s_max = s + DECODE_SLACK
+        q = normal(b, 1, qh, d)
+        kc, vc = normal(b, s_max, kh, d), normal(b, s_max, kh, d)
+        got = DA.decode_attention(q, kc, vc, s)
+        want = decode_plain(q, kc, vc, s)
+        planted = faults("decode_attention", DA.decode_attention, want,
+                         (q, kc, vc, s), {})
+        torch.cuda.synchronize()
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x[:, :s].transpose(1, 2).contiguous() for x in (kc, vc))
+        b_ms, b_by = attn_bound_ms("decode", bf16, b, s, qh, kh, d)
+        row = dict(
+            kernel="decode_attention", arch=arch, cell=cell.name,
+            shape=f"B={b} S_max={s_max} QH={qh} KH={kh} D={d} "
+                  f"length={s} bfloat16",
+            max_abs_err=float((got.float() - want.float()).abs().max()),
+            max_row_rel_err=row_rel_err(got, want), limit=limit,
+            faults=planted,
+            ms=device_only(lambda: DA.decode_attention(q, kc, vc, s)),
+            plain_ms=once_ms(lambda: DA.decode_attention_plain(q, kc, vc,
+                                                               s)),
+            plain="decode_attention_plain",
+            library_ms=device_only(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=True)),
+            bound_ms=b_ms, bound_by=b_by)
+        ok = True
+        del q, kc, vc, got, want, qt, kt, vt
+    torch.cuda.empty_cache()
+    print(json.dumps({"dryrun_kernel": row}), flush=True)
+    ok = ok and row["max_row_rel_err"] <= limit and all(
+        e > limit for e in row["faults"].values())
+    if not ok:
+        raise AssertionError(f"{row['kernel']} at {arch} {cell.name}: {row}")
+    return [row]
+
+
+def dryrun_cut(dev, arch: str, shape: str, batch: "int | None",
+               layers: "int | None") -> dict:
+    """One cell of ``SHAPE_CELLS`` cut to ``batch`` and ``layers``, served
+    on the card: its kernels at its shapes (``dryrun_kernel_rows``), then
+    the step (``launch.dryrun.cell_bundle``: ``build_prefill_step`` /
+    ``build_serve_step``) through the kernel routes on random weights (the
+    idle rwkv6 ``u``/``w0`` and zamba2 LoRA ``*b`` redrawn) and a cache
+    from ``card_args`` (a decode cell's filled with unit-normal keys,
+    values and states at ``length = seq_len``), with every launch counted,
+    held against the same step on the plain routes by
+    ``launch.dryrun.card_compare`` (a prefill on its first
+    ``DRYRUN_PLAIN_ROWS`` prompts): logits and what the step writes into
+    the cache within ``STEP_RTOL`` relative RMS of the plain step's.
+    Then the kernel step twice more on the plain step's rows: under
+    ``LaunchCheck``, each launch within ``DRYRUN_ROW_RTOL`` of its plain
+    version on the same arguments, and with a fault of ``dryrun_faults``
+    planted in every launch, which the check must see (its smallest and
+    largest reading over the launches and how many launches read above
+    the limit are printed: on the step's own activations a layer may
+    attend where the fault does not reach); that run's logits and cache
+    beside the plain step's are printed too, and for the
+    ``DRYRUN_STEP_FAULTS`` cuts must lie past ``STEP_RTOL``.
+    Beside each run its ``torch.cuda.max_memory_allocated``, its measured
+    bytes (``card_run``'s ``step_bytes``) and the meta pass's reckoning of
+    the same cut on the plain routes (``launch.dryrun.account``)."""
+    import dataclasses
+
+    import torch
+    from repro_torch.configs import SHAPE_CELLS, get_config
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import linear_scan as LS
+    from repro_torch.launch import dryrun as TD
+    from repro_torch.meta import distinct_bytes
+    t0 = time.monotonic()
+    cfg = get_config(arch)
+    if DRYRUN_REDUCED:
+        cfg = cfg.reduced()
+    cfg = cut_depth(cfg, layers)
+    cell = SHAPE_CELLS[shape]
+    cell = dataclasses.replace(cell, global_batch=batch or cell.global_batch,
+                               seq_len=DRYRUN_SEQ.get(shape, cell.seq_len))
+    kernels = dryrun_kernel_rows(dev, cfg, cell, arch)
+    kernels_s = time.monotonic() - t0
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    bundle = TD.cell_bundle(cfg, cell, impl="kernel", device=dev)
+    args = TD.card_args(cfg, bundle, cell, g)
+    if cfg.family == "ssm":
+        rwkv_tweak(args[0], g)
+    if cfg.family == "hybrid":
+        zamba_tweak(args[0], g)
+    names = ("flash_attention", "decode_attention", "wkv_linear_scan")
+    wrappers = (FA.flash_attention, DA.decode_attention, LS.wkv_linear_scan)
+    for w in wrappers:
+        w.launches = 0
+    FA.flash_attention.launches_by_route = dict.fromkeys(FA.ROUTES, 0)
+    both = TD.card_compare(cfg, cell, args, rows=DRYRUN_PLAIN_ROWS,
+                           device=dev)
+    launches = {n: w.launches for n, w in zip(names, wrappers)}
+    want = {"prefill": {"flash_attention": cfg.num_layers},
+            "decode": {"decode_attention": cfg.num_layers}}[cell.kind]
+    if cfg.family == "ssm":
+        want = {"wkv_linear_scan": cfg.num_layers}
+    if cfg.family == "hybrid":
+        want = {"decode_attention" if cell.kind == "decode"
+                else "flash_attention":
+                cfg.num_layers // cfg.shared_attn_period}
+    if launches != {n: want.get(n, 0) for n in names}:
+        raise AssertionError(f"{arch} {shape}: launches {launches}, want "
+                             f"{want}")
+    if launches["flash_attention"] and not DRYRUN_REDUCED and (
+            FA.flash_attention.launches_by_route["wgmma"]
+            != launches["flash_attention"]):
+        raise AssertionError(f"flash off wgmma: "
+                             f"{FA.flash_attention.launches_by_route}")
+    run, plain, rows = both["kernel"], both["plain"], both["rows"]
+    pcfg, pcell, want = both["plain_cfg"], both["plain_cell"], both["want"]
+    errs = both["rel_rms"]
+    max_share = {k: dryrun_share(t, want[k]) for k, t in both["got"].items()}
+    # each launch held in the step against its plain version, then a fault
+    # planted in every launch: the check must see it
+    t1 = time.monotonic()
+    with LaunchCheck() as sound:
+        TD.card_run(cfg, pcell, impl="kernel", generator=g,
+                    args=both["again"](), device=dev)
+    plant = {n: dryrun_faults(n, 1 if cell.kind == "decode"
+                              else cell.seq_len)[0] for n in names}
+    with LaunchCheck(fault=plant) as faulty:
+        frun = TD.card_run(cfg, pcell, impl="kernel", generator=g,
+                           args=both["again"](), device=dev)
+    fault_errs = {k: TD.rel_rms(t, want[k])
+                  for k, t in both["outputs"](frun["out"]).items()}
+    checks_s = time.monotonic() - t1
+    held = {k: max(e) for k, e in sound.errs.items()}
+    limit = DRYRUN_ROW_RTOL["bfloat16"]
+    seen = {k: [round(min(e), 6), round(max(e), 6),
+                sum(x > limit for x in e)]
+            for k, e in faulty.errs.items() if k != "wkv_state"}
+    checked = {k: len(e) for k, e in sound.errs.items() if k in names}
+    reckoned = TD.account(cfg, cell)["total_bytes"]
+    reckoned_plain = TD.account(pcfg, pcell)["total_bytes"]
+    out = dict(
+        arch=arch, cell=shape, batch=cell.global_batch,
+        cell_batch=SHAPE_CELLS[shape].global_batch, seq_len=cell.seq_len,
+        layers=cfg.num_layers, cell_layers=get_config(arch).num_layers,
+        cut=f"batch {cell.global_batch} of "
+            f"{SHAPE_CELLS[shape].global_batch}, {cfg.num_layers} of "
+            f"{get_config(arch).num_layers} layers",
+        cache_bytes=distinct_bytes(args[2]), launches=launches,
+        kernel_step_s=run["seconds"], plain_step_s=plain["seconds"],
+        kernels_s=kernels_s, checks_s=checks_s,
+        plain_rows=rows, rel_rms_err=errs, max_share_err=max_share,
+        limit=TD.STEP_RTOL, launch_row_rel_err=held,
+        launch_limits=DRYRUN_ROW_RTOL, launches_checked=checked,
+        faults={n: " ".join(f.__doc__.split()) for n, f in plant.items()
+                if launches[n]},
+        fault_launch_row_rel_err=seen, fault_rel_rms_err=fault_errs,
+        kernel_step_bytes=run["step_bytes"], reckoned_bytes=reckoned,
+        plain_step_bytes=plain["step_bytes"],
+        reckoned_plain_bytes=reckoned_plain,
+        kernel_max_memory_allocated=run["max_memory_allocated"],
+        plain_max_memory_allocated=plain["max_memory_allocated"],
+        kernels=kernels)
+    del run, plain, frun, both, want, args
+    torch.cuda.empty_cache()
+    out["seconds"] = time.monotonic() - t0
+    emit("dryrun_cut", **out)
+    bad = {k: e for k, e in errs.items() if not e <= TD.STEP_RTOL}
+    bad.update({f"launch {k}": e for k, e in held.items()
+                if not e <= DRYRUN_ROW_RTOL[
+                    "state" if k == "wkv_state" else "bfloat16"]})
+    bad.update({f"fault unseen in {k}": e for k, e in seen.items()
+                if not e[2]})
+    if checked != {n: c for n, c in launches.items() if c}:
+        bad["launches checked"] = checked
+    if (arch, shape) in DRYRUN_STEP_FAULTS and not max(
+            fault_errs.values()) > TD.STEP_RTOL:
+        bad["fault unseen in the step"] = fault_errs
+    if bad:
+        raise AssertionError(f"{arch} {shape}: kernel step off the plain "
+                             f"step: {bad}")
+    return out
+
+
+def dryrun_launches(dry: dict, name: str) -> int:
+    """``name``'s launches over the dryrun phase's cut steps."""
+    return sum(c["launches"][name] for c in dry["cut_results"])
+
+
+def dryrun_shapes(dry: dict, name: str) -> list[dict]:
+    """``name``'s rows at the cut cells' shapes, with its launches in each
+    cell's kernel step."""
+    return [dict(k, launches_in_step=c["launches"][name])
+            for c in dry["cut_results"] for k in c["kernels"]
+            if k["kernel"] == name]
+
+
+def phase_dryrun(dev) -> dict:
+    """The dryrun phase: (a) ``python -m repro_torch.launch.dryrun`` in a
+    subprocess (no card, ``DRYRUN_JOBS`` workers), every runnable (arch x
+    shape) cell accounted on the meta device -- 32 ok, 0 failed, 8
+    skipped, one ``dryrun_meta`` line a cell from its JSON --, while (b)
+    ``dryrun_cut`` serves the ``DRYRUN_CELLS`` cuts on the card.  Returns
+    the cut results and the meta summary."""
+    import os
+    import signal
+
+    import repro_torch
+    from repro_torch.configs import ARCHS, cells_for, skipped_cells_for
+    t0 = time.monotonic()
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    src = Path(repro_torch.__file__).resolve().parents[1]
+    archs = [DRYRUN_META_ARCH] if DRYRUN_META_ARCH else list(ARCHS)
+    cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--out",
+           str(out_dir), "--force", "--jobs", str(DRYRUN_JOBS)]
+    if DRYRUN_META_ARCH:
+        cmd += ["--arch", DRYRUN_META_ARCH]
+    env = dict(os.environ, PYTHONPATH=str(src), CUDA_VISIBLE_DEVICES="")
+    # its own session, so its pool's workers go with it on a failure
+    meta = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            start_new_session=True)
+    try:
+        cuts = [dryrun_cut(dev, *c) for c in DRYRUN_CELLS]
+        cut_s = time.monotonic() - t0
+        text, _ = meta.communicate(timeout=DRYRUN_META_TIMEOUT_S)
+    finally:
+        if meta.poll() is None:
+            os.killpg(meta.pid, signal.SIGKILL)
+            meta.wait()
+    n_cells = sum(len(cells_for(a)) for a in archs)
+    n_skip = sum(len(skipped_cells_for(a)) for a in archs)
+    summary = f"dry-run: {n_cells} ok, 0 failed, {n_skip} skipped"
+    if meta.returncode != 0 or summary not in text:
+        raise AssertionError(f"meta dry-run: rc {meta.returncode}, want "
+                             f"{summary!r}:\n{text[-4000:]}")
+    records = []
+    for arch in archs:
+        for shape in cells_for(arch):
+            rec = json.loads((out_dir / f"{arch}__{shape}.json").read_text())
+            rec = {k: rec[k] for k in (
+                "arch", "shape", "param_bytes", "input_bytes",
+                "opt_state_bytes", "output_bytes", "peak_temp_bytes",
+                "total_bytes", "flops", "fits_one_card", "cut", "seconds")
+                if k in rec}
+            print(json.dumps({"dryrun_meta": rec}), flush=True)
+            records.append(rec)
+    meta_s = max(r["seconds"] for r in records)
+    out = dict(seconds=time.monotonic() - t0, cuts_seconds=cut_s,
+               meta_summary=summary, meta_cells=len(records),
+               meta_longest_cell_s=meta_s,
+               meta_cell_s_sum=sum(r["seconds"] for r in records),
+               cuts=[{k: c[k] for k in ("arch", "cell", "cut", "seconds",
+                                        "kernel_step_s", "rel_rms_err",
+                                        "launch_row_rel_err",
+                                        "fault_launch_row_rel_err",
+                                        "fault_rel_rms_err",
+                                        "kernel_step_bytes",
+                                        "kernel_max_memory_allocated",
+                                        "reckoned_bytes", "plain_rows",
+                                        "plain_step_bytes",
+                                        "reckoned_plain_bytes")}
+                     for c in cuts])
+    emit("dryrun", **out)
+    out["cut_results"] = cuts
     return out
 
 
@@ -3358,6 +3967,9 @@ def main(argv: list[str]) -> int:
     only.add_argument("--train-families-only", action="store_true",
                       help="run only the build of the quantize pair and "
                            "the train_families phase")
+    only.add_argument("--dryrun-only", action="store_true",
+                      help="run only the build of the attention and wkv "
+                           "kernels and the dryrun phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive "
                          "(default: this checkout's); with one of the "
@@ -3385,6 +3997,7 @@ def main(argv: list[str]) -> int:
      else run_families if args.families_only
      else run_encdec if args.encdec_only
      else run_train_families if args.train_families_only
+     else run_dryrun if args.dryrun_only
      else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3530,6 +4143,23 @@ def run_train_families(dev) -> None:
     from repro_torch.kernels import quantize as Q
     build_only("quantize_blocks", Q._load_lib)
     phase_train_families(dev)
+
+
+def run_dryrun(dev) -> None:
+    """``--dryrun-only``: build the two attention kernels and the wkv scan,
+    then the dryrun phase."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import linear_scan as LS
+    t0 = time.monotonic()
+    paths = build.build(["flash_attention", "decode_attention",
+                         "wkv_linear_scan"])
+    for mod in (FA, DA, LS):
+        mod._load_lib()
+    emit("build", seconds=time.monotonic() - t0,
+         functions=ptxas_functions(paths))
+    phase_dryrun(dev)
 
 
 def run(dev) -> None:
@@ -3758,6 +4388,8 @@ def run(dev) -> None:
     quant, train_run = phase_training(dev)
     # -- training every family, at published widths (some cut in depth) --
     families = phase_train_families(dev)
+    # -- the dry-run: every cell on meta, five cut cells on the card -----
+    dry = phase_dryrun(dev)
     # -- the camera node: device rings and the knob kernel ----------------
     knobs_row = knobs_kernel_row(*phase_camera(dev))
     # -- the scripted-experiment path: scenarios, federation, MQTT ---------
@@ -3800,7 +4432,8 @@ def run(dev) -> None:
                 SERVE_ARCH: timed["launches"][name],
                 **{a: z["launches"][name]
                    for a, z in {**zoo_serves, **fam_serves}.items()},
-                ENC_ARCH: enc_timed["launches"][name]},
+                ENC_ARCH: enc_timed["launches"][name],
+                "dryrun": dryrun_launches(dry, name)},
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "max_abs_err_float32": max(r["max_abs_err"] for r in mine
@@ -3837,7 +4470,9 @@ def run(dev) -> None:
                 and r["dtype"] == "bfloat16" and (
                     name == "flash_attention" or r["path"] == "cross"
                     or r["length"] == max(1, ENC_PROMPT // 8)
-                    + ENC_GEN // 2)]})
+                    + ENC_GEN // 2)],
+            # the dry-run's cut cells: 32k and 500k rows
+            "dryrun_shapes": dryrun_shapes(dry, name)})
 
     # the main path's kernel work: one characterize sweep and one re-sweep
     main = [r for r in rows if r["case"] in ("characterize", "resweep")]
@@ -3867,7 +4502,10 @@ def run(dev) -> None:
                  f"bound {big['bound_ms']:.3f} ms",
         # the scenario path's own launches at 144x256, checked and timed
         "scenario_path": scen["kernel"]},
-        *serve_kernels, wkv_kernel,
+        *serve_kernels, dict(wkv_kernel, launches_by_path={
+            RWKV_ARCH: wkv_kernel["launches"],
+            "dryrun": dryrun_launches(dry, "wkv_linear_scan")},
+            dryrun_shapes=dryrun_shapes(dry, "wkv_linear_scan")),
         *quant_kernel_rows(quant, train_run, families), knobs_row]}),
         flush=True)
 

@@ -11,10 +11,14 @@ the two LoRA ranks), the VLM family (``mrope_sections``, and
 family (the Mamba2 backbone's ``ssm_*`` fields, ``shared_attn_period``
 and ``lora_rank``), the enc-dec family (``is_encoder_decoder`` and
 ``num_decoder_layers``: ``num_layers`` counts the encoder's layers) and
-the training fields (``remat``, ``train_microbatches``).  ``ShapeCell`` and
-``SHAPE_CELLS`` wait for the dry-run's port (ROADMAP Queue 1, the
-dry-run), and the MoE sharding hint ``moe_parallel`` for its first reader
-(ROADMAP Queue 1, fleet mesh and sharding).
+the training fields (``remat``, ``train_microbatches``).  The MoE sharding
+hint ``moe_parallel`` waits for its first reader (ROADMAP Queue 1, fleet
+mesh and sharding).
+
+``ShapeCell`` and ``SHAPE_CELLS`` are the JAX package's input shapes, one
+cell a (kind, sequence length, global batch); ``param_count`` /
+``active_param_count`` are its analytic parameter counts, equal to the JAX
+package's integer for integer.
 
 ``attention_impl`` takes ``"naive" | "chunked" | "kernel"``: ``"kernel"``
 is the port's hand-written CUDA kernels (attention for the dense, MoE,
@@ -34,7 +38,8 @@ import dataclasses
 
 import torch
 
-__all__ = ["ModelConfig", "dtype_of", "ATTENTION_IMPLS", "REMAT_POLICIES"]
+__all__ = ["ModelConfig", "ShapeCell", "SHAPE_CELLS", "dtype_of",
+           "ATTENTION_IMPLS", "REMAT_POLICIES"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -130,6 +135,15 @@ class ModelConfig:
         in the serve path."""
         return ((self.vocab_size + 255) // 256) * 256
 
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic backbones only (SSM / hybrid)."""
+        return self.family in ("ssm", "hybrid")
+
     def reduced(self) -> "ModelConfig":
         """Smoke-test configuration: same family and wiring, tiny dims --
         the JAX package's ``reduced()`` for the fields kept here (at most 8
@@ -168,3 +182,70 @@ class ModelConfig:
             param_dtype="float32",
             compute_dtype="float32",
         )
+
+    # -- parameter counting (the JAX package's analytic counts) ---------------
+    def param_count(self) -> int:
+        """Analytic parameter count, embedding included: the JAX package's
+        formula (approximate for rwkv6 and zamba2, whose trees it counts
+        by their main matrices; exact for the others)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab_size
+        h, kh, hd = self.num_heads, self.num_kv_heads, self.head_dim
+        attn = d * h * hd + 2 * d * kh * hd + h * hd * d
+        mlp = 3 * d * f if self.act == "swiglu" else 2 * d * f
+        per_layer_dense = attn + mlp + 2 * d
+        if self.family == "moe":
+            moe = (self.num_experts * mlp + d * self.num_experts
+                   + self.num_shared_experts * mlp)
+            total = self.num_layers * (attn + moe + 2 * d)
+        elif self.family == "ssm":       # rwkv6: r, k, v, g, o and the LoRAs
+            tm = (5 * d * d + 5 * self.rwkv_mix_lora * 2 * d
+                  + self.rwkv_decay_lora * 2 * d)
+            total = self.num_layers * (tm + 2 * d * f + 2 * d)
+        elif self.family == "hybrid":    # zamba2: mamba2 backbone + shared attn
+            d_in = d * self.ssm_expand
+            nheads = d_in // self.ssm_headdim
+            mamba = (d * (2 * d_in + 2 * self.ssm_state + nheads)  # in_proj
+                     + d_in * d                                    # out_proj
+                     + self.ssm_conv * (d_in + 2 * self.ssm_state)
+                     + 2 * nheads)                                 # A, D
+            total = self.num_layers * (mamba + 2 * d)
+            n_inv = self.num_layers // max(1, self.shared_attn_period)
+            total += per_layer_dense + n_inv * self.lora_rank * 2 * d * 4
+        else:
+            total = self.num_layers * per_layer_dense
+        if self.is_encoder_decoder:      # decoder layers add cross attention
+            total += self.num_decoder_layers * (per_layer_dense + attn + d)
+        total += v * d                   # embeddings
+        if not self.tie_embeddings:
+            total += v * d               # lm head
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active parameters a token (MoE: only the routed experts)."""
+        if self.family != "moe":
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        expert = 3 * d * f if self.act == "swiglu" else 2 * d * f
+        inactive = (self.num_experts - self.num_experts_per_token) * expert
+        return int(self.param_count() - self.num_layers * inactive)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One input shape of a step: ``kind`` train | prefill | decode."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPE_CELLS = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}

@@ -31,8 +31,8 @@ import ctypes
 
 import torch
 
-__all__ = ["decode_attention", "decode_attention_plain", "KERNEL_DTYPES",
-           "KERNEL_HEAD_DIMS", "KERNEL_GROUPS"]
+__all__ = ["decode_attention", "decode_attention_plain", "launch_limits",
+           "KERNEL_DTYPES", "KERNEL_HEAD_DIMS", "KERNEL_GROUPS"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
@@ -94,12 +94,34 @@ def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                            f"[1, {k_cache.shape[1]}], got {length!r}")
 
 
+INT32_MAX = 2 ** 31 - 1
+GRID_YZ_MAX = 65535         # CUDA's limit on a grid's y and z extents
+
+
+def launch_limits(b: int, s_max: int, qh: int, kh: int, d: int) -> None:
+    """Raise ``RuntimeError`` for a shape the kernel cannot index.  It
+    addresses the caches with 64-bit offsets (a layer of zamba2's 500k
+    cache, 3.76 GB, is fine), takes each extent as a 32-bit int, and
+    launches a grid of (splits, KH, B) blocks, whose y and z extents CUDA
+    caps at 65535."""
+    dims = dict(B=b, S_max=s_max, QH=qh, KH=kh, D=d)
+    big = {k: v for k, v in dims.items() if not 0 < v <= INT32_MAX}
+    if big:
+        raise RuntimeError(f"decode_attention: extents {big} outside the "
+                           f"kernel's 32-bit int arguments")
+    over = {k: v for k, v in dict(KH=kh, B=b).items() if v > GRID_YZ_MAX}
+    if over:
+        raise RuntimeError(f"decode_attention: grid extents {over} over "
+                           f"CUDA's {GRID_YZ_MAX}")
+
+
 def _launch(q, k_cache, v_cache, length: int, scale: float) -> torch.Tensor:
     if q.dtype not in KERNEL_DTYPES:
         raise RuntimeError(f"decode_attention: the kernel takes float32 or "
                            f"bfloat16, got {q.dtype}")
     b, _, qh, d = q.shape
     s_max, kh = k_cache.shape[1], k_cache.shape[2]
+    launch_limits(b, s_max, qh, kh, d)
     if d not in KERNEL_HEAD_DIMS or qh // kh not in KERNEL_GROUPS:
         raise RuntimeError(f"decode_attention: the kernel takes head_dim in "
                            f"{KERNEL_HEAD_DIMS} and q heads per kv head in "

@@ -37,7 +37,7 @@ import ctypes
 import torch
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_route",
-           "KERNEL_DTYPES", "KERNEL_HEAD_DIMS", "ROUTES"]
+           "launch_limits", "KERNEL_DTYPES", "KERNEL_HEAD_DIMS", "ROUTES"]
 
 KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 KERNEL_HEAD_DIMS = (16, 32, 64, 112, 128)
@@ -106,6 +106,30 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                            f"({q.dtype}, {k.dtype}, {v.dtype})")
 
 
+INT32_MAX = 2 ** 31 - 1
+GRID_YZ_MAX = 65535         # CUDA's limit on a grid's y and z extents
+
+
+def launch_limits(b: int, sq: int, sk: int, qh: int, kh: int, d: int,
+                  route: str) -> None:
+    """Raise ``RuntimeError`` for a shape the kernels cannot index.  They
+    address q, k, v and the output with 64-bit offsets (a q of 2^31
+    elements and more is fine), take each extent as a 32-bit int, and
+    launch a grid of (QH, B, Sq / 128) blocks on ``wgmma``, (Sq / 64, QH,
+    B) on ``ffma``, whose y and z extents CUDA caps at 65535."""
+    dims = dict(B=b, Sq=sq, Sk=sk, QH=qh, KH=kh, D=d)
+    big = {k: v for k, v in dims.items() if not 0 < v <= INT32_MAX}
+    if big:
+        raise RuntimeError(f"flash_attention: extents {big} outside the "
+                           f"kernel's 32-bit int arguments")
+    yz = ({"B": b, "Sq / 128": -(-sq // 128)} if route == "wgmma"
+          else {"QH": qh, "B": b})
+    over = {k: v for k, v in yz.items() if v > GRID_YZ_MAX}
+    if over:
+        raise RuntimeError(f"flash_attention: grid extents {over} over "
+                           f"CUDA's {GRID_YZ_MAX}")
+
+
 def flash_route(dtype: torch.dtype, head_dim: int) -> str:
     """The kernel route a CUDA call with inputs of ``dtype`` and
     ``head_dim`` takes -- a choice by shape and type, made before any
@@ -130,6 +154,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     b, sq, qh, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
     route = flash_route(q.dtype, d)
+    launch_limits(b, sq, sk, qh, kh, d, route)
     if not (q.device == k.device == v.device):
         raise RuntimeError("flash_attention: q, k, v on different devices")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):

@@ -37,6 +37,8 @@ import ctypes
 
 import torch
 
+from repro_torch.meta import loop_repeats, repeated
+
 __all__ = ["wkv", "wkv_linear_scan", "wkv_plain", "KERNEL_DTYPES",
            "KERNEL_HEAD_DIMS"]
 
@@ -94,28 +96,41 @@ def wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     state = (torch.zeros((b, h, kd, kd), dtype=torch.float32, device=r.device)
              if state0 is None else state0.float())
     ys = []
-    for rb, kb, vb, wb in zip(rq, kq, vq, wq):           # [B, q, H, K]
-        cum = torch.cumsum(wb, dim=1)
-        cum_tm1 = cum - wb                               # cum_{t-1}
-        # D[t,s,k] = exp(cum_tm1[t] - cum[s]) for s < t; the exponent is
-        # masked before exp (s > t entries are positive and can overflow)
-        expo = cum_tm1[:, :, None] - cum[:, None, :, :, :]
-        expo = expo.masked_fill(~mask[None, :, :, None, None], float("-inf"))
-        att = torch.einsum("btshk,bshk->bths", rb[:, :, None] * expo.exp_(),
-                           kb)
-        y = torch.einsum("bths,bshv->bthv", att, vb)
-        # diagonal (bonus) term
-        y = y + (rb * u * kb).sum(-1, keepdim=True) * vb
-        # incoming state term: r_t . diag(exp(cum_{t-1})) state
-        rdec = rb * torch.exp(cum_tm1)
-        y = y + torch.einsum("bthk,bhkv->bthv", rdec, state)
-        # state update
-        dec_end = torch.exp(cum[:, -1:] - cum)           # [B, q, H, K]
-        state = (torch.exp(cum[:, -1])[..., None] * state
-                 + torch.einsum("bthk,bthv->bhkv", kb * dec_end, vb))
+    # on the meta device a representative chunk stands for the middle ones
+    # (``repro_torch.meta.loop_repeats``)
+    for i, n_rep in enumerate(loop_repeats(s // q, r)):
+        if not n_rep:
+            ys.append(torch.empty_like(ys[-1]))
+            continue
+        with repeated(n_rep):
+            y, state = _wkv_chunk(rq[i], kq[i], vq[i], wq[i], u, state, mask)
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(b, s, h, kd)
     return y.to(r.dtype), state
+
+
+def _wkv_chunk(rb, kb, vb, wb, u, state, mask):
+    """One chunk ``[B, q, H, K]`` of ``wkv_plain``: (y, the state after
+    it)."""
+    cum = torch.cumsum(wb, dim=1)
+    cum_tm1 = cum - wb                               # cum_{t-1}
+    # D[t,s,k] = exp(cum_tm1[t] - cum[s]) for s < t; the exponent is
+    # masked before exp (s > t entries are positive and can overflow)
+    expo = cum_tm1[:, :, None] - cum[:, None, :, :, :]
+    expo = expo.masked_fill(~mask[None, :, :, None, None], float("-inf"))
+    att = torch.einsum("btshk,bshk->bths", rb[:, :, None] * expo.exp_(),
+                       kb)
+    y = torch.einsum("bths,bshv->bthv", att, vb)
+    # diagonal (bonus) term
+    y = y + (rb * u * kb).sum(-1, keepdim=True) * vb
+    # incoming state term: r_t . diag(exp(cum_{t-1})) state
+    rdec = rb * torch.exp(cum_tm1)
+    y = y + torch.einsum("bthk,bhkv->bthv", rdec, state)
+    # state update
+    dec_end = torch.exp(cum[:, -1:] - cum)           # [B, q, H, K]
+    state = (torch.exp(cum[:, -1])[..., None] * state
+             + torch.einsum("bthk,bthv->bhkv", kb * dec_end, vb))
+    return y, state
 
 
 def _check(r, k, v, logw, u, state0) -> None:

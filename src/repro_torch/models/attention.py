@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as _decode_kernel
 from repro_torch.kernels import flash_attention as _flash_kernel
+from repro_torch.meta import loop_repeats, repeated
 from repro_torch.models.layers import NEG_INF
 
 __all__ = ["gqa_attention", "decode_attention"]
@@ -66,29 +67,42 @@ def _chunked_attention(q, k, v, *, causal: bool, scale: float,
                    device=q.device)
     l = torch.zeros((b, kh, g, sq), dtype=torch.float32, device=q.device)
     acc = torch.zeros((b, sq, kh, g, d), dtype=torch.float32, device=q.device)
-    for ci in range(n_chunks):
-        kb = k[:, ci * chunk:(ci + 1) * chunk]
-        vb = v[:, ci * chunk:(ci + 1) * chunk]
-        n = kb.shape[1]
-        if n < chunk:            # the JAX scan zero-pads the last chunk
-            pad = (0, 0, 0, 0, 0, chunk - n)
-            kb = torch.nn.functional.pad(kb, pad)
-            vb = torch.nn.functional.pad(vb, pad)
-        s = torch.einsum("bqkgd,bskd->bkgqs", q32, kb.float()) * scale
-        kpos = ci * chunk + torch.arange(chunk, device=q.device)[None, :]
-        mask = kpos < sk
-        if causal:
-            mask = mask & (qpos >= kpos)
-        s = torch.where(mask, s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(-1)
-        upd = torch.einsum("bkgqs,bskd->bqkgd", p.to(vb.dtype).float(),
-                           vb.float())
-        acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + upd
-        m = m_new
+    # on the meta device a representative chunk stands for the middle ones
+    # (``repro_torch.meta.loop_repeats``)
+    for ci, n_rep in enumerate(loop_repeats(n_chunks, q)):
+        if n_rep:
+            with repeated(n_rep):
+                m, l, acc = _chunk_step(q32, k, v, m, l, acc, qpos, ci,
+                                        chunk=chunk, causal=causal,
+                                        scale=scale)
     return acc / l.clamp_min(1e-37).permute(0, 3, 1, 2)[..., None]
+
+
+def _chunk_step(q32, k, v, m, l, acc, qpos, ci: int, *, chunk: int,
+                causal: bool, scale: float):
+    """One KV chunk of the online softmax: the new (max, sum, acc)."""
+    sk = k.shape[1]
+    kb = k[:, ci * chunk:(ci + 1) * chunk]
+    vb = v[:, ci * chunk:(ci + 1) * chunk]
+    n = kb.shape[1]
+    if n < chunk:            # the JAX scan zero-pads the last chunk
+        pad = (0, 0, 0, 0, 0, chunk - n)
+        kb = torch.nn.functional.pad(kb, pad)
+        vb = torch.nn.functional.pad(vb, pad)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q32, kb.float()) * scale
+    kpos = ci * chunk + torch.arange(chunk, device=q32.device)[None, :]
+    mask = kpos < sk
+    if causal:
+        mask = mask & (qpos >= kpos)
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(-1))
+    alpha = torch.exp(m - m_new)
+    p = torch.exp(s - m_new[..., None])
+    l = l * alpha + p.sum(-1)
+    upd = torch.einsum("bkgqs,bskd->bqkgd", p.to(vb.dtype).float(),
+                       vb.float())
+    acc = acc * alpha.permute(0, 3, 1, 2)[..., None] + upd
+    return m_new, l, acc
 
 
 def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.meta import checkpoint_repeated, loop_repeats, repeated
 from repro_torch.models.layers import init_linear, rms_norm
 
 __all__ = ["Mamba2State", "mamba2_shapes", "init_mamba2", "ssd_chunked",
@@ -159,14 +160,27 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     hcur = (torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
             if h0 is None else h0.float())
     remat = remat and torch.is_grad_enabled()
-    ys = []
-    for c0 in range(0, s, q):
+    ys, hold = [], []
+    # on the meta device a representative chunk stands for the middle ones
+    # (``repro_torch.meta.loop_repeats``); under remat a skipped chunk
+    # leaves the state it would have saved in ``hold``
+    reps = loop_repeats(s // q, x, checkpointed=remat)
+    for c0, n_rep in zip(range(0, s, q), reps):
+        if not n_rep:
+            ys.append(torch.empty_like(ys[-1]))
+            if remat:
+                hold.append(torch.empty_like(hcur))
+            continue
         args = (hcur, x[:, c0:c0 + q], dt[:, c0:c0 + q], B[:, c0:c0 + q],
                 C[:, c0:c0 + q], A)
-        if remat:
+        if remat and n_rep > 1:
+            hcur, y = checkpoint_repeated(n_rep, _ssd_chunk, args, hold)
+            hold = []
+        elif remat:
             hcur, y = checkpoint(_ssd_chunk, *args, use_reentrant=False)
         else:
-            hcur, y = _ssd_chunk(*args)
+            with repeated(n_rep):
+                hcur, y = _ssd_chunk(*args)
         ys.append(y)
     y = torch.cat(ys, dim=1) + D[:, None] * x.float()
     return y.to(x.dtype), hcur

@@ -7,9 +7,13 @@ module (``init_params``, ``forward``, ``loss_fn``, ``init_cache``,
 ``prefill``, ``decode_step``); ``make_batch`` draws random batches from a
 ``torch.Generator``: tokens, with labels for training, for the VLM family
 the stub frontend's patch embeddings before the text, and for the audio
-family the encoder's stub frame embeddings.  ``input_specs`` /
-``cache_spec`` wait for the dry-run's port (ROADMAP Queue 1, the
-dry-run).
+family the encoder's stub frame embeddings.
+
+``param_specs``, ``input_specs`` and ``cache_spec`` are the counterparts of
+the JAX package's ``jax.eval_shape`` / ``jax.ShapeDtypeStruct`` stand-ins:
+tensors on ``torch.device("meta")`` of the same shapes and dtypes, which
+allocate nothing.  The dry-run (``launch/dryrun.py``) runs a cell's step
+on them.
 """
 
 from __future__ import annotations
@@ -19,11 +23,13 @@ from types import ModuleType
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, dtype_of
+from repro_torch.configs.base import ModelConfig, ShapeCell, dtype_of
 from repro_torch.device import resolve_device
+from repro_torch.meta import META, MetaPass
 from repro_torch.models import encdec, rwkv6, transformer, zamba2
 
-__all__ = ["Model", "build_model", "make_batch", "DECODE_SLACK"]
+__all__ = ["Model", "build_model", "make_batch", "param_specs",
+           "input_specs", "cache_spec", "DECODE_SLACK"]
 
 # Extra KV-cache slots past the served length (the JAX package's value:
 # 256 keeps S_max divisible by its mesh axes; the port keeps it so both
@@ -77,6 +83,69 @@ def build_model(cfg: ModelConfig) -> Model:
     return Model(cfg=cfg, module=module)
 
 
+# -----------------------------------------------------------------------------
+# meta stand-ins per shape cell
+# -----------------------------------------------------------------------------
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameter tree of ``cfg`` on the meta device: ``init_params``'s
+    leaves, shapes and dtypes, with no storage (a meta tensor's draw
+    computes nothing; ``MetaPass`` runs the init's repeated draws once)."""
+    with MetaPass():
+        return build_model(cfg).init_params(torch.Generator(), device=META)
+
+
+def _batch_structs(cfg: ModelConfig, b: int, s: int, *, train: bool) -> dict:
+    """Token / embedding / label stand-ins for one step over ``[b, s]``
+    positions (the JAX ``_batch_structs``; ``make_batch``'s split)."""
+    compute = dtype_of(cfg.compute_dtype)
+
+    def empty(shape, dtype=torch.int32):
+        return torch.empty(shape, dtype=dtype, device=META)
+
+    specs: dict[str, torch.Tensor] = {}
+    if cfg.family == "vlm":
+        s_text = max(1, s - cfg.frontend_tokens)
+        specs["tokens"] = empty((b, s_text))
+        specs["patch_embeds"] = empty((b, cfg.frontend_tokens, cfg.d_model),
+                                      compute)
+    elif cfg.family == "audio":
+        s_enc = s // 2 if train else s
+        s_text = s - s_enc if train else max(1, s // 8)
+        specs["embeds"] = empty((b, s_enc, cfg.d_model), compute)
+        specs["tokens"] = empty((b, s_text))
+    else:
+        s_text = s
+        specs["tokens"] = empty((b, s))
+    if train:
+        specs["labels"] = empty((b, s_text))
+    return specs
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell) -> dict:
+    """Meta stand-ins for the inputs of this (arch, cell)'s step:
+    ``{"batch": ...}`` for a train or prefill cell, ``{"tokens": [B, 1],
+    "cache": cache_spec(...)}`` for a decode cell."""
+    b, s = cell.global_batch, cell.seq_len
+    if cell.kind in ("train", "prefill"):
+        return {"batch": _batch_structs(cfg, b, s,
+                                        train=cell.kind == "train")}
+    if cell.kind == "decode":
+        return {"tokens": torch.empty((b, 1), dtype=torch.int32,
+                                      device=META),
+                "cache": cache_spec(cfg, b, s)}
+    raise ValueError(cell.kind)
+
+
+def cache_spec(cfg: ModelConfig, b: int, s: int):
+    """``init_cache(b, s + DECODE_SLACK)`` on the meta device (the audio
+    family's encoder rows ``enc_len = s``), at length 0."""
+    kw = {"enc_len": s} if cfg.family == "audio" else {}
+    return build_model(cfg).init_cache(b, s + DECODE_SLACK, device=META,
+                                       **kw)
+
+
 def make_batch(cfg: ModelConfig, b: int, s: int, *,
                generator: torch.Generator,
                device: "torch.device | str | None" = None,
@@ -94,24 +163,17 @@ def make_batch(cfg: ModelConfig, b: int, s: int, *,
     normal`` in the compute dtype.  Drawn from ``generator`` on ``device``
     (default ``"cuda"``)."""
     dev = resolve_device(device)
-    n_embed, s_text = 0, s
-    if cfg.family == "vlm":
-        n_embed, s_text = cfg.frontend_tokens, max(1, s - cfg.frontend_tokens)
-    elif cfg.family == "audio":
-        n_embed = s // 2 if train else s
-        s_text = s - n_embed if train else max(1, s // 8)
-
-    def tokens():
-        return torch.randint(0, cfg.vocab_size, (b, s_text),
-                             generator=generator, device=dev,
-                             dtype=torch.int32)
-
-    out = {"tokens": tokens()}
-    if cfg.family in ("vlm", "audio"):
-        key = "patch_embeds" if cfg.family == "vlm" else "embeds"
-        out[key] = (torch.randn((b, n_embed, cfg.d_model),
-                                generator=generator, device=dev) * 0.02
-                    ).to(dtype_of(cfg.compute_dtype))
-    if train:
-        out["labels"] = tokens()
+    specs = _batch_structs(cfg, b, s, train=train)
+    out = {}
+    for name in ("tokens", "patch_embeds", "embeds", "labels"):
+        if name not in specs:
+            continue
+        spec = specs[name]
+        if spec.is_floating_point():
+            out[name] = (torch.randn(spec.shape, generator=generator,
+                                     device=dev) * 0.02).to(spec.dtype)
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, spec.shape,
+                                      generator=generator, device=dev,
+                                      dtype=spec.dtype)
     return out

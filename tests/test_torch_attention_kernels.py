@@ -298,3 +298,96 @@ def test_cuda_decode_one_launch_bit_stable(card, length, dtype):
     assert torch.equal(got, again)
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[str(dtype).removeprefix("torch.")], err
+
+
+def test_flash_launch_limits():
+    """The wrappers refuse what the kernels cannot index, and let through
+    what their 64-bit offsets hold: qwen3's whole ``prefill_32k`` q is
+    2^31 elements (32 x 32768 x 16 x 128)."""
+    FA.launch_limits(32, 32768, 32768, 16, 8, 128, "wgmma")
+    FA.launch_limits(32, 32768, 32768, 16, 8, 128, "ffma")
+    assert 32 * 32768 * 16 * 128 == 2 ** 31
+    with pytest.raises(RuntimeError, match="grid extents"):
+        FA.launch_limits(65536, 64, 64, 16, 8, 128, "wgmma")
+    with pytest.raises(RuntimeError, match="grid extents"):
+        FA.launch_limits(1, 65535 * 128 + 1, 64, 16, 8, 128, "wgmma")
+    with pytest.raises(RuntimeError, match="grid extents"):
+        FA.launch_limits(1, 64, 64, 65536, 8, 128, "ffma")
+    with pytest.raises(RuntimeError, match="32-bit"):
+        FA.launch_limits(1, 2 ** 31, 64, 16, 8, 128, "ffma")
+
+
+def test_decode_launch_limits():
+    """zamba2's ``long_500k`` layer cache (524544 x 32 x 112 bf16, 3.76 GB
+    a tensor) passes; a batch past the grid's z extent does not."""
+    DA.launch_limits(1, 524544, 32, 32, 112)
+    with pytest.raises(RuntimeError, match="grid extents"):
+        DA.launch_limits(65536, 64, 8, 8, 128)
+    with pytest.raises(RuntimeError, match="32-bit"):
+        DA.launch_limits(1, 2 ** 31, 8, 8, 128)
+
+
+# At long context an absolute limit sees nothing (decode over 524288
+# unit-normal keys gives |o| ~ 2e-3), so the long-context shapes are held
+# row by row: the largest over rows of ||kernel - plain|| / ||plain||.
+# Sound, the two round apart by about a bf16 step in some of a row's
+# values; skipping m of n near-uniform keys moves a row by ~sqrt(m e / n).
+ROW_RTOL = 2.0 ** -6
+
+
+def _row_rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return (torch.linalg.vector_norm(got - want, dim=-1)
+            / torch.linalg.vector_norm(want, dim=-1).clamp_min(1e-30)
+            ).max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_long_context_shapes(card):
+    """The kernels at the dry-run's long-context shapes, bfloat16, on
+    seeded unit-normal inputs, held row by row (``ROW_RTOL``), and planted
+    faults shown to fail that check: decode over 524288 of 524544 cache
+    rows at zamba2's heads (``long_500k``: 32 heads of 112, G 1; a cache
+    tensor 3.76 GB, past 32-bit byte offsets) against
+    ``decode_attention_plain``, with its last split of 8 or its last 256
+    rows skipped as the faults; flash at qwen3's ``prefill_32k`` shape cut
+    to batch 2 (S 32768, QH 16 over KH 8, D 128, causal, on ``wgmma``) --
+    the plain version's float32 scores would take 137 GB, so batch row 0
+    is held, all its 32768 query rows, against the chunked plain route
+    (``models.attention``, ``impl="chunked"``) -- with its last key tile
+    read from the tile before as the fault."""
+    g = torch.Generator(device=card)
+    g.manual_seed(0)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=card).to(
+            torch.bfloat16)
+
+    s_max, length = 524288 + 256, 524288
+    q, kc, vc = normal(1, 1, 32, 112), normal(1, s_max, 32, 112), \
+        normal(1, s_max, 32, 112)
+    before = DA.decode_attention.launches
+    got = DA.decode_attention(q, kc, vc, length)
+    want = DA.decode_attention_plain(q, kc, vc, length)
+    torch.cuda.synchronize()
+    assert DA.decode_attention.launches == before + 1
+    assert _row_rel_err(got, want) <= ROW_RTOL
+    for skipped in (length // 8, 256):
+        fault = DA.decode_attention(q, kc, vc, length - skipped)
+        assert _row_rel_err(fault, want) > ROW_RTOL, skipped
+    del q, kc, vc, got, want, fault
+    torch.cuda.empty_cache()
+    q, k, v = normal(2, 32768, 16, 128), normal(2, 32768, 8, 128), \
+        normal(2, 32768, 8, 128)
+    before = dict(FA.flash_attention.launches_by_route)
+    got = FA.flash_attention(q, k, v, causal=True)
+    assert FA.flash_attention.launches_by_route["wgmma"] == \
+        before["wgmma"] + 1
+    want = TA.gqa_attention(q[:1], k[:1], v[:1], causal=True,
+                            impl="chunked")
+    torch.cuda.synchronize()
+    assert _row_rel_err(got[:1], want) <= ROW_RTOL
+    kf, vf = k[:1].clone(), v[:1].clone()
+    kf[:, -64:], vf[:, -64:] = k[:1, -128:-64], v[:1, -128:-64]
+    fault = FA.flash_attention(q[:1], kf, vf, causal=True)
+    assert _row_rel_err(fault, want) > ROW_RTOL

@@ -15,7 +15,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch import convert  # noqa: E402
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SHAPE_CELLS, get_config  # noqa: E402
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.core import api as TA  # noqa: E402
 from repro_torch.core import approx_comm as TAC  # noqa: E402
@@ -32,6 +32,7 @@ from repro_torch.data.camera import CameraConfig, SyntheticCamera  # noqa: E402
 from repro_torch.kernels import frame_knobs as FK  # noqa: E402
 from repro_torch.kernels import linear_scan as LS  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.launch import steps as TSt  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.launch.train import train  # noqa: E402
 from repro_torch.models import rwkv6 as TR  # noqa: E402
@@ -164,6 +165,10 @@ ENTRY_POINTS = {
         np.zeros((1, 4, 4), np.uint8), np.zeros((1, 4, 4), np.uint8)),
     "ops.quantize_blocks": lambda: ops.quantize_blocks(
         np.zeros((4, 8), np.float32)),
+    "build_prefill_step": lambda: TSt.build_prefill_step(
+        get_config("qwen3-1.7b").reduced(), SHAPE_CELLS["prefill_32k"]),
+    "build_serve_step": lambda: TSt.build_serve_step(
+        get_config("rwkv6-1.6b").reduced(), SHAPE_CELLS["long_500k"]),
 }
 
 
