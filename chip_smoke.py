@@ -138,10 +138,10 @@ each, with their wall seconds:
                 and optimizer state -- the round trip through the kernels
                 and through the plain versions: the compressed gradients
                 and every new parameter must be bitwise identical;
-  train         ``train("qwen3-1.7b", reduced=False, steps=10, batch=8,
-                seq=4096, grad_bits=8, checkpoint_every=4,
-                inject_failure_at=6)``: step times, tokens/s, peak memory,
-                the losses (finite), the recovery from step 4's checkpoint
+  train         ``train("qwen3-1.7b", reduced=False, steps=4, batch=8,
+                seq=4096, grad_bits=8, checkpoint_every=2,
+                inject_failure_at=3)``: step times, tokens/s, peak memory,
+                the losses (finite), the recovery from step 2's checkpoint
                 and the kernels' launches (13 + 13 per executed step, all
                 on the contiguous route, as in train_check and
                 collective);
@@ -159,14 +159,31 @@ each, with their wall seconds:
                 qwen2-vl at 2 (batch 1, its 1024 patches + 1024 text),
                 zamba2 at 12 (two shared-block invocations).  Each: step
                 0's gradients through the kernels' 8-bit round trip bit
-                for bit against the plain one, then 4 AdamW steps on one
+                for bit against the plain one, then 3 AdamW steps on one
                 repeated batch with the quantize kernels' launches counted
                 (every launch contiguous) and the loss falling; step p50
                 and peak memory (one line a family);
+  remat         ``remat="dots"`` against ``"full"`` and ``"none"``:
+                ``qwen3-1.7b`` at its published widths, bf16, attention
+                ``"chunked"``, one microbatch of 2 x 2048 through
+                ``compute_grads`` under each policy -- a traced first call
+                (the card's busy share), then seconds and the peak over the
+                baseline beside the meta reckoning and the predicted
+                ``"dots"`` minus ``"full"``, the peaks ordered full < dots
+                < none, the
+                gradients under ``"dots"`` and ``"none"`` within 2^-10 of
+                each leaf's norm of those under ``"full"`` (bitwise leaves
+                counted) --; then two ``build_train_step`` steps under
+                ``"dots"`` with the 8-bit hook (step 0's round trips bitwise
+                the plain ones, every launch contiguous, the loss falling)
+                and ``examples/torch_train_100m.py``'s ``main`` at its
+                defaults (30 steps of 8 x 256 on the card, the loss
+                falling);
   dryrun        the dry-run (``launch/dryrun.py``): every runnable (arch
                 x shape) cell of ``SHAPE_CELLS`` accounted on the meta
                 device in a subprocess (32 ok, 0 failed, 8 skipped; one
-                ``dryrun_meta`` line a cell: bytes, FLOPs, fits, cut)
+                ``dryrun_meta`` line a cell: bytes, FLOPs, bytes accessed,
+                transcendentals, fits, cut)
                 while five cells cut to the card are served on it
                 (``DRYRUN_CELLS``: qwen3 ``prefill_32k`` at batch 2 and
                 ``decode_32k`` at batch 8, rwkv6 ``prefill_32k`` at batch
@@ -221,7 +238,8 @@ and the library call's; the attention pair also its ``kernel_route`` and
 serving path, and its rows at the zoo's and the families' head shapes and
 at the enc-dec serve's full, cross and cross-decode shapes, and with
 the wkv scan at the dry-run's 32k and 500k shapes; the quantize
-pair its launches on every training path),
+pair its launches on every training path, the remat phase's ``"dots"``
+steps among them),
 the card's ``name,
 power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -247,12 +265,14 @@ knob kernel (the build and frame_knobs_kernel phases).
     python3 chip_smoke.py --encdec-only
     python3 chip_smoke.py --train-families-only
     python3 chip_smoke.py --dryrun-only
+    python3 chip_smoke.py --remat-only
 
 build ``frame_knob_grid`` and run only the scenario phase, or build the
 two attention kernels and run only the serve_zoo, the serve_families or
 the serve_encdec phase, or build the quantize pair and run only the
 train_families phase, or build the attention and wkv kernels and run
-only the dryrun phase.
+only the dryrun phase, or build the quantize pair and run only the remat
+phase.
 """
 
 from __future__ import annotations
@@ -279,8 +299,10 @@ TABLE_FLOOR = 0.0
 RETARGET_LATENCY = 0.030    # mid-stream bound that setting cannot meet
 N_CAMS, N_FRAMES = 5, 20    # the paper's testbed: 5 camera nodes
 REPS = 5                    # timed calls per group, after one warm-up
+PLAIN_REPS = 2              # of a grid group's plain version (~0.15 s each)
 ATTN_REPS = 10              # calls per device timing of attention
-SPIN_CYCLES = 200_000_000   # ~0.1 s of spin at the H100's clocks
+SPIN_CYCLES = 20_000_000    # ~10 ms of spin at the H100's clocks, the first
+SPIN_MAX_CYCLES = 800_000_000   # try; x4 while the host outlasts it, to ~0.4 s
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 F32_FLOP_PER_S = 67e12      # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12    # H100 SXM dense bf16 tensor cores
@@ -409,7 +431,26 @@ TF_FAMILIES = (("seamless-m4t-large-v2", None, 8, 512),
                ("phi3.5-moe-42b-a6.6b", 2, 8, 512),
                ("qwen2-vl-72b", 2, 1, 2048),
                ("zamba2-7b", 12, 8, 512))
-TF_STEPS = 4
+TF_STEPS = 3
+
+# -- the remat phase ----------------------------------------------------------
+# remat="dots" against "full" and "none": qwen3-1.7b at its published
+# widths, bf16, its training attention ("chunked"), one microbatch of
+# REMAT_BATCH x REMAT_SEQ through compute_grads under each policy ("none"
+# first: its float32 chunk scores, reckoned at 75.9 GB on meta, need the
+# emptiest card); then REMAT_STEPS steps of build_train_step under "dots"
+# with the 8-bit hook (phase_train_family); then the 100M example's main.
+REMAT_ARCH = "qwen3-1.7b"     # reduced under ZOO_REDUCED (a CPU rehearsal)
+REMAT_BATCH, REMAT_SEQ = 2, 2048
+REMAT_POLICIES = ("none", "full", "dots")
+REMAT_STEPS = 2             # a step, and a second to see the loss fall
+REMAT_GRAD_RTOL = 2.0 ** -10    # ||g - g_full|| / ||g_full||, leaf by leaf
+# "dots" minus "full", predicted before the first card run: the products
+# JAX saves (q 2048, k 1024, v 1024, wo 2048, gate 6144, up 6144 bf16 a
+# token a layer) and the port's one more (the down projection, 2048)
+REMAT_PREDICTED_GB = {"jax_products": 28 * 4096 * 18432 * 2 / 1e9,
+                      "port_products": 28 * 4096 * 20480 * 2 / 1e9}
+EXAMPLE_100M = ROOT / "examples" / "torch_train_100m.py"
 
 # -- the dryrun phase ---------------------------------------------------------
 # The dry-run (launch/dryrun.py).  (a) Every runnable (arch x shape) cell of
@@ -459,8 +500,11 @@ TRAIN_ARCH = "qwen3-1.7b"
 TRAIN_REDUCED = False       # the published widths (a CPU rehearsal: True)
 # the JAX package's train_4k cell (configs/base.py: seq 4096, global batch
 # 256), its batch cut to 8 for one card; 4 microbatches of 2 (the config's)
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_BITS = 8, 4096, 10, 8
-TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 4, 6
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_BITS = 8, 4096, 4, 8
+# a checkpoint after step 2, a failure at step 3 and the replay from step 2:
+# 5 steps run (10 steps, a checkpoint every 4 and a failure at 6 -- 12 steps
+# run, 171 s -- until the remat phase came)
+TRAIN_CKPT_EVERY, TRAIN_FAIL_AT = 2, 3
 CHECK_SEQ = 1024            # train_check: the leaves' shapes at any length
 GRAD_MIN_SIZE = 1024        # launch/train.py's make_grad_compressor(min_size)
 QUANT_BLOCK = (256, 512)
@@ -534,25 +578,32 @@ def device_ms(fn, reps: int) -> tuple[float, bool]:
     host enqueues them, timed with CUDA events around the calls, median of
     3 such runs (after one untimed warm-up call).  The wrapper's host time,
     which dominates a CUDA-event timing of one call whose device work is
-    short, is hidden as long as the enqueueing ends before the spin does;
-    returns (ms per call, whether it did in every run)."""
+    short, is hidden as long as the enqueueing ends before the spin does: a
+    run whose host outlasted the spin is made again behind a spin four
+    times longer, up to ``SPIN_MAX_CYCLES``; returns (ms per call, whether
+    the spin hid the host in every kept run)."""
     import torch
     fn()
     torch.cuda.synchronize()
-    times, hidden = [], True
+    times, hidden, spin = [], True, SPIN_CYCLES
     for _ in range(3):
-        spin0, start, stop = (torch.cuda.Event(enable_timing=True)
-                              for _ in range(3))
-        spin0.record()
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        t0 = time.monotonic()
-        for _ in range(reps):
-            fn()
-        host_ms = (time.monotonic() - t0) * 1e3
-        stop.record()
-        stop.synchronize()
-        hidden = hidden and host_ms < spin0.elapsed_time(start)
+        while True:
+            spin0, start, stop = (torch.cuda.Event(enable_timing=True)
+                                  for _ in range(3))
+            spin0.record()
+            torch.cuda._sleep(spin)
+            start.record()
+            t0 = time.monotonic()
+            for _ in range(reps):
+                fn()
+            host_ms = (time.monotonic() - t0) * 1e3
+            stop.record()
+            stop.synchronize()
+            ok = host_ms < spin0.elapsed_time(start)
+            if ok or spin >= SPIN_MAX_CYCLES:
+                break
+            spin *= 4
+        hidden = hidden and ok
         times.append(start.elapsed_time(stop) / reps)
     return statistics.median(times), hidden
 
@@ -726,7 +777,7 @@ def phase_kernel(dev, *, need_hidden: bool = True):
                 tr_ms, _ = traced_ms(call, REPS)
                 call_ms = cuda_ms(call, REPS)
                 plain = cuda_ms(lambda: FK.frame_knob_grid_plain(
-                    frames, prev, plan, **kw), REPS)
+                    frames, prev, plan, **kw), PLAIN_REPS)
                 b_ms, b_by = bound_ms(plan, n, art != (0,))
                 row = dict(case=case, frames=n, res=res, cs=cs,
                            knob4=art != (0,), settings=plan.n_settings,
@@ -1834,12 +1885,14 @@ def tf_config(arch: str, layers: "int | None"):
 
 
 def phase_train_family(dev, arch: str, layers: "int | None", batch: int,
-                       seq: int) -> dict:
-    """One family's training at its published widths (``tf_config``):
-    step 0's gradients (the config's microbatches) computed once, each
-    leaf the step's hook quantizes sent through the kernels' round trip
+                       seq: int, *, remat: "str | None" = None,
+                       steps: int = TF_STEPS) -> dict:
+    """One family's training at its published widths (``tf_config``;
+    ``remat`` in place of the config's where given): step 0's gradients
+    (the config's microbatches) computed once, each leaf the step's hook
+    quantizes sent through the kernels' round trip
     (``make_grad_compressor``, as the step does) and through the plain
-    one, bit for bit; then ``TF_STEPS`` steps of ``build_train_step`` (the
+    one, bit for bit; then ``steps`` steps of ``build_train_step`` (the
     8-bit hook, AdamW as ``launch/train.py`` runs it) on one repeated
     batch, with the quantize kernels' launches counted from zero just
     before them.  Raises unless the round trips are identical, every
@@ -1854,8 +1907,11 @@ def phase_train_family(dev, arch: str, layers: "int | None", batch: int,
     from repro_torch.models.registry import build_model, make_batch
     from repro_torch.optim.adamw import AdamWConfig, init_opt_state
     from repro_torch.tree import tree_items
+    import dataclasses
     t0 = time.monotonic()
     cfg = tf_config(arch, layers)
+    if remat is not None:
+        cfg = dataclasses.replace(cfg, remat=remat)
     model = build_model(cfg)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1894,7 +1950,7 @@ def phase_train_family(dev, arch: str, layers: "int | None", batch: int,
     for f in (Q.quantize_blocks, Q.dequantize_blocks):
         f.launches_by_route = dict.fromkeys(Q.ROUTES, 0)
     losses, step_s = [], []
-    for _ in range(TF_STEPS):
+    for _ in range(steps):
         t1 = time.monotonic()
         params, state, metrics = step(params, state, data)
         torch.cuda.synchronize()
@@ -1913,6 +1969,7 @@ def phase_train_family(dev, arch: str, layers: "int | None", batch: int,
                published_layers=tf_config(arch, None).num_layers,
                batch=batch, seq=seq, positions=n_tokens, microbatches=m,
                grad_bits=TRAIN_BITS, attention_impl=cfg.attention_impl,
+               remat=cfg.remat,
                params_b=n_params / 1e9, param_gb=param_bytes / 1e9,
                reckoned_gb=n_params * (12 + (4 if m > 1 else 0)) / 1e9,
                step0_loss=float(loss0), grad_dtype=grad_dtype,
@@ -1932,10 +1989,10 @@ def phase_train_family(dev, arch: str, layers: "int | None", batch: int,
         raise AssertionError(f"{arch}: step 0's round trips differ at "
                              f"{diffs} ({check_launches} launches, "
                              f"{leaves} leaves)")
-    if launches != {k: leaves * TF_STEPS for k in launches} \
-            or routes != contiguous_only(leaves * TF_STEPS):
+    if launches != {k: leaves * steps for k in launches} \
+            or routes != contiguous_only(leaves * steps):
         raise AssertionError(f"{arch}: the steps launched {launches} "
-                             f"({routes}), want {leaves * TF_STEPS} of "
+                             f"({routes}), want {leaves * steps} of "
                              f"each, all contiguous")
     if not (np.isfinite(losses).all() and res["loss_falling"]):
         raise AssertionError(f"{arch}: losses {losses}")
@@ -1951,6 +2008,148 @@ def phase_train_families(dev) -> dict:
         out[arch] = phase_train_family(dev, arch, layers, batch, seq)
         emit("train_families", **out[arch])
     return out
+
+
+def remat_grads(cfg, params, data) -> dict:
+    """``compute_grads`` of one microbatch under ``cfg.remat``, twice from
+    an emptied cache: the first call traced (``traced``: the card's busy
+    share, its top activities; the allocator's growth in it) and, its
+    gradients dropped, the second timed (ending in a synchronise): its
+    seconds, its peak allocated over the bytes held just before
+    (``reset_peak_memory_stats``, then ``max_memory_allocated``), its loss
+    and its gradients."""
+    import torch
+    from repro_torch.launch.steps import compute_grads
+    from repro_torch.models.registry import build_model
+    model = build_model(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    first = traced(lambda: compute_grads(model, params, data, 1), 4)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.monotonic()
+    loss, grads = compute_grads(model, params, data, 1)
+    torch.cuda.synchronize()
+    return {"seconds": time.monotonic() - t0, "first_call_traced": first,
+            "peak_over_baseline_gb":
+                (torch.cuda.max_memory_allocated() - base) / 1e9,
+            "loss": float(loss), "grads": grads}
+
+
+def remat_reckoned_gb(cfg) -> float:
+    """The peak of ``compute_grads`` of one ``REMAT_BATCH x REMAT_SEQ``
+    microbatch under ``cfg.remat``, reckoned on the meta device
+    (``MetaPass``, as the dry-run reckons a step)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch.steps import compute_grads
+    from repro_torch.meta import MetaPass
+    from repro_torch.models.registry import (build_model, input_specs,
+                                             param_specs)
+    params = param_specs(cfg)
+    data = input_specs(cfg, ShapeCell("remat", REMAT_SEQ, REMAT_BATCH,
+                                      "train"))["batch"]
+    watch = MetaPass(exclude=(params, data))
+    with watch:
+        compute_grads(build_model(cfg), params, data, 1)
+    return watch.peak / 1e9
+
+
+def phase_remat(dev) -> dict:
+    """The remat phase: ``REMAT_ARCH`` at its published widths (bf16, its
+    training attention), one microbatch of ``REMAT_BATCH x REMAT_SEQ``
+    through ``compute_grads`` under each of ``REMAT_POLICIES`` (one
+    ``remat`` line each: seconds, the peak over the baseline beside its
+    meta reckoning, ``remat_reckoned_gb``); the gradients under ``"dots"``
+    and ``"none"`` against those under ``"full"``, leaf by leaf (bitwise
+    leaves counted, each within ``REMAT_GRAD_RTOL`` of its norm); then
+    ``phase_train_family`` under ``"dots"`` (``REMAT_STEPS`` steps with
+    the 8-bit hook, round trips bitwise the plain ones, every launch
+    contiguous) and ``examples/torch_train_100m.py``'s ``main`` at its
+    defaults (30 steps of 8 x 256; it asserts the loss falls).  Raises
+    unless the peaks order as full < dots < none and every leaf is within
+    the limit."""
+    import dataclasses
+    import importlib.util
+    import shutil
+
+    import torch
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.registry import build_model, make_batch
+    from repro_torch.tree import tree_items
+    t0 = time.monotonic()
+    held_gb = torch.cuda.memory_allocated() / 1e9   # left by earlier phases
+    base = tf_config(REMAT_ARCH, None)
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = build_model(base).init_params(g, device=dev)
+    data = make_batch(base, REMAT_BATCH, REMAT_SEQ, generator=g, device=dev,
+                      train=True)
+    runs, reckoned = {}, {}
+    for remat in REMAT_POLICIES:
+        cfg = dataclasses.replace(base, remat=remat)
+        reckoned[remat] = remat_reckoned_gb(cfg)
+        runs[remat] = remat_grads(cfg, params, data)
+    want = dict(tree_items(runs["full"]["grads"]))
+    worst, bitwise = {}, {}
+    for remat in ("dots", "none"):
+        got = dict(tree_items(runs[remat]["grads"]))
+        worst[remat] = max(
+            float((got[k].float() - w.float()).norm()
+                  / w.float().norm().clamp_min(1e-30))
+            for k, w in want.items())
+        bitwise[remat] = sum(torch.equal(got[k], w) for k, w in want.items())
+    peaks = {r: runs[r]["peak_over_baseline_gb"] for r in REMAT_POLICIES}
+    for remat in REMAT_POLICIES:
+        emit("remat", arch=REMAT_ARCH, reduced=ZOO_REDUCED, remat=remat,
+             batch=REMAT_BATCH, seq=REMAT_SEQ, dtype=base.compute_dtype,
+             attention_impl=base.attention_impl,
+             seconds=runs[remat]["seconds"],
+             first_call_traced=runs[remat]["first_call_traced"],
+             peak_over_baseline_gb=peaks[remat],
+             reckoned_peak_gb=reckoned[remat], loss=runs[remat]["loss"],
+             **({"grad_max_rel_err_vs_full": worst[remat],
+                 "grad_leaves_bitwise_full": bitwise[remat],
+                 "grad_leaves": len(want)} if remat in worst else {}))
+    res = dict(seconds=time.monotonic() - t0, allocated_at_start_gb=held_gb,
+               peaks_gb=peaks, reckoned_peaks_gb=reckoned,
+               dots_minus_full_gb=peaks["dots"] - peaks["full"],
+               predicted_dots_minus_full_gb=REMAT_PREDICTED_GB,
+               grad_max_rel_err_vs_full=worst,
+               grad_leaves_bitwise_full=bitwise, grad_leaves=len(want),
+               grad_rtol=REMAT_GRAD_RTOL)
+    del runs, want, got, params, data
+    torch.cuda.empty_cache()
+    if not peaks["full"] < peaks["dots"] < peaks["none"]:
+        raise AssertionError(f"remat peaks out of order: {peaks}")
+    if not max(worst.values()) <= REMAT_GRAD_RTOL:
+        raise AssertionError(f"remat gradients off those under full: "
+                             f"{worst}")
+    res["train_step"] = phase_train_family(
+        dev, REMAT_ARCH, None, REMAT_BATCH, REMAT_SEQ, remat="dots",
+        steps=REMAT_STEPS)
+    emit("remat_train_step", **res["train_step"])
+    t1 = time.monotonic()
+    spec = importlib.util.spec_from_file_location("torch_train_100m",
+                                                  EXAMPLE_100M)
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    ckpt = ROOT / "build" / "chip_smoke_ckpt_100m"
+    try:
+        out = example.main(["--device", dev.type, "--ckpt", str(ckpt)])
+    finally:
+        ARCHS.pop("qwen3-100m", None)
+        shutil.rmtree(ckpt, ignore_errors=True)
+    res["example_100m"] = dict(
+        seconds=time.monotonic() - t1, steps=out["steps"],
+        first_loss=out["first_loss"], final_loss=out["final_loss"],
+        loss_falling=out["final_loss"] < out["first_loss"],
+        step_p50_s=statistics.median(out["step_s"]))
+    emit("remat_example_100m", **res["example_100m"])
+    torch.cuda.empty_cache()
+    res["seconds"] = time.monotonic() - t0
+    emit("remat_phase", **{k: v for k, v in res.items()
+                           if k not in ("train_step", "example_100m")})
+    return res
 
 
 def dryrun_share(got, want) -> float:
@@ -2474,7 +2673,8 @@ def phase_dryrun(dev) -> dict:
             rec = {k: rec[k] for k in (
                 "arch", "shape", "param_bytes", "input_bytes",
                 "opt_state_bytes", "output_bytes", "peak_temp_bytes",
-                "total_bytes", "flops", "fits_one_card", "cut", "seconds")
+                "total_bytes", "flops", "bytes_accessed", "transcendentals",
+                "fits_one_card", "cut", "seconds")
                 if k in rec}
             print(json.dumps({"dryrun_meta": rec}), flush=True)
             records.append(rec)
@@ -3264,13 +3464,19 @@ def phase_camera_node(dev) -> dict:
     from repro_torch.kernels import ops
     fps = CONFIG.fps
     cam_ids = [f"cam{i}" for i in range(N_CAMS)]
-    t0 = time.monotonic()
-    host = {}
-    for cid in cam_ids:
+    from concurrent.futures import ThreadPoolExecutor
+
+    def frames_of(cid):
         src = SyntheticCamera(CameraConfig(
             camera_id=cid, height=H, width=W, dynamics="complex", fps=fps,
             seed=CONFIG.seed))
-        host[cid] = [src.next_frame()[1] for _ in range(CAM_DISTINCT)]
+        return [src.next_frame()[1] for _ in range(CAM_DISTINCT)]
+
+    # each camera draws from its own generator: one thread a camera (NumPy
+    # drops the GIL in its array work)
+    t0 = time.monotonic()
+    with ThreadPoolExecutor(N_CAMS) as pool:
+        host = dict(zip(cam_ids, pool.map(frames_of, cam_ids)))
     gen_s = time.monotonic() - t0
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3970,6 +4176,9 @@ def main(argv: list[str]) -> int:
     only.add_argument("--dryrun-only", action="store_true",
                       help="run only the build of the attention and wkv "
                            "kernels and the dryrun phase")
+    only.add_argument("--remat-only", action="store_true",
+                      help="run only the build of the quantize pair and "
+                           "the remat phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive "
                          "(default: this checkout's); with one of the "
@@ -3998,6 +4207,7 @@ def main(argv: list[str]) -> int:
      else run_encdec if args.encdec_only
      else run_train_families if args.train_families_only
      else run_dryrun if args.dryrun_only
+     else run_remat if args.remat_only
      else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4160,6 +4370,13 @@ def run_dryrun(dev) -> None:
     emit("build", seconds=time.monotonic() - t0,
          functions=ptxas_functions(paths))
     phase_dryrun(dev)
+
+
+def run_remat(dev) -> None:
+    """``--remat-only``: build the quantize pair, then the remat phase."""
+    from repro_torch.kernels import quantize as Q
+    build_only("quantize_blocks", Q._load_lib)
+    phase_remat(dev)
 
 
 def run(dev) -> None:
@@ -4388,6 +4605,8 @@ def run(dev) -> None:
     quant, train_run = phase_training(dev)
     # -- training every family, at published widths (some cut in depth) --
     families = phase_train_families(dev)
+    # -- remat="dots" against "full" and "none", a dots step, the example --
+    remat = phase_remat(dev)
     # -- the dry-run: every cell on meta, five cut cells on the card -----
     dry = phase_dryrun(dev)
     # -- the camera node: device rings and the knob kernel ----------------
@@ -4506,7 +4725,9 @@ def run(dev) -> None:
             RWKV_ARCH: wkv_kernel["launches"],
             "dryrun": dryrun_launches(dry, "wkv_linear_scan")},
             dryrun_shapes=dryrun_shapes(dry, "wkv_linear_scan")),
-        *quant_kernel_rows(quant, train_run, families), knobs_row]}),
+        *quant_kernel_rows(quant, train_run, {
+            **families, f"{REMAT_ARCH} remat=dots": remat["train_step"]}),
+        knobs_row]}),
         flush=True)
 
 

@@ -28,8 +28,10 @@ take the place of the JAX package's Pallas kernels, so the JAX value
 
 ``remat`` takes ``"none" | "full" | "dots"``: ``"full"`` recomputes each
 block in the backward pass (``torch.utils.checkpoint``, as ``jax.checkpoint``
-does); ``"dots"`` (JAX's policy that saves the matmul outputs) has no
-counterpart yet, and the model refuses it.
+does); ``"dots"`` recomputes all of a transformer block but the outputs of
+its products without batch dimensions (JAX's
+``checkpoint_dots_with_no_batch_dims``), and runs as ``"full"`` in the
+other families, as in JAX (``models/layers.py::remat_block``).
 """
 
 from __future__ import annotations

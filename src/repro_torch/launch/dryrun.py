@@ -14,7 +14,18 @@ mode, ``MetaPass``, watches it:
     place are its inputs'), the counterpart of XLA's temp bytes;
   * the FLOPs of the step's matrix products, by the formulas of
     ``torch.utils.flop_counter`` (``FlopCounterMode``'s), the counterpart
-    of XLA's cost analysis.
+    of XLA's cost analysis, and beside them that analysis's other two
+    figures under its names: ``bytes_accessed``, the bytes every
+    operation reads and writes, and ``transcendentals``, the elements of
+    the step's exp, log, tanh, sigmoid, silu, softplus, gelu, erf, sin,
+    cos, rsqrt, sqrt and (log-)softmax and their backward ops
+    (``meta.TRANSCENDENTAL``).  XLA counts them for a fused program: a
+    fusion reads its inputs and writes its outputs once, and what stays
+    inside it moves nothing.  The port counts each eager operation's own
+    traffic, every intermediate written by one op and read by the next,
+    so its bytes are an upper bound on what a fused step moves; its
+    transcendentals are XLA's count for the same functions (one per
+    output element; an rms norm's one rsqrt a row).
 
 The meta pass runs the plain routes (``"chunked"`` attention, the einsum
 decode, ``wkv_plain``): the kernels take only card tensors, and their
@@ -29,7 +40,8 @@ cell whose file says ``ok`` is kept unless ``--force``):
   param_bytes, opt_state_bytes (train cells), input_bytes (the batch, or
   the tokens and the cache), output_bytes (output_new_bytes: those not in
   the arguments' storages), peak_temp_bytes, total_bytes (parameters,
-  state, inputs and peak temporaries), flops, fits_one_card (total_bytes
+  state, inputs and peak temporaries), flops, bytes_accessed,
+  transcendentals, fits_one_card (total_bytes
   within ``H100.hbm_bytes``), cut (``find_cut``: the largest batch that
   fits at full depth or, where none does, the largest depth at the
   smallest batch: ``{"global_batch", "num_layers", "total_bytes"}``, null
@@ -128,8 +140,9 @@ def cell_bundle(cfg: ModelConfig, cell: ShapeCell, *,
 def account(cfg: ModelConfig, cell: ShapeCell, *,
             memo: "dict | None" = None) -> dict:
     """One meta pass of ``cell``'s step on its plain routes: the bytes of
-    its arguments, outputs and peak temporaries, their total, and the
-    FLOPs of its matrix products (``MetaPass``, with ``memo``)."""
+    its arguments, outputs and peak temporaries, their total, the FLOPs of
+    its matrix products, and the bytes its operations read and write and
+    their transcendentals (``MetaPass``, with ``memo``)."""
     bundle = cell_bundle(cfg, cell)
     args = bundle.arg_specs
     rec = {"param_bytes": distinct_bytes(args[0])}
@@ -149,6 +162,8 @@ def account(cfg: ModelConfig, cell: ShapeCell, *,
     rec["total_bytes"] = (rec["param_bytes"] + rec.get("opt_state_bytes", 0)
                           + rec["input_bytes"] + watch.peak)
     rec["flops"] = watch.flops
+    rec["bytes_accessed"] = watch.bytes_accessed
+    rec["transcendentals"] = watch.transcendentals
     return rec
 
 
@@ -483,6 +498,8 @@ def _report(result: dict, path: str) -> None:
     card = result.get("card")
     print(f"  ok {tag}: {result['seconds']:.1f}s "
           f"flops={result['flops']:.3e} "
+          f"bytes_accessed={result['bytes_accessed']:.3e} "
+          f"transcendentals={result['transcendentals']:.3e} "
           f"params={result['param_bytes'] / 1e9:.2f}GB "
           f"total={result['total_bytes'] / 1e9:.2f}GB "
           f"fits={result['fits_one_card']} cut="

@@ -113,7 +113,7 @@ def compute_grads(model: Model, params: dict, batch: dict,
         with repeated(n):
             loss, grads = _value_and_grad(model, params, mb)
             tree_map(lambda a, g: a.add_(g), acc, grads)
-        loss_sum = loss_sum + loss
+            loss_sum = loss_sum + loss
         del loss, grads         # no iteration keeps its predecessor's
     tree_map(lambda a: a.div_(microbatches), acc)
     return loss_sum / microbatches, acc

@@ -4,8 +4,9 @@ lowering.
 Tensors on ``torch.device("meta")`` have shapes, strides and dtypes but no
 storage: an operation on them allocates nothing and computes nothing.
 ``MetaPass`` watches a step run on them and counts the bytes the step's
-own tensors hold and the FLOPs of its matrix products
-(``launch/dryrun.py`` reads both).
+own tensors hold, the FLOPs of its matrix products, the bytes its
+operations read and write and their transcendental functions
+(``launch/dryrun.py`` reads them all).
 
 PyTorch's meta functions are mostly Python, and a model's loops repeat the
 same few shapes thousands of times, so a pass over a 32k-token cell would
@@ -43,9 +44,33 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 __all__ = ["MetaPass", "tensors_of", "distinct_bytes", "repeated",
-           "loop_repeats", "checkpoint_repeated", "META"]
+           "loop_repeats", "checkpoint_repeated", "META", "TRANSCENDENTAL"]
 
 META = torch.device("meta")
+
+
+def _packets(*names: str) -> frozenset:
+    """The aten overload packets of ``names`` and of their in-place forms
+    (``exp`` and ``exp_``), those this PyTorch has."""
+    aten = torch.ops.aten
+    return frozenset(p for n in names for p in (getattr(aten, n, None),
+                                                 getattr(aten, n + "_", None))
+                     if p is not None)
+
+
+# the operations whose output elements ``MetaPass`` counts as
+# transcendentals: exp, expm1, log, log1p, tanh, sigmoid, silu, softplus,
+# gelu (tanh or erf), erf, sin, cos, rsqrt, sqrt, softmax and log_softmax,
+# and the backward ops of those that have one
+TRANSCENDENTAL = _packets(
+    "exp", "expm1", "log", "log1p", "tanh", "sigmoid", "silu", "softplus",
+    "gelu", "erf", "sin", "cos", "rsqrt", "sqrt", "_softmax",
+    "_log_softmax", "tanh_backward", "sigmoid_backward", "silu_backward",
+    "softplus_backward", "gelu_backward", "_softmax_backward_data",
+    "_log_softmax_backward_data")
+# allocations without values: they read and write nothing
+_ALLOCATIONS = _packets("empty", "empty_like", "empty_strided", "new_empty",
+                        "new_empty_strided")
 
 _REPEAT = contextvars.ContextVar("repro_torch_meta_repeat", default=1)
 
@@ -53,7 +78,8 @@ _REPEAT = contextvars.ContextVar("repro_torch_meta_repeat", default=1)
 @contextlib.contextmanager
 def repeated(n: int):
     """The operations run inside stand for ``n`` runs of themselves: a
-    ``MetaPass`` counts their FLOPs ``n`` times."""
+    ``MetaPass`` counts their FLOPs, bytes accessed and transcendentals
+    ``n`` times."""
     token = _REPEAT.set(_REPEAT.get() * n)
     try:
         yield
@@ -158,7 +184,17 @@ class MetaPass(TorchDispatchMode):
     ``torch.utils.flop_counter``'s registry, the formulas
     ``FlopCounterMode`` counts by).  The storages of ``exclude`` (a step's
     arguments) and their views count nothing, so a step's in-place writes
-    into its inputs count nothing either.
+    into its inputs count nothing either.  ``live()`` is the bytes still
+    held, freed storages dropped.
+
+    Beside the FLOPs, XLA's other two cost figures, counted per eager
+    operation: ``bytes_accessed``, the bytes of every tensor an operation
+    reads plus every tensor it writes (an in-place write counts its read
+    and its write; a view, whose outputs share an input's storage, and an
+    allocation without values, ``empty`` and its kin, count nothing), and
+    ``transcendentals``, the output elements of the
+    operations of ``TRANSCENDENTAL``.  Each operation's three counts are
+    computed once a signature (the memo's key) and kept in the memo.
 
     It also makes the pass cheap without changing what it computes: an
     operation that returns new tensors (no view, no in-place write) is run
@@ -167,13 +203,13 @@ class MetaPass(TorchDispatchMode):
     shapes and strides.  A model's layers and chunk loops repeat the same
     few signatures, and PyTorch's meta functions are Python: this takes a
     32k prefill's pass from ~10 s to ~4 s.  ``memo`` may be shared between
-    passes.  Operations run under ``repeated(n)`` count their FLOPs ``n``
-    times."""
+    passes.  Operations run under ``repeated(n)`` count their FLOPs, bytes
+    and transcendentals ``n`` times."""
 
     def __init__(self, exclude=(), memo: "dict | None" = None):
         super().__init__()
         self.memo = {} if memo is None else memo
-        self._fn_ok = {}    # operation -> whether it returns new tensors
+        self._kinds = {}    # operation -> "new", "view" or "write"
         self._args = {}     # storage key -> weak ref (arguments)
         self._live = {}     # storage key -> (weak ref, bytes)
         for t in tensors_of(exclude):
@@ -182,6 +218,8 @@ class MetaPass(TorchDispatchMode):
         self.now = 0
         self.peak = 0
         self.flops = 0
+        self.bytes_accessed = 0
+        self.transcendentals = 0
 
     @staticmethod
     def _key(a):
@@ -191,45 +229,74 @@ class MetaPass(TorchDispatchMode):
             return tuple(MetaPass._key(x) for x in a)
         return a
 
-    def _functional(self, func) -> bool:
-        """Whether ``func`` returns new tensors: no in-place write, no
-        view (the schema's word; a run still checks the storages)."""
-        ok = self._fn_ok.get(func)
-        if ok is None:
+    def _kind(self, func) -> str:
+        """``"new"`` where ``func`` returns new tensors, ``"view"`` where
+        it returns views of its inputs, ``"write"`` where it writes in
+        place (the schema's word; a run still checks the storages)."""
+        kind = self._kinds.get(func)
+        if kind is None:
             schema = func._schema
-            ok = not schema.is_mutable and all(r.alias_info is None
-                                               for r in schema.returns)
-            self._fn_ok[func] = ok
-        return ok
+            aliased = any(r.alias_info is not None for r in schema.returns)
+            kind = ("write" if schema.is_mutable else
+                    "view" if aliased else "new")
+            self._kinds[func] = kind
+        return kind
 
-    def _run(self, func, args, kwargs) -> tuple:
+    @staticmethod
+    def _cost(func, args, kwargs, out) -> tuple[int, int, int]:
+        """(FLOPs, bytes read and written, transcendentals) of one call."""
+        outs = [t for t in (out if isinstance(out, (tuple, list)) else (out,))
+                if isinstance(t, torch.Tensor)]
+        ins = tensors_of(args) + tensors_of(kwargs)
+        inputs = {t.untyped_storage()._cdata for t in ins}
+        if func._overloadpacket in _ALLOCATIONS or (
+                not func._schema.is_mutable and all(
+                    t.untyped_storage()._cdata in inputs for t in outs)):
+            moved = 0               # an allocation, or an undeclared view
+        else:
+            moved = sum(t.numel() * t.element_size() for t in ins + outs)
+        count = flop_registry.get(func._overloadpacket)
+        flops = count(*args, **kwargs, out_val=out) if count else 0
+        trans = (sum(t.numel() for t in outs)
+                 if func._overloadpacket in TRANSCENDENTAL else 0)
+        return flops, moved, trans
+
+    def _run(self, func, args, kwargs, kind: str) -> tuple:
         """(the outputs, whether they are new empty tensors from the
-        memo)."""
-        if not self._functional(func):
-            return func(*args, **kwargs), False
+        memo, the call's ``_cost``).  The memo keeps, a signature (the
+        operation and its arguments' shapes, strides, dtypes and values),
+        the outputs' specs (``False`` where the operation is not run once a
+        signature: an in-place write, outputs that alias an input or lie
+        off the meta device) and the cost."""
+        key = (func, self._key(args),
+               tuple(sorted((k, self._key(v)) for k, v in kwargs.items())))
         try:
-            key = (func, self._key(args),
-                   tuple(sorted((k, self._key(v)) for k, v in kwargs.items())))
-            hit = self.memo.get(key)
+            entry = self.memo.get(key)
         except TypeError:           # an argument that does not hash
-            return func(*args, **kwargs), False
-        if hit is None:
+            key = entry = None
+        if entry is None:
             out = func(*args, **kwargs)
-            outs = out if isinstance(out, (tuple, list)) else (out,)
-            ins = {t.untyped_storage()._cdata for t in tensors_of(args)}
-            fresh = all(isinstance(t, torch.Tensor) and t.device.type == "meta"
-                        and t.untyped_storage()._cdata not in ins
-                        for t in outs)
-            self.memo[key] = (isinstance(out, (tuple, list)),
-                              [(t.shape, t.stride(), t.dtype) for t in outs]
-                              ) if fresh else False
-            return out, False
-        if hit is False:
-            return func(*args, **kwargs), False
-        many, specs = hit
+            spec = False
+            if kind == "new":
+                outs = out if isinstance(out, (tuple, list)) else (out,)
+                ins = {t.untyped_storage()._cdata for t in tensors_of(args)}
+                if all(isinstance(t, torch.Tensor)
+                       and t.device.type == "meta"
+                       and t.untyped_storage()._cdata not in ins
+                       for t in outs):
+                    spec = (isinstance(out, (tuple, list)),
+                            [(t.shape, t.stride(), t.dtype) for t in outs])
+            cost = self._cost(func, args, kwargs, out)
+            if key is not None:
+                self.memo[key] = (spec, cost)
+            return out, False, cost
+        spec, cost = entry
+        if spec is False:
+            return func(*args, **kwargs), False, cost
+        many, specs = spec
         outs = [torch.empty_strided(shape, stride, dtype=dtype, device=META)
                 for shape, stride, dtype in specs]
-        return (tuple(outs) if many else outs[0]), True
+        return (tuple(outs) if many else outs[0]), True, cost
 
     def _known(self, key) -> bool:
         ref = self._args.get(key)
@@ -244,13 +311,26 @@ class MetaPass(TorchDispatchMode):
             return False
         return True
 
+    def live(self) -> int:
+        """The bytes of the step's storages still alive, freed ones
+        dropped."""
+        for key, (ref, n) in list(self._live.items()):
+            if ref.expired():
+                del self._live[key]
+                self.now -= n
+        return self.now
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        out, fresh = self._run(func, args, kwargs)
-        count = flop_registry.get(func._overloadpacket)
-        if count is not None:
-            self.flops += _REPEAT.get() * count(*args, **kwargs,
-                                                out_val=out)
+        kind = self._kind(func)
+        if kind == "view":
+            out, fresh = func(*args, **kwargs), False
+        else:
+            out, fresh, cost = self._run(func, args, kwargs, kind)
+            n = _REPEAT.get()
+            self.flops += n * cost[0]
+            self.bytes_accessed += n * cost[1]
+            self.transcendentals += n * cost[2]
         for t in (out if isinstance(out, (tuple, list)) else (out,)):
             if isinstance(t, torch.Tensor):
                 st = t.untyped_storage()
@@ -267,9 +347,5 @@ class MetaPass(TorchDispatchMode):
         # peak: until then it overstates the live bytes, and the peak,
         # which it does not reach, stands
         if self.now > self.peak:
-            for key, (ref, n) in list(self._live.items()):
-                if ref.expired():
-                    del self._live[key]
-                    self.now -= n
-            self.peak = max(self.peak, self.now)
+            self.peak = max(self.peak, self.live())
         return out

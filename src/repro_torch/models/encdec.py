@@ -8,9 +8,9 @@ output, text token embeddings in and a separate head out.  Layer norms
 with bias, a GELU FFN, RoPE on self-attention (over ``0 .. S_enc - 1`` in
 the encoder, ``0 .. S_dec - 1`` in a decoder prefill, ``cache.length`` at
 a decode step) and none on cross-attention.  Python loops walk the layers
-where the JAX package scans; under ``remat == "full"`` with grad enabled
-each encoder and decoder block runs under ``torch.utils.checkpoint`` (as
-``jax.checkpoint`` there).
+where the JAX package scans; under ``remat`` ``"full"`` or ``"dots"`` with
+grad enabled each encoder and decoder block runs under
+``torch.utils.checkpoint`` (as ``jax.checkpoint`` there, under both).
 
 Attention goes through ``models/attention.py``: every prefill attention
 through ``gqa_attention(impl=cfg.attention_impl)`` -- on the card the flash
@@ -44,14 +44,13 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.models.attention import decode_attention, gqa_attention
 from repro_torch.models.layers import (apply_rope, gelu_mlp, init_linear,
-                                       layer_norm, mask_padded_vocab, rope,
-                                       unbind_layers)
+                                       layer_norm, mask_padded_vocab,
+                                       remat_block, rope, unbind_layers)
 
 __all__ = ["init_params", "param_shapes", "encode", "decode_stack",
            "forward", "loss_fn", "init_cache", "prefill", "decode_step",
@@ -64,11 +63,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r}: models.encdec serves the audio "
             f"(encoder-decoder) family")
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs, recompute the rest) has "
-            "no torch counterpart yet (ROADMAP Queue 1, remat=\"dots\"); use "
-            "'full' or 'none'")
 
 
 # -----------------------------------------------------------------------------
@@ -195,14 +189,10 @@ def _positions(b: int, s: int, cfg: ModelConfig, device):
 def _stack(layers: dict, h: torch.Tensor, cfg: ModelConfig, block, *args
            ) -> torch.Tensor:
     """``block(p, h, *args)`` over the stacked ``layers``, each under
-    ``torch.utils.checkpoint`` with ``remat == "full"`` and grad
-    enabled."""
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    ``torch.utils.checkpoint`` with ``remat`` ``"full"`` or ``"dots"`` and
+    grad enabled (``layers.remat_block``)."""
     for p in unbind_layers({"layers": layers}):
-        if remat:
-            h = checkpoint(block, p, h, *args, use_reentrant=False)
-        else:
-            h = block(p, h, *args)
+        h = remat_block(cfg.remat, block, p, h, *args)
     return h
 
 

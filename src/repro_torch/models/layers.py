@@ -13,6 +13,15 @@ tensors over parameter dictionaries, with the same conventions:
 Every random draw takes an explicit ``torch.Generator``; ``init_linear``
 fills a whole ``[L, ...]`` stack in place, so ``stack_layers`` has no use
 here.  ``mrope_frequencies`` is the VLM family's multimodal RoPE.
+
+``remat_block`` runs a block as ``cfg.remat`` asks, for every model
+family: ``"full"`` under ``torch.utils.checkpoint`` (``jax.checkpoint``
+there), ``"dots"`` under a selective checkpoint whose policy
+(``dots_policy``) saves the outputs of products without batch dimensions
+and recomputes the rest (``checkpoint_dots_with_no_batch_dims`` there)
+where the JAX block takes that policy -- the transformer's -- and as
+``"full"`` where it takes plain ``jax.checkpoint`` (rwkv6, zamba2 and
+enc-dec check ``cfg.remat in ("full", "dots")``).
 """
 
 from __future__ import annotations
@@ -21,13 +30,14 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.tree import tree_leaves
 
 __all__ = ["rms_norm", "layer_norm", "init_norm", "init_linear", "swiglu",
            "gelu_mlp", "rope", "apply_rope", "mrope_frequencies",
-           "mask_padded_vocab",
-           "unbind_layers", "NEG_INF", "DRAW_BLOCK"]
+           "mask_padded_vocab", "unbind_layers", "remat_checkpoints",
+           "remat_block", "dots_policy", "NEG_INF", "DRAW_BLOCK"]
 
 NEG_INF = -2.3819763e38  # large finite negative, bf16-safe (the JAX value)
 DRAW_BLOCK = 1 << 24     # float32 elements ``init_linear`` draws at a time
@@ -205,3 +215,64 @@ def mask_padded_vocab(logits: torch.Tensor, real_vocab: int) -> torch.Tensor:
     col = torch.arange(v, device=logits.device)
     neg = torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device)
     return torch.where(col < real_vocab, logits, neg)
+
+
+# -----------------------------------------------------------------------------
+# Rematerialisation
+# -----------------------------------------------------------------------------
+
+
+def remat_checkpoints(remat: str) -> bool:
+    """Whether ``remat`` recomputes a block in the backward pass: ``"full"``
+    and ``"dots"`` do, ``"none"`` does not."""
+    return remat in ("full", "dots")
+
+
+def dots_policy(ctx, func, *args, **kwargs):
+    """The selective checkpoint's policy for ``remat="dots"``: save
+    (``MUST_SAVE``) the output of a product without batch dimensions,
+    recompute (``PREFER_RECOMPUTE``) everything else, as JAX's
+    ``checkpoint_dots_with_no_batch_dims``.
+
+    A product without batch dimensions reaches dispatch as ``aten.mm`` or
+    ``aten.addmm`` (``x @ W`` with a 3-D ``x`` folds its leading axes).
+    An ``aten.bmm`` is batched and recomputed -- the attention's grouped
+    einsums, the MoE experts -- unless its batch is 1: ``torch.einsum``
+    writes an unbatched contraction (``"bsd,de->bse"``) as a ``bmm`` of
+    batch 1, so such a ``bmm`` is saved too.  The rule's cost: a product
+    batched in JAX whose batch is 1 here (attention at one batch row and
+    one KV head, one expert) is saved where JAX recomputes it; it never
+    recomputes what JAX saves."""
+    from torch.utils.checkpoint import CheckpointPolicy
+    aten = torch.ops.aten
+    if func in (aten.mm.default, aten.addmm.default) or (
+            func is aten.bmm.default and args[0].shape[0] == 1):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    return create_selective_checkpoint_contexts(dots_policy)
+
+
+def remat_block(remat: str, fn, *args, save_products: bool = False):
+    """``fn(*args)`` as ``remat`` runs a block.  With grad enabled,
+    ``"full"`` runs it under ``torch.utils.checkpoint`` (non-reentrant):
+    its activations are recomputed in the backward pass.  ``"dots"`` does
+    the same, and with ``save_products`` (the transformer's blocks) it
+    keeps the outputs ``dots_policy`` saves, so the recomputation skips
+    those products.  Without grad, or under ``"none"``, ``fn(*args)``.
+
+    Against JAX's residuals the policy holds one activation more per block:
+    torch's selective checkpoint keeps every product it saves until the
+    block's recomputation, the block's last product too (the FFN's down
+    projection, whose output only the residual sum reads), where JAX keeps
+    only what its backward reads.  At float32 that is ``4 * B * S *
+    d_model`` bytes a layer."""
+    if not (remat_checkpoints(remat) and torch.is_grad_enabled()):
+        return fn(*args)
+    if remat == "dots" and save_products:
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_context)
+    return checkpoint(fn, *args, use_reentrant=False)

@@ -19,7 +19,9 @@ torch ops (``einsum`` for the products).
 Shapes: x [B, S, H, P] (H = d_inner / headdim P), B/C [B, S, N], dt
 [B, S, H], A [H].  Parameters keep the JAX names and layouts (``[d_in,
 d_out]`` projections; ``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` in
-float32).
+float32).  The SSD's chunks run under ``torch.utils.checkpoint`` where
+``cfg.remat`` recomputes blocks (``"full"`` or ``"dots"``); the JAX body
+checkpoints them under every policy.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.meta import checkpoint_repeated, loop_repeats, repeated
-from repro_torch.models.layers import init_linear, rms_norm
+from repro_torch.models.layers import (init_linear, remat_checkpoints,
+                                       rms_norm)
 
 __all__ = ["Mamba2State", "mamba2_shapes", "init_mamba2", "ssd_chunked",
            "mamba2_forward", "mamba2_decode_step"]
@@ -211,7 +214,7 @@ def mamba2_forward(params: dict, h: torch.Tensor, cfg: ModelConfig, *,
     A = -torch.exp(params["A_log"])
     y, hfinal = ssd_chunked(x, dt, B, C, A, params["D"], chunk=min(chunk, s),
                             h0=state.ssm if state is not None else None,
-                            remat=cfg.remat == "full")
+                            remat=remat_checkpoints(cfg.remat))
     y = rms_norm(y.reshape(b, s, d_inner) * F.silu(z), params["norm_scale"])
     return y @ params["out_proj"], Mamba2State(ssm=hfinal, conv=conv_tail)
 

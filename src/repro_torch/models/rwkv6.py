@@ -24,8 +24,9 @@ over all H*K channels (not a per-head group norm), and ``decode_step`` is
 
 Training: ``loss_fn`` (the JAX one) runs ``forward``, which starts from a
 zero state and writes nothing in place, so autograd sees every layer's
-state; under ``remat == "full"`` with grad enabled each block runs under
-``torch.utils.checkpoint`` (as ``jax.checkpoint`` there).  The wkv scan
+state; under ``remat`` ``"full"`` or ``"dots"`` with grad enabled each
+block runs under ``torch.utils.checkpoint`` (as ``jax.checkpoint`` there,
+which the JAX model applies under both).  The wkv scan
 kernel has no backward (neither has the JAX one, which trains through
 ``wkv_chunked``), so a training config keeps ``attention_impl`` off
 ``"kernel"`` and the time-mix takes ``wkv_plain``; ``wkv(impl="kernel")``
@@ -57,13 +58,13 @@ import dataclasses
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.kernels.linear_scan import wkv
 from repro_torch.models.layers import (init_linear, layer_norm,
-                                       mask_padded_vocab, unbind_layers)
+                                       mask_padded_vocab, remat_block,
+                                       unbind_layers)
 
 __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "RWKVState", "check_supported"]
@@ -76,11 +77,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.family != "ssm":
         raise NotImplementedError(
             f"models.rwkv6 runs the ssm family, not {cfg.family!r}")
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs, recompute the rest) has "
-            "no torch counterpart yet (ROADMAP Queue 1, remat=\"dots\"); use "
-            "'full' or 'none'")
 
 
 # -----------------------------------------------------------------------------
@@ -273,18 +269,14 @@ def _run(params: dict, h: torch.Tensor, cfg: ModelConfig, cache: RWKVState,
     ``wkv`` states are written into ``cache.wkv`` in place and the new
     state is returned (the serving pair); without it nothing is written and
     the state is dropped (``forward``, which autograd differentiates).
-    Under ``remat == "full"`` with grad enabled each block runs under
-    ``torch.utils.checkpoint``."""
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    With grad enabled each block runs as ``layers.remat_block`` runs it:
+    under ``torch.utils.checkpoint`` for ``remat`` ``"full"`` and
+    ``"dots"``."""
     tms, cms = [], []
     for i, p in enumerate(unbind_layers(params)):
-        args = (p, h, cfg, cache.wkv[i], cache.shift_tm[i],
-                cache.shift_cm[i])
-        if remat:
-            h, new_wkv, tm, cm = checkpoint(_block, *args,
-                                            use_reentrant=False)
-        else:
-            h, new_wkv, tm, cm = _block(*args)
+        h, new_wkv, tm, cm = remat_block(
+            cfg.remat, _block, p, h, cfg, cache.wkv[i], cache.shift_tm[i],
+            cache.shift_cm[i])
         if keep_state:
             cache.wkv[i].copy_(new_wkv)
             tms.append(tm)

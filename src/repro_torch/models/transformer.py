@@ -5,8 +5,10 @@ The port of the JAX package's ``models/transformer.py`` for
 under ``cfg.mrope_sections``: three position streams, ``positions [3, B,
 S]``) and optional per-head qk-norm (qwen3), a SwiGLU or GELU FFN or the
 MoE FFN (``models/moe.py``), tied or separate head, the training loss
-``loss_fn`` (with the router's auxiliary loss, each block recomputed in
-the backward pass under ``remat == "full"``; labels align with the text
+``loss_fn`` (with the router's auxiliary loss; each block recomputed in
+the backward pass under ``remat == "full"``, and under ``"dots"`` all but
+the outputs of its products without batch dimensions, which are saved, as
+JAX's ``checkpoint_dots_with_no_batch_dims``; labels align with the text
 tail when patch embeddings come first), and the serving pair ``prefill``
 / ``decode_step`` over a preallocated KV cache, which drop the auxiliary
 loss as the JAX package's do.  The VLM's stub frontend: ``batch
@@ -41,7 +43,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
@@ -49,8 +50,8 @@ from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import decode_attention, gqa_attention
 from repro_torch.models.layers import (apply_rope, gelu_mlp, init_linear,
                                        layer_norm, mask_padded_vocab,
-                                       mrope_frequencies, rms_norm, rope,
-                                       swiglu, unbind_layers)
+                                       mrope_frequencies, remat_block,
+                                       rms_norm, rope, swiglu, unbind_layers)
 
 __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "KVCache", "attention_block",
@@ -63,11 +64,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r}: models.transformer serves the dense, "
             f"MoE and VLM families")
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs, recompute the rest) has "
-            "no torch counterpart yet (ROADMAP Queue 1, remat=\"dots\"); use "
-            "'full' or 'none'")
 
 
 # -----------------------------------------------------------------------------
@@ -269,20 +265,21 @@ def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 def _forward(params: dict, batch: dict, cfg: ModelConfig
              ) -> tuple[torch.Tensor, torch.Tensor | float]:
     """-> (logits ``[B, S, V]``, the auxiliary loss summed over the layers),
-    the JAX ``forward``.  With ``cfg.remat == "full"`` and grad enabled each
-    block runs under ``torch.utils.checkpoint`` (its activations are
-    recomputed in the backward pass, as under ``jax.checkpoint``)."""
+    the JAX ``forward``.  With grad enabled each block runs as
+    ``layers.remat_block`` runs it under ``cfg.remat``: ``"full"`` under
+    ``torch.utils.checkpoint`` (its activations recomputed in the backward
+    pass, as under ``jax.checkpoint``), ``"dots"`` under a selective
+    checkpoint that saves the outputs of the block's products without
+    batch dimensions -- the q, k, v, ``wo`` and FFN projections, the MoE
+    router and shared experts, not the attention's or the experts'
+    batched products -- as JAX's ``checkpoint_dots_with_no_batch_dims``."""
     h = _embed_inputs(params, batch, cfg)
     b, s, _ = h.shape
     cos, sin = _rope_tables(cfg, _positions(batch, cfg, s, b, h.device))
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
     aux = 0.0
     for p in unbind_layers(params):
-        if remat:
-            h, a = checkpoint(_block, p, h, cfg, cos, sin,
-                              use_reentrant=False)
-        else:
-            h, a = _block(p, h, cfg, cos, sin)
+        h, a = remat_block(cfg.remat, _block, p, h, cfg, cos, sin,
+                           save_products=True)
         aux = aux + a
     return _logits(params, h, cfg), aux
 

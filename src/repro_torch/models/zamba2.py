@@ -8,9 +8,10 @@ super-blocks of 6, then 3 leftover layers), each invocation adding its own
 low-rank (LoRA) adapters to the shared q/k/v projections.  The shared block
 reads ``concat(hidden, the original embedding) [2D]`` through an input
 projection; the head is tied (``embed.T``).  Python loops walk the
-super-blocks where the JAX package scans; under ``remat == "full"`` with
-grad enabled each Mamba2 layer and each shared-block invocation runs under
-``torch.utils.checkpoint`` (as ``jax.checkpoint`` there).
+super-blocks where the JAX package scans; under ``remat`` ``"full"`` or
+``"dots"`` with grad enabled each Mamba2 layer and each shared-block
+invocation runs under ``torch.utils.checkpoint`` (as ``jax.checkpoint``
+there, under both).
 
 Attention goes through ``models/attention.py``: a prefill (the cache
 empty, or no cache) through ``gqa_attention(impl=cfg.attention_impl)`` --
@@ -42,15 +43,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as m2
 from repro_torch.models.attention import decode_attention, gqa_attention
 from repro_torch.models.layers import (apply_rope, init_linear,
-                                       mask_padded_vocab, rms_norm, rope,
-                                       swiglu, unbind_layers)
+                                       mask_padded_vocab, remat_block,
+                                       rms_norm, rope, swiglu, unbind_layers)
 
 __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "ZambaCache", "check_supported"]
@@ -64,11 +64,6 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.shared_attn_period <= 0 or cfg.ssm_state <= 0:
         raise NotImplementedError(
             "models.zamba2 needs shared_attn_period > 0 and ssm_state > 0")
-    if cfg.remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save the matmul outputs, recompute the rest) has "
-            "no torch counterpart yet (ROADMAP Queue 1, remat=\"dots\"); use "
-            "'full' or 'none'")
 
 
 def _invocations(cfg: ModelConfig) -> int:
@@ -204,7 +199,6 @@ def _run(params: dict, h: torch.Tensor, cfg: ModelConfig,
     pos = (start + torch.arange(s, device=h.device))[None, :].expand(b, s)
     cos, sin = rope(pos, cfg.head_dim, theta=cfg.rope_theta)
     decode = cache is not None and s == 1
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
 
     def mamba_layer(p, norm_scale, hcur, i):
         x = rms_norm(hcur, norm_scale)
@@ -226,19 +220,14 @@ def _run(params: dict, h: torch.Tensor, cfg: ModelConfig,
         return _shared_attn(params["shared"], lora, hcur, emb0, cfg, cos,
                             sin, cache=kv)
 
-    def call(fn, *args):
-        if remat:
-            return checkpoint(fn, *args, use_reentrant=False)
-        return fn(*args)
-
     layers = unbind_layers({"layers": params["mamba"]})
     norms = params["mamba_norm"]["scale"].unbind(0)
     loras = unbind_layers({"layers": params["lora"]})
     for i in range(cfg.num_layers):
-        h = call(mamba_layer, layers[i], norms[i], h, i)
+        h = remat_block(cfg.remat, mamba_layer, layers[i], norms[i], h, i)
         if (i + 1) % period == 0:          # after each super-block
             j = (i + 1) // period - 1
-            h = call(attn, loras[j], h, j)
+            h = remat_block(cfg.remat, attn, loras[j], h, j)
     return h
 
 

@@ -469,11 +469,11 @@ def test_meta_loops_count_as_every_iteration(monkeypatch, arch, shape, seq,
     """A pass whose loops stand a representative in for repeated
     iterations counts what the pass that runs every iteration counts:
     without autograd (a prefill; a train step's microbatches, each done
-    before the next) the bytes and the FLOPs to the byte and the FLOP;
-    where a checkpointed SSD chunk stands in (zamba2's train step), the
-    bytes within 1e-6 and the FLOPs within 1% (its backward recomputes the
-    whole chunk, where checkpoint's early stop leaves out the last
-    products)."""
+    before the next) the bytes held, the FLOPs, the bytes accessed and the
+    transcendentals exactly; where a checkpointed SSD chunk stands in
+    (zamba2's train step), the bytes held within 1e-6 and the three cost
+    counts within 1% (its backward recomputes the whole chunk, where
+    checkpoint's early stop leaves out the last products)."""
     cfg = get_config(arch).reduced()
     cell = dataclasses.replace(SHAPE_CELLS[shape], seq_len=seq,
                                global_batch=batch)
@@ -492,10 +492,68 @@ def test_meta_loops_count_as_every_iteration(monkeypatch, arch, shape, seq,
             assert abs(fast[k] - full[k]) <= 1e-6 * full[k], k
         else:
             assert fast[k] == full[k], k
-    if checkpointed:
-        assert abs(fast["flops"] - full["flops"]) <= 0.01 * full["flops"]
-    else:
-        assert fast["flops"] == full["flops"]
+    for k in ("flops", "bytes_accessed", "transcendentals"):
+        assert full[k] > 0, k
+        if checkpointed:
+            assert abs(fast[k] - full[k]) <= 0.01 * full[k], k
+        else:
+            assert fast[k] == full[k], k
+
+
+def _xla_cost(jx, fn, x):
+    cost = jx.jax.jit(fn).lower(x).compile().cost_analysis()
+    return cost[0] if isinstance(cost, (list, tuple)) else cost
+
+
+@pytest.mark.parametrize("name", ["exp", "softmax", "rms_norm", "silu"])
+def test_meta_pass_transcendentals_match_xla(jx, name):
+    """On ``[64, 128]`` float32, ``MetaPass``'s transcendentals of the
+    port's function equal XLA's ``cost_analysis()`` of the JAX one: one a
+    element for exp, softmax and silu, one rsqrt a row for the rms norm
+    (the port's ``layers.rms_norm`` against the JAX package's)."""
+    import torch.nn.functional as F
+    from repro.models import layers as JL
+    from repro_torch.models import layers as TL
+    jnp, nn = jx.jnp, jx.jax.nn
+    want = {"exp": 8192, "softmax": 8192, "rms_norm": 64, "silu": 8192}
+    port = {"exp": torch.exp, "softmax": lambda x: torch.softmax(x, -1),
+            "rms_norm": lambda x: TL.rms_norm(x, torch.ones(128,
+                                                            device="meta")),
+            "silu": F.silu}[name]
+    ref = {"exp": jnp.exp, "softmax": lambda x: nn.softmax(x, axis=-1),
+           "rms_norm": lambda x: JL.rms_norm(x, jnp.ones((128,))),
+           "silu": nn.silu}[name]
+    xla = _xla_cost(jx, ref, jnp.ones((64, 128), jnp.float32))
+    x = torch.empty((64, 128), device="meta")
+    watch = TM.MetaPass(exclude=(x,))
+    with watch:
+        port(x)
+    assert watch.transcendentals == int(xla["transcendentals"]) \
+        == want[name]
+    if name == "exp":       # one op: XLA's bytes too
+        assert watch.bytes_accessed == int(xla["bytes accessed"]) == 65536
+
+
+def test_meta_pass_bytes_accessed():
+    """A view moves nothing; a product reads its two operands and writes
+    its output; an in-place op reads and writes its tensor; a memoised
+    repeat and ``repeated(n)`` count as the runs they stand for."""
+    x = torch.empty((64, 128), device="meta")
+    w = torch.empty((128, 32), device="meta")
+    watch = TM.MetaPass(exclude=(x, w))
+    with watch:
+        x.view(128, 64).t()
+        assert watch.bytes_accessed == 0
+        y = x @ w
+        assert watch.bytes_accessed == 4 * (64 * 128 + 128 * 32 + 64 * 32)
+        y.add_(1.0)
+        assert watch.bytes_accessed == 4 * (64 * 128 + 128 * 32 + 3 * 64 * 32)
+    before = watch.bytes_accessed, watch.flops
+    with watch, TM.repeated(3):
+        x @ w
+    assert watch.bytes_accessed - before[0] == 3 * 4 * (64 * 128 + 128 * 32
+                                                        + 64 * 32)
+    assert watch.flops - before[1] == 3 * 2 * 64 * 128 * 32
 
 
 def test_meta_pass_counts_views_and_in_place_writes_as_nothing():

@@ -153,16 +153,16 @@ def test_encode_and_forward_match_jax(jx, tree, impl):
         assert calls == []
 
 
-def test_loss_and_grads_match_jax(jx, tree):
+def loss_and_grads_against_jax(jx, tree, remat):
     """``loss_fn`` (one label masked) and its gradients against
-    ``jax.value_and_grad`` under the config's full remat."""
+    ``jax.value_and_grad``, both configs under ``remat``."""
     jax, jnp = jx["jax"], jx["jnp"]
-    cfg = port()
-    assert cfg.remat == "full"
+    cfg = dataclasses.replace(port(), remat=remat)
     frames, toks, labels = inputs(2, cfg.vocab_size)
     jb, tb = both(jx, embeds=frames, tokens=toks[:, :S_DEC], labels=labels)
     jloss, jgrads = jax.value_and_grad(jx["JR"].build_model(
-        jx["cfg"]).loss_fn)(jax.tree_util.tree_map(jnp.asarray, tree), jb)
+        dataclasses.replace(jx["cfg"], remat=remat)).loss_fn)(
+            jax.tree_util.tree_map(jnp.asarray, tree), jb)
     params = convert.model_params_from_numpy(cfg, tree, device="cpu")
     for _, v in tree_items(params):
         v.requires_grad_(True)
@@ -175,6 +175,18 @@ def test_loss_and_grads_match_jax(jx, tree):
     assert sorted(got) == sorted(want)
     for k in want:
         assert share(got[k], want[k]) <= GRAD_TOL, k
+
+
+def test_loss_and_grads_match_jax(jx, tree):
+    """Under the config's full remat."""
+    assert port().remat == "full"
+    loss_and_grads_against_jax(jx, tree, "full")
+
+
+def test_loss_and_grads_match_jax_under_dots(jx, tree):
+    """Under ``"dots"``, which both packages run as ``"full"`` in this
+    family (JAX checks ``cfg.remat in ("full", "dots")``)."""
+    loss_and_grads_against_jax(jx, tree, "dots")
 
 
 def test_remat_changes_no_gradient(tree):

@@ -269,18 +269,24 @@ def test_prefill_decode_and_greedy_match_jax(jx, trees, arch):
     np.testing.assert_array_equal(out["tokens"], greedy)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
-def test_loss_and_grads_match_jax(jx, trees, arch):
+@pytest.mark.parametrize("arch,remat", [(a, "full") for a in ARCHS]
+                         + [(ARCHS[0], "dots")],
+                         ids=ARCHS + [f"{ARCHS[0]}-dots"])
+def test_loss_and_grads_match_jax(jx, trees, arch, remat):
     """``loss_fn`` (cross-entropy plus ``router_aux_coef`` times the
     layers' summed aux) and its gradients against ``jax.value_and_grad``,
-    under the config's full remat."""
+    under the config's full remat, and for moonshot also under ``"dots"``
+    (the router's and shared experts' products saved, the experts'
+    batched ones recomputed, on both sides)."""
     jax, jnp = jx["jax"], jx["jnp"]
     tree = trees[arch]
     rng = np.random.default_rng(4)
     cfg, params = port_params(arch, tree)
+    cfg = dataclasses.replace(cfg, remat=remat)
     batch = {k: rng.integers(0, cfg.vocab_size, (B, S), dtype=np.int32)
              for k in ("tokens", "labels")}
-    jm = jx["build_model"](jx["get_config"](arch).reduced())
+    jm = jx["build_model"](dataclasses.replace(
+        jx["get_config"](arch).reduced(), remat=remat))
     jloss, jgrads = jax.value_and_grad(jm.loss_fn)(
         jax.tree_util.tree_map(jnp.asarray, tree),
         {k: jnp.asarray(v) for k, v in batch.items()})

@@ -1,5 +1,6 @@
 """The port's training slice against the JAX package, on ``qwen3-1.7b``
-reduced (2 layers, d_model 64, float32, full remat) with the JAX model's
+reduced (2 layers, d_model 64, float32, full remat; the loss and its
+gradients also under ``remat="dots"``) with the JAX model's
 own parameters carried over by ``convert.model_params_from_numpy``:
 ``loss_fn`` and its gradients, ``adamw_update`` from a carried-over
 optimizer state (``convert.opt_state_from_numpy``), and one whole step at
@@ -87,14 +88,14 @@ def jx():
                 TokenStream=JTokenStream)
 
 
-def jax_cfg(jx, mb):
+def jax_cfg(jx, mb, remat="full"):
     return dataclasses.replace(jx["get_config"]("qwen3-1.7b").reduced(),
-                               train_microbatches=mb)
+                               train_microbatches=mb, remat=remat)
 
 
-def port_cfg(mb):
+def port_cfg(mb, remat="full"):
     return dataclasses.replace(t_get_config("qwen3-1.7b").reduced(),
-                               train_microbatches=mb)
+                               train_microbatches=mb, remat=remat)
 
 
 def jax_step(jx, cfg, params, state, batch, bits):
@@ -147,9 +148,9 @@ def mid(jx):
     return as_np(params), as_np(state), stream.next_batch()
 
 
-def port_state(mb, mid):
+def port_state(mb, mid, remat="full"):
     params, state, _ = mid
-    cfg = port_cfg(mb)
+    cfg = port_cfg(mb, remat)
     return (cfg, convert.model_params_from_numpy(cfg, params, device="cpu"),
             convert.opt_state_from_numpy(cfg, state, device="cpu"))
 
@@ -161,15 +162,20 @@ def tbatch(batch):
 # -- the loss and its gradients ---------------------------------------------
 
 
-@pytest.mark.parametrize("mb", [1, 2])
-def test_loss_and_grads_match_jax(jx, mid, mb):
+@pytest.mark.parametrize("mb,remat", [(1, "full"), (2, "full"),
+                                      (1, "dots"), (2, "dots")],
+                         ids=["1", "2", "1-dots", "2-dots"])
+def test_loss_and_grads_match_jax(jx, mid, mb, remat):
     """The microbatch-summed loss and float32 gradients of the port's
-    ``compute_grads`` against JAX's value_and_grad (and its scan)."""
+    ``compute_grads`` against JAX's value_and_grad (and its scan), under
+    the config's full remat and under ``"dots"`` (JAX's
+    ``checkpoint_dots_with_no_batch_dims``, the port's selective
+    checkpoint)."""
     params, state, batch = mid
     _, _, jloss, jgrads, _ = jax_step(
-        jx, jax_cfg(jx, mb), *(jx["jax"].tree_util.tree_map(
+        jx, jax_cfg(jx, mb, remat), *(jx["jax"].tree_util.tree_map(
             jx["jnp"].asarray, t) for t in (params, state)), batch, 16)
-    cfg, tp, _ = port_state(mb, mid)
+    cfg, tp, _ = port_state(mb, mid, remat)
     loss, grads = TS.compute_grads(t_build(cfg), tp, tbatch(batch), mb)
     assert abs(float(loss) - float(jloss)) <= LOSS_RTOL * abs(float(jloss))
     want = items(jx["jax"].tree_util.tree_map(np.asarray, jgrads))
@@ -206,14 +212,18 @@ def test_loss_masks_negative_labels(jx, mid):
     assert abs(float(loss) - float(jloss)) <= LOSS_RTOL * abs(float(jloss))
 
 
-def test_remat_gives_the_same_grads(mid):
-    """Recomputing each block in the backward pass changes nothing."""
-    cfg, tp, _ = port_state(1, mid)
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+def test_remat_gives_the_same_grads(mid, remat):
+    """Recomputing a block in the backward pass changes nothing: the
+    gradients under each policy are bitwise those of a run that keeps
+    every activation (``"none"``; under ``"none"`` itself, a second
+    run)."""
+    cfg, tp, _ = port_state(1, mid, remat)
     batch = tbatch(mid[2])
-    _, g_full = TS.compute_grads(t_build(cfg), tp, batch, 1)
+    _, got = TS.compute_grads(t_build(cfg), tp, batch, 1)
     _, g_none = TS.compute_grads(
         t_build(dataclasses.replace(cfg, remat="none")), tp, batch, 1)
-    for k, v in items(g_full).items():
+    for k, v in items(got).items():
         np.testing.assert_array_equal(v, items(g_none)[k])
 
 
@@ -562,11 +572,6 @@ def test_kernel_attention_refuses_autograd(mid):
     cfg = dataclasses.replace(cfg, attention_impl="kernel")
     with pytest.raises(NotImplementedError, match="no backward"):
         TS.compute_grads(t_build(cfg), tp, tbatch(mid[2]), 1)
-
-
-def test_remat_dots_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_build(dataclasses.replace(port_cfg(1), remat="dots"))
 
 
 def test_ssm_training_is_not_ported():

@@ -91,13 +91,14 @@ def port_params(cfg, tree):
     return params
 
 
-def test_rwkv6_loss_and_grads_match_jax(jx, rwkv_tree):
-    """``rwkv6.loss_fn`` and its gradients under the config's full remat
-    against ``jax.value_and_grad`` of the JAX ``loss_fn``."""
+def rwkv6_against_jax(jx, rwkv_tree, remat):
+    """``rwkv6.loss_fn`` and its gradients against ``jax.value_and_grad``
+    of the JAX ``loss_fn``, both configs under ``remat``."""
     jax, jnp = jx["jax"], jx["jnp"]
-    jcfg = jx["get_config"]("rwkv6-1.6b").reduced()
-    cfg = t_get_config("rwkv6-1.6b").reduced()
-    assert cfg.remat == "full"
+    jcfg = dataclasses.replace(jx["get_config"]("rwkv6-1.6b").reduced(),
+                               remat=remat)
+    cfg = dataclasses.replace(t_get_config("rwkv6-1.6b").reduced(),
+                              remat=remat)
     nb = rwkv_batch(cfg.vocab_size)
     jloss, jgrads = jax.value_and_grad(jx["JR"].build_model(jcfg).loss_fn)(
         jax.tree_util.tree_map(jnp.asarray, rwkv_tree),
@@ -113,6 +114,18 @@ def test_rwkv6_loss_and_grads_match_jax(jx, rwkv_tree):
     assert sorted(got) == sorted(want)
     for k in want:
         assert share(got[k], want[k]) <= GRAD_TOL, k
+
+
+def test_rwkv6_loss_and_grads_match_jax(jx, rwkv_tree):
+    """Under the config's full remat."""
+    assert t_get_config("rwkv6-1.6b").reduced().remat == "full"
+    rwkv6_against_jax(jx, rwkv_tree, "full")
+
+
+def test_rwkv6_loss_and_grads_match_jax_under_dots(jx, rwkv_tree):
+    """Under ``"dots"``, which both packages run as ``"full"`` in this
+    family."""
+    rwkv6_against_jax(jx, rwkv_tree, "dots")
 
 
 def test_rwkv6_remat_and_serving_state(rwkv_tree):

@@ -240,14 +240,17 @@ def test_decode_from_a_carried_jax_cache(jx, trees, served, layers):
             attn_v=jcache.attn_v, length=S, device="cpu")
 
 
-@pytest.mark.parametrize("layers", LAYERS)
-def test_loss_and_grads_match_jax(jx, trees, layers):
+@pytest.mark.parametrize("layers,remat", [(n, "full") for n in LAYERS]
+                         + [(LAYERS[0], "dots")],
+                         ids=[str(n) for n in LAYERS] + [f"{LAYERS[0]}-dots"])
+def test_loss_and_grads_match_jax(jx, trees, layers, remat):
     """``loss_fn`` and its gradients against ``jax.value_and_grad`` under
     the config's full remat (every Mamba2 layer, shared-block invocation
-    and SSD chunk recomputed in the backward pass), with a masked label."""
+    and SSD chunk recomputed in the backward pass), with a masked label;
+    and under ``"dots"``, which both packages run as ``"full"`` here."""
     jax, jnp = jx["jax"], jx["jnp"]
-    jcfg, tcfg = cfgs(jx, layers)
-    assert tcfg.remat == "full"
+    jcfg, tcfg = cfgs(jx, layers, remat=remat)
+    assert tcfg.remat == remat
     rng = np.random.default_rng(layers + 4)
     batch = {k: rng.integers(0, tcfg.vocab_size, (B, S), dtype=np.int32)
              for k in ("tokens", "labels")}
