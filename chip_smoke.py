@@ -230,6 +230,24 @@ each, with their wall seconds:
                 ``frame_knob_grid`` launch of the phase, at its own inputs,
                 bitwise against the plain version on the CPU (the card's
                 plain version is no oracle at 144x256), timed together.
+  mesh          the fleet mesh and the sharded training step:
+                tests/test_fleet_sharded.py's 13 cameras through its
+                36-tick swap and retarget sequence on an 8-way lane split
+                of the one card (padded to 16 lanes), on
+                ``fleet_mesh(1)`` and with ``mesh=None`` (the
+                one-device mesh of the fleet's device), every decision
+                identical to a host ``LatencyController``'s, one table layout each, each
+                tick's p50 on the host clock (the split on one card only
+                adds launches: a cost, not a gain); that test's scenario
+                meshed, unmeshed and on the host, byte-equal; then
+                ``train("qwen3-1.7b", reduced=True, mesh_shape=(1, 1),
+                grad_bits=8, steps=3)`` on a one-rank NCCL group, its
+                losses and final parameters bitwise the meshless run's
+                (both under ``torch.use_deterministic_algorithms``), the
+                quantize pair's launches counted from zero (one each a
+                leaf of at least 1024 elements: 8 + 8 a step at the
+                reduced widths, all contiguous), the step p50 of both
+                runs.
 
 Then a ``kernels`` line (every kernel: launches on its main path, error
 against its plain version, its time beside its bound, the plain version's
@@ -239,7 +257,7 @@ serving path, and its rows at the zoo's and the families' head shapes and
 at the enc-dec serve's full, cross and cross-decode shapes, and with
 the wkv scan at the dry-run's 32k and 500k shapes; the quantize
 pair its launches on every training path, the remat phase's ``"dots"``
-steps among them),
+steps and the mesh phase's (1, 1) run among them),
 the card's ``name,
 power.limit``, and as the last line
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before that
@@ -266,13 +284,14 @@ knob kernel (the build and frame_knobs_kernel phases).
     python3 chip_smoke.py --train-families-only
     python3 chip_smoke.py --dryrun-only
     python3 chip_smoke.py --remat-only
+    python3 chip_smoke.py --mesh-only
 
 build ``frame_knob_grid`` and run only the scenario phase, or build the
 two attention kernels and run only the serve_zoo, the serve_families or
 the serve_encdec phase, or build the quantize pair and run only the
 train_families phase, or build the attention and wkv kernels and run
 only the dryrun phase, or build the quantize pair and run only the remat
-phase.
+or the mesh phase.
 """
 
 from __future__ import annotations
@@ -541,6 +560,11 @@ FKG_NAMES = ("fkg_prologue", "fkg_prologue_x4", "fkg_tile", "fkg_final")
 # on the complex table)
 SIZE_RTOL = 1e-5
 TICK_LABEL = "chip_smoke.fleet_tick"    # profiler range around each tick
+# the mesh phase: tests/test_fleet_sharded.py's 13 cameras on an 8-way
+# lane split (padded to 16 lanes) through its swap (step 10) and retarget
+# (step 22) sequence, and a one-rank (1, 1) training mesh
+MESH_CAMS, MESH_SPLIT, MESH_STEPS = 13, 8, 36
+MESH_TRAIN = dict(steps=3, batch=8, seq=128, grad_bits=8, seed=0)
 
 
 def emit(phase: str, **fields) -> None:
@@ -4080,6 +4104,225 @@ def scenario_runs(dev) -> dict:
         "resweep"]["launches"]
     return out
 
+def mesh_fleet_run(dev, mesh) -> dict:
+    """tests/test_fleet_sharded.py's 13 cameras through 36 fused ticks on
+    ``mesh``, held lane by lane against host ``LatencyController``s; each
+    tick timed on the host clock, ending in a synchronise."""
+    import numpy as np
+    import torch
+    from repro_torch.core.characterization import LatencyRegression
+    from repro_torch.core.controller import (ControllerConfig,
+                                             FleetController,
+                                             LatencyController)
+    reg = LatencyRegression(slope=1.2e-6, intercept=0.008)
+
+    class Cam:
+        def __init__(self, cid, ctrl):
+            self.camera_id, self.controller = cid, ctrl
+            self.table_version = self.qos_version = 0
+
+    cams, hosts = [], []
+    for i in range(MESH_CAMS):
+        tbl = synthetic_table(12 + i % 29, smin=2e3 + 37.0 * i,
+                              smax=9e4 - 101.0 * i)
+        cfg = ControllerConfig(latency_target=0.040 + 0.001 * (i % 17),
+                               accuracy_target=0.90 + 0.002 * (i % 4))
+        cams.append(Cam(f"cam{i:03d}", LatencyController(cfg, tbl, reg)))
+        hosts.append(LatencyController(cfg, tbl, reg))
+    fleet = FleetController(cams, capacity=128, mesh=mesh, device=dev)
+    rng = np.random.default_rng(0)
+    tick_ms = []
+    for step in range(MESH_STEPS):
+        if step == 10:
+            for i in (2, 7, 12):
+                fresh = synthetic_table(20 + i, smin=3e3 + 11.0 * i,
+                                        smax=7e4)
+                cams[i].controller.swap_table(fresh)
+                cams[i].table_version += 1
+                hosts[i].swap_table(fresh)
+        if step == 22:
+            for i in (0, 5):
+                cams[i].controller.set_target(0.075, 0.91)
+                cams[i].qos_version += 1
+                hosts[i].set_target(0.075, 0.91)
+        fb = {c.camera_id: float(rng.uniform(0.005, 0.5)) for c in cams}
+        t0 = time.perf_counter()
+        decisions = fleet.decide(fb)
+        torch.cuda.synchronize()
+        tick_ms.append((time.perf_counter() - t0) * 1e3)
+        for i, cam in enumerate(cams):
+            dh, df = hosts[i].update(fb[cam.camera_id]), \
+                decisions[cam.camera_id]
+            if (df.setting_index, df.acted, df.feasible) != (
+                    dh.setting_index, dh.acted, dh.feasible):
+                raise AssertionError(f"mesh {mesh}: step {step} lane {i}: "
+                                     f"fleet {df} vs host {dh}")
+    if fleet.cache_size() != 1:
+        raise AssertionError(f"the meshed tick ran on {fleet.cache_size()} "
+                             f"layouts")
+    # (``--src`` may name a checkout whose unmeshed fleet has no mesh)
+    devices = getattr(fleet.mesh, "devices", [fleet.device])
+    return dict(devices=[str(d) for d in devices],
+                lanes=fleet._n_padded, ticks=MESH_STEPS,
+                identical_to_host=True, cache_size=fleet.cache_size(),
+                tick_p50_ms=float(np.percentile(tick_ms, 50)),
+                tick_p95_ms=float(np.percentile(tick_ms, 95)),
+                first_tick_ms=tick_ms[0])
+
+
+def production_bytes(arch: str) -> dict:
+    """Bytes one rank stores at rest for ``arch`` at its published widths
+    on each production mesh, by the specs: its share of every parameter
+    leaf (the config's dtype) and of both float32 AdamW moments, beside
+    the whole (a reckoning on meta tensors; nothing is allocated)."""
+    import math
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import production_mesh_shape
+    from repro_torch.models.registry import param_specs
+    from repro_torch.sharding import partition
+    from repro_torch.tree import tree_leaves
+    cfg = get_config(arch)
+    leaves = tree_leaves(param_specs(cfg))
+
+    def gb(shapes) -> float:
+        return sum(math.prod(s) * (x.element_size() + 8)
+                   for x, s in zip(leaves, shapes)) / 1e9
+
+    out = {"whole_gb": gb([x.shape for x in leaves])}
+    for label, multi in (("single", False), ("multi", True)):
+        mesh = production_mesh_shape(multi)
+        specs = partition.spec_leaves(partition.param_specs(
+            param_specs(cfg), cfg, mesh))
+        out[f"{label}_gb"] = gb([partition.NamedSharding(mesh, sp)
+                                 .local_shape(x.shape)
+                                 for x, sp in zip(leaves, specs)])
+    return out
+
+
+def phase_mesh(dev) -> dict:
+    """The fleet mesh and the sharded training step on one card: the
+    13-camera sequence on an 8-way split of one device (padded to 16
+    lanes), on ``fleet_mesh(1)`` and unmeshed (``mesh=None``), each
+    identical to the host controllers (the split on one card only adds
+    launches: its p50 is a cost); tests/test_fleet_sharded.py's
+    scenario meshed, unmeshed and on the host, byte-equal; then
+    ``train(reduced=True, mesh_shape=(1, 1), grad_bits=8)`` on a one-rank
+    NCCL group, its losses and final parameters bitwise the meshless
+    run's, with the quantize pair's launches of the meshed run counted
+    from zero (every launch contiguous)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import scenario as S
+    from repro_torch.kernels import quantize as Q
+    from repro_torch.launch.train import train
+    from repro_torch.sharding.partition import fleet_mesh
+    from repro_torch.tree import tree_items
+    cuda = dev.type == "cuda"
+    card = (f"cuda:{torch.cuda.current_device()}" if cuda
+            and dev.index is None else str(dev))
+    out = {"fleet": {}}
+    t0 = time.monotonic()
+    for label, mesh in ((f"split{MESH_SPLIT}", [card] * MESH_SPLIT),
+                        ("one", 1 if cuda else [card]), ("none", None)):
+        out["fleet"][label] = mesh_fleet_run(
+            dev, None if mesh is None else fleet_mesh(mesh))
+    out["fleet"]["split_cost_ms"] = (
+        out["fleet"][f"split{MESH_SPLIT}"]["tick_p50_ms"]
+        - out["fleet"]["one"]["tick_p50_ms"])
+    out["fleet"]["seconds"] = time.monotonic() - t0
+
+    t0 = time.monotonic()
+
+    def spec(**kw):
+        return S.ScenarioSpec(
+            name="fleet-sharded-parity",
+            cameras=tuple(S.CameraSpec(f"cam{i}", dynamics="medium")
+                          for i in range(3)),
+            frames=30, seed=9, workload="jaad", latency=0.100,
+            accuracy=0.92, events=(S.InterferenceSpike(
+                start=2.0, end=4.0, factor=7.0),), **kw)
+
+    tables = {"medium": synthetic_table()}
+    runs = {k: S.run_scenario(spec(**kw), tables=tables, device=dev)
+            for k, kw in (("meshed", dict(fleet=True,
+                                          mesh=[card] * MESH_SPLIT)),
+                          ("fleet", dict(fleet=True)),
+                          ("host", dict(fleet=False)))}
+    texts = {k: r.to_json() for k, r in runs.items()}
+    if len(set(texts.values())) != 1 or runs["meshed"].fleet_cache_size != 1:
+        raise AssertionError("the meshed scenario's trace differs: "
+                             + str({k: len(v) for k, v in texts.items()}))
+    out["scenario"] = dict(rows=len(runs["meshed"].rows),
+                           identical=True, seconds=time.monotonic() - t0)
+
+    # -- the sharded training step on a one-rank (1, 1) mesh ---------------
+    t0 = time.monotonic()
+    cfg = get_config(TRAIN_ARCH).reduced()
+    n_leaves = len(grad_leaves(cfg))
+    # one deterministic choice of every torch kernel for both runs: the
+    # comparison is of the mesh path with the meshless one, bit for bit
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        flat = train(TRAIN_ARCH, reduced=True, log_every=1000,
+                     return_params=True, device=dev, **MESH_TRAIN)
+        store_path = ROOT / "build" / "chip_smoke_mesh_store"
+        store_path.parent.mkdir(parents=True, exist_ok=True)
+        store_path.unlink(missing_ok=True)
+        dist.init_process_group("nccl" if cuda else "gloo",
+                                store=dist.FileStore(str(store_path), 1),
+                                rank=0, world_size=1)
+        Q.quantize_blocks.launches = Q.dequantize_blocks.launches = 0
+        r0 = route_counts()
+        try:
+            meshed = train(TRAIN_ARCH, reduced=True, log_every=1000,
+                           return_params=True, mesh_shape=(1, 1),
+                           device=dev, **MESH_TRAIN)
+            torch.cuda.synchronize()
+        finally:
+            dist.destroy_process_group()
+            store_path.unlink(missing_ok=True)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    launches = {"quantize_blocks": Q.quantize_blocks.launches,
+                "dequantize_blocks": Q.dequantize_blocks.launches}
+    routes = route_delta(r0, route_counts())
+    want = n_leaves * MESH_TRAIN["steps"]
+    if launches != {k: want for k in launches} \
+            or routes != contiguous_only(want):
+        raise AssertionError(f"the meshed train launched {launches} "
+                             f"({routes} by route), want {want} of each, "
+                             f"all contiguous")
+    if meshed["losses"] != flat["losses"]:
+        raise AssertionError(f"meshed losses {meshed['losses']} != "
+                             f"{flat['losses']}")
+    differ = [k for (k, a), (_, b) in zip(tree_items(meshed["params"]),
+                                          tree_items(flat["params"]),
+                                          strict=True)
+              if not torch.equal(a, b)]
+    if differ:
+        raise AssertionError(f"meshed parameters differ from the meshless "
+                             f"run's at {differ}")
+    resident = meshed["resident"]
+    n_params = sum(a.numel() for _, a in tree_items(flat["params"]))
+    if resident != {"params": n_params, "moments": 2 * n_params}:
+        raise AssertionError(f"one rank stores {resident}, want every "
+                             f"element ({n_params})")
+    out["train"] = dict(
+        production_bytes_per_rank=production_bytes(TRAIN_ARCH),
+        arch=TRAIN_ARCH, reduced=True, mesh_shape=[1, 1],
+        backend="nccl" if cuda else "gloo",
+        **MESH_TRAIN, losses=meshed["losses"], bitwise=True,
+        resident=resident, launches=launches, launches_by_route=routes,
+        step_p50_s=float(np.median(meshed["step_s"])),
+        meshless_step_p50_s=float(np.median(flat["step_s"])),
+        seconds=time.monotonic() - t0)
+    del meshed, flat
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_camera(dev) -> tuple[dict, dict]:
     """The camera node's phases in order; returns (frame_knobs_kernel
     result, camera_node result) and emits one line per phase."""
@@ -4179,6 +4422,9 @@ def main(argv: list[str]) -> int:
     only.add_argument("--remat-only", action="store_true",
                       help="run only the build of the quantize pair and "
                            "the remat phase")
+    only.add_argument("--mesh-only", action="store_true",
+                      help="run only the build of the quantize pair and "
+                           "the mesh phase")
     ap.add_argument("--src", type=Path, default=SRC,
                     help="the src/ directory whose repro_torch to drive "
                          "(default: this checkout's); with one of the "
@@ -4208,6 +4454,7 @@ def main(argv: list[str]) -> int:
      else run_train_families if args.train_families_only
      else run_dryrun if args.dryrun_only
      else run_remat if args.remat_only
+     else run_mesh if args.mesh_only
      else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4377,6 +4624,15 @@ def run_remat(dev) -> None:
     from repro_torch.kernels import quantize as Q
     build_only("quantize_blocks", Q._load_lib)
     phase_remat(dev)
+
+
+def run_mesh(dev) -> None:
+    """``--mesh-only``: build the quantize pair, then the mesh phase."""
+    from repro_torch.kernels import quantize as Q
+    build_only("quantize_blocks", Q._load_lib)
+    t0 = time.monotonic()
+    mesh = phase_mesh(dev)
+    emit("mesh", seconds=time.monotonic() - t0, **mesh)
 
 
 def run(dev) -> None:
@@ -4615,6 +4871,10 @@ def run(dev) -> None:
     t0 = time.monotonic()
     scen = phase_scenario(dev)
     emit("scenario", seconds=time.monotonic() - t0, **scen)
+    # -- the fleet mesh and the sharded training step -----------------------
+    t0 = time.monotonic()
+    mesh = phase_mesh(dev)
+    emit("mesh", seconds=time.monotonic() - t0, **mesh)
     from repro_torch.configs import get_config
     serve_cfg = get_config(SERVE_ARCH)
     serve_hd = (serve_cfg.reduced() if SERVE_REDUCED else serve_cfg).head_dim
@@ -4726,7 +4986,8 @@ def run(dev) -> None:
             "dryrun": dryrun_launches(dry, "wkv_linear_scan")},
             dryrun_shapes=dryrun_shapes(dry, "wkv_linear_scan")),
         *quant_kernel_rows(quant, train_run, {
-            **families, f"{REMAT_ARCH} remat=dots": remat["train_step"]}),
+            **families, f"{REMAT_ARCH} remat=dots": remat["train_step"],
+            f"{TRAIN_ARCH} mesh (1, 1)": mesh["train"]}),
         knobs_row]}),
         flush=True)
 

@@ -25,8 +25,10 @@ manifest records no dtypes, and its ``np.save`` of an ``ml_dtypes``
 bfloat16 leaf writes 2-byte void records (``|V2``): ``restore`` reads
 those as bfloat16 bits where the target leaf is bfloat16, and raises
 ``ValueError`` for any other void leaf.  ``restore`` places each leaf on
-one device (default ``"cuda"``); the port has no mesh, so there are no
-shardings.
+one device (default ``"cuda"``) or, given ``shardings`` (a tree of
+``sharding.partition.NamedSharding`` on a ``DeviceMesh``), puts each
+rank's block of it back as a ``DTensor``: the stored arrays are whole, so
+any mesh restores any checkpoint.
 """
 
 from __future__ import annotations
@@ -193,8 +195,8 @@ class Checkpointer:
         return None
 
     def restore(self, target_tree: Any, *, step: int | None = None,
-                device: "str | torch.device | None" = None
-                ) -> tuple[Any, int]:
+                device: "str | torch.device | None" = None,
+                shardings: Any = None) -> tuple[Any, int]:
         """Restore into the structure of ``target_tree`` (its leaves give
         the keys and the shapes; the stored dtypes are kept) from ``step``
         (default: the newest valid one), every leaf on ``device`` (default
@@ -203,7 +205,9 @@ class Checkpointer:
         dtype, or bfloat16 for 2-byte void records aimed at a bfloat16
         target (``_stored_dtype``).  Raises ``FileNotFoundError`` when no
         valid step exists and ``ValueError`` on a shape mismatch or on void
-        records aimed at any other target."""
+        records aimed at any other target.  With ``shardings`` (a tree of
+        ``NamedSharding`` matching ``target_tree``) each leaf becomes the
+        ``DTensor`` of this rank's block, read from the whole array."""
         dev = resolve_device(device)
         step = step if step is not None else self.latest_valid_step()
         if step is None:
@@ -219,7 +223,10 @@ class Checkpointer:
             name = dtypes.get(key) or _stored_dtype(key, arr, leaf)
             return _from_numpy(arr, name, dev)
 
-        return tree_map_with_keys(load, target_tree), step
+        tree = tree_map_with_keys(load, target_tree)
+        if shardings is not None:
+            tree = tree_map(lambda x, sh: sh.distribute(x), tree, shardings)
+        return tree, step
 
     # -- gc -------------------------------------------------------------------
     def _gc(self) -> None:

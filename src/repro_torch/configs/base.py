@@ -11,9 +11,9 @@ the two LoRA ranks), the VLM family (``mrope_sections``, and
 family (the Mamba2 backbone's ``ssm_*`` fields, ``shared_attn_period``
 and ``lora_rank``), the enc-dec family (``is_encoder_decoder`` and
 ``num_decoder_layers``: ``num_layers`` counts the encoder's layers) and
-the training fields (``remat``, ``train_microbatches``).  The MoE sharding
-hint ``moe_parallel`` waits for its first reader (ROADMAP Queue 1, fleet
-mesh and sharding).
+the training fields (``remat``, ``train_microbatches``), and the JAX
+package's sharding hints (``fsdp``, ``moe_parallel``,
+``sequence_parallel``, ``zero3``), which ``sharding/partition.py`` reads.
 
 ``ShapeCell`` and ``SHAPE_CELLS`` are the JAX package's input shapes, one
 cell a (kind, sequence length, global batch); ``param_count`` /
@@ -108,9 +108,19 @@ class ModelConfig:
     tie_embeddings: bool = False
     remat: str = "none"              # none | full | dots
 
+    # sharding hints (read by repro_torch.sharding.partition)
+    fsdp: bool = True                # shard params over the data axis too
+    moe_parallel: str = "ep"         # ep (experts over model) | tp
     # gradient accumulation: split the global batch into this many
     # microbatches per train step (activation memory ~ 1/M)
     train_microbatches: int = 1
+    # sequence parallelism; also the escape for archs whose head counts
+    # don't divide the model axis (phi3: 40 heads against 16): attention
+    # weights then drop the model axis
+    sequence_parallel: bool = False
+    # ZeRO-3: no tensor parallelism; weights and optimizer state shard over
+    # all mesh axes on their d_model dim, and the batch over all axes too
+    zero3: bool = False
 
     # modality frontend stub (vlm): stub patch-embedding positions (the
     # audio family's encoder input is the stub embedding stream itself)

@@ -28,4 +28,5 @@ CONFIG = ModelConfig(
     train_microbatches=8,
     param_dtype="bfloat16",
     compute_dtype="bfloat16",
+    moe_parallel="ep",      # the default, set as the JAX config sets it
 )

@@ -132,7 +132,7 @@ class SubscriptionOptions:
     feedback_window: int = 8       # latency samples fed back per poll
     credit_limit: int = 2          # per-camera in-flight frame credits
     fleet: bool = False            # one fused compiled tick for all lanes
-    mesh: object = None            # multi-GPU lane split: not ported, None only
+    mesh: object = None            # fleet tick lane split: None | int | devices | FleetMesh
     auto_recharacterize: bool = False  # drift-triggered table re-sweeps
     drift_config: object = None    # DriftConfig override
     tenant: str | None = None      # tenant identity (defaults to session's)

@@ -86,13 +86,6 @@ DRIFT_ACTIVITY_FLOOR = 0.01        # activity-residual denominator floor
                                    # residual ill-conditioned
 
 
-# the one refusal of a fleet mesh, shared by ``SubscriptionOptions.mesh`` and
-# ``ScenarioSpec.mesh``
-MESH_NOT_PORTED = (
-    "mesh: splitting the fleet tick's lanes over several GPUs is not ported "
-    "yet (ROADMAP Queue 1, fleet mesh and sharding); pass mesh=None")
-
-
 class SharedFrameCache:
     """Fleet-shared degraded-frame cache, keyed ``(camera, timestamp,
     transform key)``.
@@ -916,8 +909,8 @@ class EdgeBroker:
             raise ValueError("subscription needs at least one camera spec")
         if opts.fleet and not opts.controlled:
             raise ValueError("fleet control plane requires controlled=True")
-        if opts.mesh is not None:
-            raise NotImplementedError(MESH_NOT_PORTED)
+        if opts.mesh is not None and not opts.fleet:
+            raise ValueError("mesh partitioning requires fleet=True")
         if opts.auto_recharacterize and not opts.controlled:
             raise ValueError("auto_recharacterize requires controlled=True")
         if opts.admission not in ("degrade", "reject"):
@@ -1191,9 +1184,10 @@ class EdgeBroker:
             if cam is None or cam.controller is None:
                 return None
             cams.append(cam)
+        mesh = rec.options.mesh if rec.options is not None else None
         rec.fleet = FleetController(cams, capacity=TABLE_CAPACITY,
                                     tier=rec.slo.priority if rec.slo else 0,
-                                    device=self.device)
+                                    mesh=mesh, device=self.device)
         if rec.budget_scale != 1.0:
             rec.fleet.set_budget_scale(rec.budget_scale)
         if rec.drift is not None:

@@ -44,6 +44,7 @@ from repro_torch.core.drift import (DriftConfig, DriftParams, DriftState,
                                     drift_init, drift_update)
 from repro_torch.core.knobs import KnobSetting
 from repro_torch.device import resolve_device
+from repro_torch.sharding import partition
 
 __all__ = ["ControllerConfig", "ControlDecision", "LatencyController",
            "ControllerTables", "ControllerState", "controller_init",
@@ -678,6 +679,15 @@ class FleetTickResult(Mapping):
         return len(self._cam_ids)
 
 
+def _host_padded(record, pad):
+    """A lane record on the host, with ``pad``'s lanes (when given) after
+    its own: a whole record for a mesh to cut into chunks."""
+    record = partition.rec_map(lambda x: x.cpu(), record)
+    if pad is None:
+        return record
+    return partition.rec_map(lambda a, b: torch.cat([a, b]), record, pad)
+
+
 class FleetController:
     """Host-side orchestrator: N per-camera control planes as ONE
     ``fused_fleet_tick`` (PI step + drift tick + decision application) on
@@ -691,14 +701,38 @@ class FleetController:
     counters and hot-swaps changed lanes (tables via ``fleet_swap_tables``,
     targets via a params-row write) without changing any shape; only a
     table that outgrows the shared capacity rebuilds the stack.
+
+    ``mesh`` splits the tick over the camera axis
+    (``repro_torch.sharding.partition.fleet_mesh``): an int selects that
+    many CUDA devices, a device sequence or a ``FleetMesh`` is used as
+    given, ``None`` stays on ``device`` (a path of its own: the one-device
+    mesh's chunk bookkeeping measured ~11% more a tick on an H100, see
+    PERF.md and ``scripts/fleet_tick_ab.py``).  Lanes are padded up to a
+    device multiple (padding lanes carry lane 0's table and params and are
+    fed hold inputs; their outputs are never read), the controller state,
+    drift state, tables and params stay in their chunks on their chunk's
+    device between ticks (``LaneChunks``), a swap or a retarget writes
+    only the chunk that owns the lane, and only the decision record is
+    gathered, once a tick.  Every lane is independent, so the split never
+    changes a value.  On a mesh ``device`` (default the mesh's first
+    device) is where that record is gathered.
     """
 
     HISTORY_LIMIT = 4096
 
     def __init__(self, cams, *, capacity: int | None = None,
-                 record_history: bool = False, tier: int = 0,
+                 record_history: bool = False, tier: int = 0, mesh=None,
                  device: "str | torch.device | None" = None):
         cams = list(cams)
+        self.mesh = None if mesh is None else partition.fleet_mesh(mesh)
+        if self.mesh is not None:
+            self._lanes = partition.fleet_sharding(self.mesh)
+            self._tick = partition.shard_fleet_tick(fused_fleet_tick,
+                                                    self.mesh)
+            if device is None:
+                device = self.mesh.devices[0]
+        else:
+            self._lanes, self._tick = None, fused_fleet_tick
         self.device = resolve_device(device)
         # multi-tenant axes: the owning subscription's SLO class rides as a
         # per-lane i32 field, and admission control caps the fleet's wire
@@ -719,69 +753,124 @@ class FleetController:
         self.record_history = record_history
         self.history: "deque" = deque(maxlen=self.HISTORY_LIMIT)
         self.n_lanes = len(cams)
+        self._n_padded = partition.padded_lane_count(self.n_lanes, self.mesh)
         # drift lanes: a bound DriftMonitor's state rides in the fused tick;
         # without one, a window-1 placeholder holds forever (valid=False,
         # count pinned at 0 < min_samples, so it can never fire)
         self._drift = None
-        self._drift_state = drift_init(self.n_lanes, 1, device=self.device)
-        self._drift_params = DriftParams.from_config(
-            DriftConfig(window=1), self.n_lanes, device=self.device)
+        self._drift_pad_state = None
+        self._drift_state = self._place(drift_init(
+            self._n_padded, 1, device=self._stack_device))
+        self._drift_params = self._place(DriftParams.from_config(
+            DriftConfig(window=1), self._n_padded,
+            device=self._stack_device))
         self._pre_state = None
         # the (lanes, capacity) layouts the tick has run on: see cache_size
         self._layouts: set[tuple[int, ...]] = set()
         self._build_stack()
 
+    # -- lane placement (one device, or chunks over a mesh) ------------------
+    @property
+    def _stack_device(self) -> torch.device:
+        """Where whole stacks are assembled: the fleet's device, or the
+        host when a mesh then cuts them into chunks."""
+        return self.device if self.mesh is None else torch.device("cpu")
+
+    def _place(self, record):
+        """A whole lane record as the tick holds it."""
+        return record if self.mesh is None else self._lanes.split(record)
+
+    def _lane_device(self, i: int) -> torch.device:
+        if self.mesh is None:
+            return self.device
+        return self.mesh.devices[self._lanes.owner(i, self._n_padded)[0]]
+
+    def _at_lane(self, record, i: int, fn):
+        """``record`` with lane ``i`` rewritten by ``fn(part, offset)``:
+        on a mesh only the chunk that owns the lane."""
+        if self.mesh is None:
+            return fn(record, i)
+        return record.with_lane(i, fn)
+
+    def _pad_rows(self, values):
+        return list(values) + [values[0]] * (self._n_padded - self.n_lanes)
+
     # -- stack assembly ------------------------------------------------------
     def _build_stack(self) -> None:
-        dev = self.device
-        self.tables = stack_tables([
+        dev = self._stack_device
+        rows = self._pad_rows(self._cams)
+        tables = stack_tables([
             ControllerTables.from_table(c.controller.table,
                                         capacity=self.capacity, device=dev)
-            for c in self._cams])
-        self.params = stack_params([
+            for c in rows])
+        params = stack_params([
             ControllerParams.from_controller(c.controller,
                                              budget_scale=self._budget_scale,
                                              tier=self._tier, device=dev)
-            for c in self._cams])
-        start = np.asarray([c.controller._current for c in self._cams],
-                           np.int32)
-        state = fleet_controller_init(self.tables, start_idx=start)
-        self.state = ControllerState(
-            integral=torch.tensor([c.controller.integral for c in self._cams],
+            for c in rows])
+        start = np.asarray([c.controller._current for c in rows], np.int32)
+        state = fleet_controller_init(tables, start_idx=start)
+        self.tables, self.params = self._place(tables), self._place(params)
+        self.state = self._place(ControllerState(
+            integral=torch.tensor([c.controller.integral for c in rows],
                                   dtype=torch.float32, device=dev),
             current_idx=state.current_idx,
             feasible=state.feasible,
-            last_error=state.last_error)
+            last_error=state.last_error))
         self._table_versions = [c.table_version for c in self._cams]
         self._qos_versions = [c.qos_version for c in self._cams]
         self._targets = np.asarray(
-            [c.controller.config.latency_target for c in self._cams],
-            np.float32)
+            [c.controller.config.latency_target for c in rows], np.float32)
 
     def attach_drift(self, monitor) -> None:
         """Fuse a ``DriftMonitor``'s per-poll tick into this fleet's tick.
-        The monitor must share this fleet's lane order and device; its
-        state/params ride as tick inputs, and post-tick lanes flow back via
+        The monitor must share this fleet's lane order (and, off a mesh,
+        its device); its state/params ride as tick inputs (mesh padding
+        added here), and post-tick lanes flow back via
         ``monitor.absorb_fused``."""
         if list(monitor.cam_ids) != self.cam_ids:
             raise ValueError("drift monitor lane order != fleet lane order")
-        if monitor.device != self.device:
+        if self.mesh is None and monitor.device != self.device:
             raise ValueError(f"drift monitor on {monitor.device}, fleet on "
                              f"{self.device}")
         monitor.bind_fused(self)
         self._drift = monitor
-        self._drift_params = monitor.params
+        if self.mesh is None:
+            self._drift_params = monitor.params
+            return
+        pad = self._n_padded - self.n_lanes
+        pad_params = None
+        if pad:
+            self._drift_pad_state = drift_init(pad, monitor.config.window,
+                                               device="cpu")
+            pad_params = DriftParams.from_config(monitor.config, pad,
+                                                 device="cpu")
+        self._drift_params = self._lanes.split(
+            _host_padded(monitor.params, pad_params))
 
     def _drift_inputs(self, errs, valid):
-        """(state, errs, valid) for the tick."""
+        """(state, errs, valid) for the tick, mesh-padded when needed.
+        On a mesh the monitor's state is the previous tick's chunks (its
+        padding lanes held: they are fed ``valid=False``) or, before the
+        first tick, its own whole state, padded here."""
+        pad = self._n_padded - self.n_lanes
         if self._drift is None:
             return (self._drift_state,
-                    np.zeros(self.n_lanes, np.float32),
-                    np.zeros(self.n_lanes, bool))
+                    np.zeros(self._n_padded, np.float32),
+                    np.zeros(self._n_padded, bool))
+        state = self._drift.state
         if errs is None:
             errs = np.zeros(self.n_lanes, np.float32)
             valid = np.zeros(self.n_lanes, bool)
-        return self._drift.state, errs, valid
+        if self.mesh is not None and not isinstance(state,
+                                                    partition.LaneChunks):
+            state = _host_padded(state, self._drift_pad_state)
+        if pad:
+            errs = np.concatenate([np.asarray(errs, np.float32),
+                                   np.zeros(pad, np.float32)])
+            valid = np.concatenate([np.asarray(valid, bool),
+                                    np.zeros(pad, bool)])
+        return state, errs, valid
 
     def cache_size(self) -> int:
         """How many table layouts (lanes x capacity) the fused tick has run
@@ -807,8 +896,9 @@ class FleetController:
         if s == self._budget_scale:
             return
         self._budget_scale = s
-        self.params.budget_scale = torch.full_like(self.params.budget_scale,
-                                                   s)
+        parts = [self.params] if self.mesh is None else self.params.parts
+        for p in parts:
+            p.budget_scale = torch.full_like(p.budget_scale, s)
 
     def __len__(self) -> int:
         return len(self._cams)
@@ -823,8 +913,10 @@ class FleetController:
         fleet's ``_build_stack`` seeds from exactly these fields."""
         i = self.lane_of[camera_id]
         ctl = self._cams[i].controller
-        integral = float(self.state.integral[i])
-        current = int(self.state.current_idx[i])
+        lane = (self.state.lane(i) if self.mesh is not None else
+                partition.rec_map(lambda x: x[i], self.state))
+        integral = float(lane.integral)
+        current = int(lane.current_idx)
         ctl.integral = integral
         ctl._current = current
         return integral, current
@@ -863,49 +955,63 @@ class FleetController:
                 ctl = cam.controller
                 if table_swapped[i]:
                     fresh = ControllerTables.from_table(
-                        ctl.table, capacity=self.capacity, device=self.device)
-                    self.tables = fleet_swap_tables(self.tables, i, fresh)
+                        ctl.table, capacity=self.capacity,
+                        device=self._lane_device(i))
+                    self.tables = self._at_lane(
+                        self.tables, i,
+                        lambda t, j, f=fresh: fleet_swap_tables(t, j, f))
                     self._table_versions[i] = cam.table_version
                 if retargeted[i]:
-                    self.params = _set_lane(
-                        self.params, ControllerParams.FIELDS, i,
-                        ControllerParams.from_controller(
-                            ctl, budget_scale=self._budget_scale,
-                            tier=self._tier, device=self.device))
+                    row = ControllerParams.from_controller(
+                        ctl, budget_scale=self._budget_scale,
+                        tier=self._tier, device=self._lane_device(i))
+                    self.params = self._at_lane(
+                        self.params, i, lambda p, j, r=row: _set_lane(
+                            p, ControllerParams.FIELDS, j, r))
                     self._qos_versions[i] = cam.qos_version
                     self._targets[i] = ctl.config.latency_target
         for i, cam in enumerate(self._cams):
             if not (table_swapped[i] or retargeted[i]):
                 continue
             ctl = cam.controller
+
             # mirror the host contracts: both paths re-seed the operating
             # point; only a RETARGET resets the integral (``set_target``)
             # -- a bare table swap carries it (``swap_table``: the network
             # didn't reset with the tables)
-            integral = self.state.integral
-            if retargeted[i]:
-                integral = integral.clone()
-                integral[i] = ctl.integral
-            current = self.state.current_idx.clone()
-            current[i] = ctl._current
-            self.state = ControllerState(
-                integral=integral, current_idx=current,
-                feasible=self.state.feasible,
-                last_error=self.state.last_error)
+            def reseed(s, j, ctl=ctl, reset=retargeted[i]):
+                integral = s.integral
+                if reset:
+                    integral = integral.clone()
+                    integral[j] = ctl.integral
+                current = s.current_idx.clone()
+                current[j] = ctl._current
+                return ControllerState(integral=integral, current_idx=current,
+                                       feasible=s.feasible,
+                                       last_error=s.last_error)
+
+            self.state = self._at_lane(self.state, i, reseed)
         return ([i for i, s in enumerate(table_swapped) if s],
                 [i for i, r in enumerate(retargeted) if r])
 
     # -- the fused fleet tick ------------------------------------------------
     def _dispatch(self, lat_eff, drift_errs, drift_valid):
-        """Run the one fused tick and absorb its state."""
+        """Run the one fused tick and absorb its state.  On a mesh the
+        tick runs chunk by chunk and the decision record is gathered onto
+        ``device`` before its one copy to the host."""
         dstate, derrs, dvalid = self._drift_inputs(drift_errs, drift_valid)
-        dev = self.device
-        self._layouts.add(tuple(self.tables.sizes_sorted.shape))
-        new_ctrl, new_drift, aux = fused_fleet_tick(
-            self.state, dstate, torch.as_tensor(lat_eff).to(dev),
-            torch.as_tensor(np.asarray(derrs, np.float32)).to(dev),
-            torch.as_tensor(np.asarray(dvalid, bool)).to(dev),
+        self._layouts.add((self._n_padded, self.capacity))
+        derrs = np.asarray(derrs, np.float32)
+        dvalid = np.asarray(dvalid, bool)
+        if self.mesh is None:
+            dev = self.device
+            lat_eff, derrs, dvalid = (torch.as_tensor(x).to(dev)
+                                      for x in (lat_eff, derrs, dvalid))
+        new_ctrl, new_drift, aux = self._tick(
+            self.state, dstate, lat_eff, derrs, dvalid,
             self.tables, self.params, self._drift_params)
+        if self.mesh is not None:
+            aux = aux.gather(self.device)
         self.state = new_ctrl
         aux = aux.to_host()
         fired_cams: list[str] = []
@@ -935,16 +1041,21 @@ class FleetController:
         self.sync()
         lat = np.asarray(lat, np.float32)
         valid = np.asarray(valid, bool)
+        pad = self._n_padded - self.n_lanes
+        if pad:
+            lat = np.concatenate([lat, np.zeros(pad, np.float32)])
+            valid = np.concatenate([valid, np.zeros(pad, bool)])
         lat_eff = np.where(valid, lat, self._targets)
         self._pre_state = self.state
         aux, fired_cams = self._dispatch(lat_eff, drift_errs, drift_valid)
         self._last_lat_eff = lat_eff
         if record and self.record_history:
+            n = self.n_lanes
             self.history.append({
-                "lat": lat_eff.tolist(), "fed": valid.tolist(),
-                "idx": aux.step.idx.tolist(),
-                "acted": aux.step.acted.tolist(),
-                "feasible": aux.step.feasible.tolist(),
+                "lat": lat_eff[:n].tolist(), "fed": valid[:n].tolist(),
+                "idx": aux.step.idx[:n].tolist(),
+                "acted": aux.step.acted[:n].tolist(),
+                "feasible": aux.step.feasible[:n].tolist(),
                 "table_versions": list(self._table_versions),
             })
         return FleetTickResult(self.cam_ids, self.lane_of, aux, fired_cams)
@@ -966,10 +1077,11 @@ class FleetController:
         self.sync()
         aux, _ = self._dispatch(self._last_lat_eff, None, None)
         if self.record_history and self.history:
+            n = self.n_lanes
             row = self.history[-1]
-            row["idx"] = aux.step.idx.tolist()
-            row["acted"] = aux.step.acted.tolist()
-            row["feasible"] = aux.step.feasible.tolist()
+            row["idx"] = aux.step.idx[:n].tolist()
+            row["acted"] = aux.step.acted[:n].tolist()
+            row["feasible"] = aux.step.feasible[:n].tolist()
             row["table_versions"] = list(self._table_versions)
         return FleetTickResult(self.cam_ids, self.lane_of, aux, [])
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.sharding.partition import LaneChunks
 
 __all__ = ["DriftConfig", "DriftParams", "DriftState", "drift_init",
            "drift_update", "relative_size_error", "learned_thresholds",
@@ -259,12 +260,21 @@ class DriftMonitor:
             return self._fused.cache_size()
         return len(self._layouts)
 
-    def absorb_fused(self, state: DriftState, fired, scores) -> list[str]:
+    def absorb_fused(self, state, fired, scores) -> list[str]:
         """Adopt post-tick drift lanes computed inside a fused fleet tick.
+
+        ``state`` may carry mesh-padding lanes beyond ``len(cam_ids)``
+        (sliced off here: a ``LaneChunks`` of a meshed fleet keeps its
+        chunks on their devices and marks only the first lanes real);
         ``fired``/``scores`` are host arrays from the tick's aux.  Returns
         fired camera ids in lane order, exactly like ``observe``."""
-        fired = np.asarray(fired)
-        scores = np.asarray(scores)
+        n = len(self.cam_ids)
+        fired = np.asarray(fired)[:n]
+        scores = np.asarray(scores)[:n]
+        if isinstance(state, LaneChunks):
+            state = state.head(n)
+        elif state.pos.shape[0] != n:
+            state = DriftState(*(x[:n] for x in dataclasses.astuple(state)))
         self.state = state
         self.last_scores = {cid: float(scores[i])
                             for i, cid in enumerate(self.cam_ids)}
@@ -284,6 +294,7 @@ class DriftMonitor:
                 continue
             errs[i] = err
             valid[i] = True
+        self.state = self._whole_state()
         self._layouts.add(tuple(self.state.errs.shape))
         self.state, fired, scores = drift_update(
             self.state, torch.as_tensor(errs).to(self.device),
@@ -294,6 +305,13 @@ class DriftMonitor:
                             for i, cid in enumerate(self.cam_ids)}
         return [cid for i, cid in enumerate(self.cam_ids) if fired_np[i]]
 
+    def _whole_state(self) -> DriftState:
+        """The state as one record on ``device`` (a meshed fleet's tick
+        leaves it in chunks)."""
+        if isinstance(self.state, LaneChunks):
+            return self.state.gather(self.device)
+        return self.state
+
     def fire_counts(self) -> dict[str, int]:
-        fires = self.state.fires.cpu().numpy()
+        fires = self._whole_state().fires.cpu().numpy()
         return {cid: int(fires[i]) for i, cid in enumerate(self.cam_ids)}

@@ -52,7 +52,7 @@ import torch
 from repro_torch.core import detector as det
 from repro_torch.core.api import (AdmissionRejected, QosBounds, RPCTimeout,
                                   SubscriptionOptions, resolve_slo)
-from repro_torch.core.broker import MESH_NOT_PORTED, MezSystem
+from repro_torch.core.broker import MezSystem
 from repro_torch.core.channel import calibrated_channel
 from repro_torch.core.federation import FederatedMezSystem
 from repro_torch.core.characterization import (CharacterizationTable,
@@ -324,8 +324,8 @@ class ScenarioSpec:
     accuracy: float = 0.95             # normalized F1 lower bound
     controlled: bool = True
     fleet: bool = False
-    # a mesh splitting the fused fleet tick's lanes over several devices:
-    # not ported, so anything but None is refused (MESH_NOT_PORTED)
+    # a mesh splitting the fused fleet tick's lanes over several devices
+    # (None | device count | device sequence | FleetMesh; needs fleet)
     mesh: object = None
     credit_limit: int = 2
     feedback_window: int = 8
@@ -807,8 +807,6 @@ def run_scenario(
     brokers' fleet ticks and live re-sweeps; without a CUDA device it
     raises unless ``device="cpu"`` is asked for.
     """
-    if spec.mesh is not None:
-        raise NotImplementedError(MESH_NOT_PORTED)
     dev = resolve_device(device)
     resolved: dict[str, CharacterizationTable] = dict(tables or {})
 
@@ -877,7 +875,7 @@ def run_scenario(
     max_frames = spec.max_frames_per_poll or n_cams * spec.credit_limit
     opts = spec.options if spec.options is not None else SubscriptionOptions(
         controlled=spec.controlled, feedback_window=spec.feedback_window,
-        credit_limit=spec.credit_limit, fleet=spec.fleet,
+        credit_limit=spec.credit_limit, fleet=spec.fleet, mesh=spec.mesh,
         auto_recharacterize=spec.auto_recharacterize,
         drift_config=spec.drift_config)
 

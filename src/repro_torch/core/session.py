@@ -110,8 +110,10 @@ class Session:
         as ONE batched device step per poll (the fleet control plane):
         per-poll control cost is ~flat in camera count, and per-camera QoS
         retargets / table refreshes hot-swap into the step's tables in
-        place.  ``options.mesh`` must stay None: splitting the lanes
-        over several GPUs is not ported yet.
+        place.  ``options.mesh`` (``None | int | device sequence |
+        FleetMesh``, ``repro_torch.sharding.partition.fleet_mesh``) also
+        splits the fleet tick's lanes over those devices; it requires
+        ``fleet``.
 
         ``options.auto_recharacterize`` arms the drift-aware refresh loop
         (see ``EdgeBroker.create_subscription``); refreshes surface as

@@ -30,7 +30,7 @@ mode, ``MetaPass``, watches it:
 The meta pass runs the plain routes (``"chunked"`` attention, the einsum
 decode, ``wkv_plain``): the kernels take only card tensors, and their
 temporaries are smaller than the plain routes', so the reckoning is an
-upper bound for a kernel run.  A train cell runs ``build_train_step``
+upper bound for a kernel run.  A train cell runs ``build_train_bundle``
 (microbatches by ``microbatch_count`` at a data-parallel size of 1, the
 backward under ``remat="full"``, AdamW) on meta too.
 
@@ -56,10 +56,11 @@ the same step on the plain routes (``card_compare``, the comparison
 (seconds, the measured step bytes beside the reckoning, the relative
 errors).
 
-There is no ``--mesh`` and no parse of collectives: the port runs on one
-card.  A mesh over many (``make_production_mesh``, the step's shardings
-and the collectives' bytes) comes with ROADMAP Queue 1, fleet mesh and
-sharding.
+There is no ``--mesh`` and no parse of collectives yet: each cell is
+accounted on one card.  The step's shardings on the production meshes
+exist (``build_*_step(..., mesh=production_mesh_shape())``); the
+per-device bytes they give and a count of the sharded step's collectives
+wait for the next mesh slice (ROADMAP Queue 1, the dry-run's ``--mesh``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
@@ -83,12 +84,10 @@ from repro_torch.configs import (ARCHS, SHAPE_CELLS, ModelConfig, ShapeCell,
                                  cells_for, get_config, skipped_cells_for)
 from repro_torch.launch.mesh import H100
 from repro_torch.launch.steps import (StepBundle, build_prefill_step,
-                                      build_serve_step, build_train_step,
+                                      build_serve_step, build_train_bundle,
                                       microbatch_count)
 from repro_torch.meta import META, MetaPass, distinct_bytes, tensors_of
-from repro_torch.models.registry import (DECODE_SLACK, build_model,
-                                         input_specs, make_batch,
-                                         param_specs)
+from repro_torch.models.registry import DECODE_SLACK, build_model, make_batch
 from repro_torch.optim.adamw import init_opt_state
 
 __all__ = ["cell_bundle", "depth_cut", "account", "find_cut",
@@ -123,18 +122,14 @@ def cell_bundle(cfg: ModelConfig, cell: ShapeCell, *,
                 impl: "str | None" = PLAIN_IMPL,
                 device: "torch.device | str" = META) -> StepBundle:
     """The step of ``cell``: ``build_prefill_step`` / ``build_serve_step``
-    with ``impl``, or for a train cell ``build_train_step(cfg)`` (the
+    with ``impl``, or for a train cell ``build_train_bundle`` (the
     config's own attention impl: the kernels have no backward) with meta
     parameters, AdamW state and batch."""
     if cell.kind == "prefill":
         return build_prefill_step(cfg, cell, impl=impl, device=device)
     if cell.kind == "decode":
         return build_serve_step(cfg, cell, impl=impl, device=device)
-    params = param_specs(cfg)
-    specs = (params, init_opt_state(params, device=META),
-             input_specs(cfg, cell)["batch"])
-    return StepBundle(fn=build_train_step(cfg), arg_specs=specs,
-                      donate_argnums=(0, 1), device=torch.device(device))
+    return build_train_bundle(cfg, cell, device=device)
 
 
 def account(cfg: ModelConfig, cell: ShapeCell, *,

@@ -16,8 +16,10 @@ loss as the JAX package's do.  The VLM's stub frontend: ``batch
 decode step may add ``extra_embeds`` to its token's embedding.  Inputs
 of another family (the audio family's ``embeds``, which
 ``models/encdec.py`` reads) raise ``ValueError``.  The JAX ``shard(...)``
-constraints are no-ops without a mesh; the port has no mesh, so they are
-left out.
+constraints pin activation layouts for GSPMD; the port's SPMD training
+computes on whole parameters and its own batch rows
+(``launch/steps.py::build_sharded_train_step``), so there is no layout
+to pin and they are left out (``sharding/api.py::shard`` says why).
 
 Parameter dict (the JAX tree's names and layouts, so
 ``repro_torch.convert.model_params_from_numpy`` copies it as it is):

@@ -29,7 +29,7 @@ import torch
 from repro_torch.device import resolve_device
 from repro_torch.tree import tree_items, tree_leaves, tree_map
 
-__all__ = ["AdamWConfig", "init_opt_state", "adamw_update"]
+__all__ = ["AdamWConfig", "init_opt_state", "adamw_update", "global_norm"]
 
 # the elements of a leaf updated at once (256 MB a float32 temporary)
 UPDATE_BLOCK = 1 << 26
@@ -65,7 +65,9 @@ def init_opt_state(params: Any, *,
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def _global_norm(leaves: list) -> torch.Tensor:
+def global_norm(leaves: list) -> torch.Tensor:
+    """The clip's norm: the root of the sum of every leaf's float32
+    squares, leaf by leaf in the order given."""
     total = None
     for x in leaves:
         # one float32 copy squared in place (the same bits as square of
@@ -84,16 +86,20 @@ def _f32(x: float, dev) -> torch.Tensor:
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict
+def adamw_update(cfg: AdamWConfig, params: Any, grads: Any, state: dict,
+                 *, gnorm: "torch.Tensor | None" = None
                  ) -> tuple[Any, dict]:
     """One AdamW step.  Writes the new parameters into ``params``' tensors
     and the new moments into ``state["m"]`` / ``state["v"]``, and returns
     ``(params, {"m", "v", "count": count + 1})`` over those same
-    tensors."""
+    tensors.  ``gnorm`` is the clip's norm when the caller has it: a
+    sharded step updates its blocks of the leaves, clipped by the norm of
+    the whole gradient."""
     count_old = state["count"]
     dev = count_old.device
     count = count_old + 1
-    gnorm = _global_norm(tree_leaves(grads))
+    if gnorm is None:
+        gnorm = global_norm(tree_leaves(grads))
     scale = torch.clamp(_f32(cfg.grad_clip, dev)
                         / torch.clamp(gnorm, min=1e-9), max=1.0)
     warm = torch.clamp((count_old + 1).float()

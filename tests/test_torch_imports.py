@@ -23,6 +23,8 @@ from repro_torch.core import characterization as TCh  # noqa: E402
 from repro_torch.core import controller as TC  # noqa: E402
 from repro_torch.core import drift as TD  # noqa: E402
 from repro_torch.core import grid_engine as TG  # noqa: E402
+from repro_torch.core import knobs as TK  # noqa: E402
+from repro_torch.core import session as TSe  # noqa: E402
 from repro_torch.core import log as TL  # noqa: E402
 from repro_torch.core import federation as TF  # noqa: E402
 from repro_torch.core import scenario as TS  # noqa: E402
@@ -226,11 +228,46 @@ def test_frame_knobs_raises_off_cpu_and_cuda():
 
 
 def test_mesh_is_not_ported():
+    """The fleet mesh is ported: a subscription whose fleet tick is split
+    over two (CPU) devices delivers, as one without a mesh does."""
     system = MezSystem(calibrated_channel(seed=0), device="cpu")
     system.add_camera("cam0")
     sess = system.edge.open_session("app")
     spec = TA.SubscribeSpec("app", "cam0", 0.0, 1.0, 0.1, 0.9)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, fleet mesh and sharding"):
-        system.edge.create_subscription(
-            sess, (spec,), options=TA.SubscriptionOptions(fleet=True, mesh=1))
+    def run(mesh):
+        system = MezSystem(calibrated_channel(seed=0), device="cpu")
+        sizes = np.linspace(2e3, 9e4, 24)
+        accs = 0.90 + 0.10 * (sizes - 2e3) / (9e4 - 2e3)
+        tbl = TCh.CharacterizationTable(
+            settings=tuple(TK.KnobSetting(resolution=i % 5)
+                           for i in range(24)),
+            sizes_sorted=sizes, best_acc=accs, best_idx=np.arange(24),
+            acc_by_setting=accs, size_by_setting=sizes)
+        reg = TCh.fit_latency_regression(
+            sizes[::4], system.channel.regression_points(sizes[::4], n=3))
+        for i in range(3):
+            cam = system.add_camera(f"cam{i}")
+            src = SyntheticCamera(CameraConfig(camera_id=f"cam{i}",
+                                               dynamics="simple", seed=1))
+            cam.background = src.background
+            cam.set_target(0.100, 0.90, tbl, reg)
+            for ts, f, _ in src.stream(4):
+                cam.publish(ts, f)
+        sess = TSe.MezClient(system).open_session("app")
+        sub = sess.subscribe(
+            ["cam0", "cam1", "cam2"], 0.0, 100.0, qos=TA.QosBounds(0.1, 0.9),
+            options=TA.SubscriptionOptions(fleet=True, mesh=mesh))
+        rows = []
+        for _ in range(50):
+            batch = sub.poll(max_frames=3)
+            if not batch:
+                break
+            rows += [(d.camera_id, d.timestamp, d.knob_index, d.wire_bytes)
+                     for d in batch.frames]
+        fleet = system.edge.subscription_fleet(sub.subscription_id)
+        return rows, fleet
+
+    rows, fleet = run(["cpu"] * 2)
+    assert len(rows) == 12
+    assert fleet.mesh.size == 2 and fleet._n_padded == 4
+    assert rows == run(None)[0]

@@ -279,6 +279,16 @@ def test_scripted_events_match_jax(kind, fleet):
 
 
 def test_mesh_is_refused():
-    spec = dataclasses.replace(fig11_spec(T), mesh=2)
-    with pytest.raises(NotImplementedError, match="pass mesh=None"):
-        T.run_scenario(spec, tables=synthetic("complex")(), device="cpu")
+    """A mesh is no longer refused: the fig11 golden with its fleet tick
+    split four ways on the CPU traces byte for byte like the unmeshed
+    fleet run; a mesh without the fleet tick raises."""
+    tables = synthetic("complex")()
+    flat = run_port(dataclasses.replace(fig11_spec(T), fleet=True),
+                    tables=tables)
+    meshed = run_port(dataclasses.replace(fig11_spec(T), fleet=True,
+                                          mesh=["cpu"] * 4), tables=tables)
+    assert meshed.to_json() == flat.to_json()
+    assert meshed.fleet_cache_size == 1
+    with pytest.raises(ValueError, match="requires fleet=True"):
+        T.run_scenario(dataclasses.replace(fig11_spec(T), mesh=["cpu"] * 4),
+                       tables=tables, device="cpu")

@@ -560,8 +560,12 @@ def test_train_compressed_grads_train():
 
 
 def test_train_refuses_a_mesh():
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP Queue 1, fleet mesh and sharding"):
+    """``mesh_shape`` trains SPMD inside an initialised process group
+    (tests/test_torch_train_mesh.py); without one it raises, with no
+    quiet run on one device."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="none is initialised"):
         train("qwen3-1.7b", steps=1, mesh_shape=(1, 1), device="cpu")
 
 
