@@ -247,7 +247,25 @@ each, with their wall seconds:
                 quantize pair's launches counted from zero (one each a
                 leaf of at least 1024 elements: 8 + 8 a step at the
                 reduced widths, all contiguous), the step p50 of both
-                runs.
+                runs;
+  tp            tensor-parallel compute: the decode kernel's log-sum-exp
+                row by row against the plain version's at the serve
+                phase's decode shapes (its output the same bits as
+                without it; a planted fault, the log-sum-exps shifted by
+                one row, read above the limit; both launches timed in
+                bfloat16); ``qwen3-1.7b`` at its published widths in
+                bfloat16, prefill B=8 S=1024 and 8 decode steps, through
+                the partitioned steps on a one-rank NCCL (1, 1) mesh
+                against the meshless steps: 28 flash launches a prefill
+                and 28 decode launches with the log-sum-exp a step
+                counted, logits and written cache rows within 2^-4
+                relative (and whether bitwise); the (1, 1) steps' measured
+                bytes against the dry-run's ``--mesh`` meta reckoning of
+                the same steps on a fake (1, 1) group (the plain routes
+                within 1%); then the model axis at 2 tried in two
+                processes over gloo with the card's tensors (whether gloo
+                carried every collective, and their logits against the
+                meshless serve's).
 
 Then a ``kernels`` line (every kernel: launches on its main path, error
 against its plain version, its time beside its bound, the plain version's
@@ -285,13 +303,15 @@ knob kernel (the build and frame_knobs_kernel phases).
     python3 chip_smoke.py --dryrun-only
     python3 chip_smoke.py --remat-only
     python3 chip_smoke.py --mesh-only
+    python3 chip_smoke.py --tp-only
 
 build ``frame_knob_grid`` and run only the scenario phase, or build the
 two attention kernels and run only the serve_zoo, the serve_families or
 the serve_encdec phase, or build the quantize pair and run only the
 train_families phase, or build the attention and wkv kernels and run
 only the dryrun phase, or build the quantize pair and run only the remat
-or the mesh phase.
+or the mesh phase, or build the two attention kernels and run only the
+tp phase.
 """
 
 from __future__ import annotations
@@ -565,6 +585,14 @@ TICK_LABEL = "chip_smoke.fleet_tick"    # profiler range around each tick
 # (step 22) sequence, and a one-rank (1, 1) training mesh
 MESH_CAMS, MESH_SPLIT, MESH_STEPS = 13, 8, 36
 MESH_TRAIN = dict(steps=3, batch=8, seq=128, grad_bits=8, seed=0)
+# the tp phase: qwen3-1.7b's serve (prefill B=8 S=1024, then decode steps)
+# through the partitioned steps on a one-rank (1, 1) NCCL mesh against the
+# meshless steps, and the model axis at 2 tried in two processes over gloo
+TP_ARCH = "qwen3-1.7b"
+TP_BATCH, TP_PROMPT, TP_STEPS, TP_TWO_STEPS = 8, 1024, 8, 2
+TP_BYTES_RTOL = 0.01        # measured step bytes against the reckoning
+TP_TWO_TIMEOUT_S = 300
+LSE_RTOL = 1e-5             # |lse - plain| / max(1, |plain|), row by row
 
 
 def emit(phase: str, **fields) -> None:
@@ -4323,6 +4351,439 @@ def phase_mesh(dev) -> dict:
     return out
 
 
+def lse_rel_err(got, want) -> float:
+    """The largest over rows (a batch row's q head) of ``|lse - plain| /
+    max(1, |plain|)``."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / want.abs().clamp_min(1.0)).max())
+
+
+def phase_tp_lse(dev) -> list[dict]:
+    """The decode kernel's log-sum-exp at the serve phase's decode shapes
+    (qwen3's heads, B = ``SERVE_BATCH`` over ``DECODE_LENGTHS`` rows of
+    ``DECODE_S_MAX``; float32 and bfloat16): held row by row against the
+    plain version's within ``LSE_RTOL``, its output the same bits as the
+    launch without it, and a planted fault -- the log-sum-exps shifted by
+    one row -- read against the same limit (it must exceed it).  In
+    bfloat16 both launches are timed behind the spin kernel."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import decode_attention as DA
+    cfg = get_config(SERVE_ARCH)
+    if SERVE_REDUCED:
+        cfg = cfg.reduced()
+    qh, kh, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for length in DECODE_LENGTHS:
+            q = torch.randn((SERVE_BATCH, 1, qh, d), generator=g,
+                            device=dev).to(dtype)
+            kc, vc = (torch.randn((SERVE_BATCH, DECODE_S_MAX, kh, d),
+                                  generator=g, device=dev).to(dtype)
+                      for _ in range(2))
+            out, lse = DA.decode_attention(q, kc, vc, length,
+                                           return_lse=True)
+            bare = DA.decode_attention(q, kc, vc, length)
+            _, want = DA.decode_attention_plain(q, kc, vc, length,
+                                                return_lse=True)
+            shifted = lse.reshape(-1).roll(1).reshape(lse.shape)
+            row = dict(shape=f"B={SERVE_BATCH} S_max={DECODE_S_MAX} "
+                             f"QH={qh} KH={kh} D={d} length={length}",
+                       dtype=str(dtype).removeprefix("torch."),
+                       same_output=bool(torch.equal(out, bare)),
+                       lse_rel_err=lse_rel_err(lse, want),
+                       fault_shifted_row=lse_rel_err(shifted, want),
+                       limit=LSE_RTOL)
+            if dtype == torch.bfloat16:
+                for key, fn in (("ms", lambda: DA.decode_attention(
+                        q, kc, vc, length)), ("lse_ms", lambda:
+                        DA.decode_attention(q, kc, vc, length,
+                                            return_lse=True))):
+                    ms, hidden = device_ms(fn, ATTN_REPS)
+                    if not hidden:
+                        raise AssertionError("the host outlasted the spin")
+                    row[key] = ms
+            rows.append(row)
+            if not (row["same_output"] and row["lse_rel_err"] <= LSE_RTOL
+                    < row["fault_shifted_row"]):
+                raise AssertionError(f"decode log-sum-exp: {row}")
+            del q, kc, vc, out, lse, bare, want, shifted
+    torch.cuda.empty_cache()
+    return rows
+
+
+def tp_config():
+    """``TP_ARCH`` as the tp phase serves it: the serve phase's config
+    (the kernel routes), reduced under ``ZOO_REDUCED``."""
+    return zoo_config(TP_ARCH)
+
+
+def tp_cells():
+    from repro_torch.configs.base import ShapeCell
+    return (ShapeCell("tp_prefill", TP_PROMPT, TP_BATCH, "prefill"),
+            ShapeCell("tp_decode", TP_PROMPT, TP_BATCH, "decode"))
+
+
+def tp_inputs(dev, cfg) -> tuple:
+    """The tp phase's parameters, prompt batch and decode tokens, drawn
+    from one generator seeded with 0 on ``dev`` (every process of the
+    two-process run draws the same)."""
+    import torch
+    from repro_torch.models.registry import build_model, make_batch
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    params = build_model(cfg).init_params(g, device=dev)
+    batch = make_batch(cfg, TP_BATCH, TP_PROMPT, generator=g, device=dev)
+    tokens = [torch.randint(0, cfg.vocab_size, (TP_BATCH, 1), generator=g,
+                            device=dev, dtype=torch.int32)
+              for _ in range(TP_STEPS)]
+    return params, batch, tokens
+
+
+def tp_serve(dev, cfg, params, batch, tokens, *, mesh=None,
+             steps: "int | None" = None) -> dict:
+    """``build_prefill_step`` / ``build_serve_step`` (one rank's steps on
+    ``mesh``, its blocks taken from the whole arguments) of the tp cells:
+    the prefill into a cache of ``TP_PROMPT + DECODE_SLACK`` rows, then
+    ``steps`` decode steps; the last position's logits of each (the
+    rank's block), the cache, and each step's seconds (host clock ending
+    in a synchronise)."""
+    import torch
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.models.registry import DECODE_SLACK, build_model
+    pcell, dcell = tp_cells()
+    pre = build_prefill_step(cfg, pcell, device=dev, mesh=mesh)
+    srv = build_serve_step(cfg, dcell, device=dev, mesh=mesh)
+    cache = build_model(cfg).init_cache(TP_BATCH, TP_PROMPT + DECODE_SLACK,
+                                        device=dev)
+    if mesh is not None:
+        coord = tuple(mesh.get_coordinate())
+        params = _tp_blocks(params, pre.in_shardings[0], mesh, coord)
+        batch = _tp_blocks(batch, pre.in_shardings[1], mesh, coord)
+        cache = _tp_blocks(cache, pre.in_shardings[2], mesh, coord)
+        tokens = [_tp_blocks(t, srv.in_shardings[1], mesh, coord)
+                  for t in tokens]
+    out = {"logits": [], "seconds": []}
+    with torch.no_grad():
+        for i in range(1 + (TP_STEPS if steps is None else steps)):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            if i == 0:
+                logits, cache = pre.fn(params, batch, cache)
+            else:
+                logits, cache = srv.fn(params, tokens[i - 1], cache)
+            torch.cuda.synchronize()
+            out["seconds"].append(time.monotonic() - t0)
+            out["logits"].append(logits[..., :cfg.vocab_size].clone())
+    out["cache"] = cache
+    return out
+
+
+def _tp_blocks(tree, specs, mesh, coord):
+    """A rank's blocks of whole arguments (dicts and dataclasses), views
+    where a coordinate's block is the whole tensor, copies elsewhere."""
+    import dataclasses
+    import torch
+    from repro_torch.sharding import partition
+    if isinstance(tree, dict):
+        return {k: _tp_blocks(v, specs[k], mesh, coord)
+                for k, v in tree.items()}
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _tp_blocks(getattr(tree, f.name), getattr(specs, f.name),
+                               mesh, coord)
+            for f in dataclasses.fields(tree)})
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    return partition.NamedSharding(mesh, specs).local_block(
+        tree, coord).contiguous()
+
+
+def tp_step_bytes(dev, cfg, mesh, reckoned: dict, params) -> dict:
+    """The (1, 1) partitioned steps of the tp cells on the plain routes
+    (``impl="chunked"``, the einsum decode: the routes the meta pass
+    accounts) and on the kernel routes, each run once from fresh inputs
+    (a zero cache; the decode cell's at ``length = TP_PROMPT``): the step
+    bytes ``launch.dryrun.card_run`` measures (the arguments plus the
+    peak allocated during the step over what was allocated before it)
+    beside ``reckoned``, the meta pass's ``argument_bytes + temp_bytes``
+    of the same step on a fake (1, 1) mesh."""
+    import dataclasses
+    import torch
+    from repro_torch.launch.steps import build_prefill_step, build_serve_step
+    from repro_torch.meta import distinct_bytes
+    from repro_torch.models.registry import DECODE_SLACK, build_model
+    out = {}
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    for cell in tp_cells():
+        for impl in ("chunked", "kernel"):
+            build = (build_prefill_step if cell.kind == "prefill"
+                     else build_serve_step)
+            bundle = build(cfg, cell, impl=impl, device=dev, mesh=mesh)
+            cache = build_model(cfg).init_cache(
+                TP_BATCH, TP_PROMPT + DECODE_SLACK, device=dev)
+            if cell.kind == "prefill":
+                from repro_torch.models.registry import make_batch
+                inp = make_batch(cfg, TP_BATCH, TP_PROMPT, generator=g,
+                                 device=dev)
+            else:
+                cache = dataclasses.replace(cache, length=TP_PROMPT)
+                inp = torch.randint(0, cfg.vocab_size, (TP_BATCH, 1),
+                                    generator=g, device=dev,
+                                    dtype=torch.int32)
+            args = (params, inp, cache)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                res = bundle.fn(*args)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            measured = distinct_bytes(args) + peak - base
+            want = reckoned[cell.kind]
+            out[f"{cell.kind}_{impl}"] = dict(
+                step_bytes=measured, reckoned_bytes=want,
+                rel_err=abs(measured - want) / want)
+            del bundle, cache, inp, args, res
+            torch.cuda.empty_cache()
+    return out
+
+
+TP_PROBES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
+
+
+def tp_two_rank(rank: int, root: str, dev_type: str, cfg, settings: dict,
+                probes: tuple) -> None:
+    """One of the two processes of the model axis at 2 on one card, in a
+    gloo group with the card's tensors: with ``probes``, each of those
+    kinds of collective once on a small tensor, in order (``{kind}{rank}``
+    written after each: a process that dies leaves the kind it died in
+    unmarked); else the tp prefill and ``TP_TWO_STEPS`` decode steps of
+    ``cfg`` on a ``(1, 2)`` mesh (the parent's ``TP_*`` sizes in
+    ``settings``), its logits blocks written under ``root``.  An
+    exception's text is written instead."""
+    import os
+    import traceback
+    import torch
+    import torch.distributed as dist
+    globals().update(settings)
+    dev = torch.device("cuda", 0) if dev_type == "cuda" else \
+        torch.device("cpu")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        os.path.join(root, "store"), 2), rank=rank, world_size=2)
+    try:
+        from repro_torch.launch.mesh import make_mesh
+        from repro_torch.sharding import collectives as C
+        mesh = make_mesh((1, 2), ("data", "model"), device_type=dev.type)
+        if probes:
+            group = mesh.get_group("model")
+            x = torch.arange(8, dtype=torch.float32,
+                             device=dev).reshape(2, 4)
+            run = {"all-reduce": lambda: C.all_reduce(x, group),
+                   "all-gather": lambda: C.all_gather(x, 1, group),
+                   "reduce-scatter": lambda: C.reduce_scatter(x, 1, group),
+                   "all-to-all": lambda: C.all_to_all(x, 1, 0, group)}
+            for kind in probes:
+                run[kind]()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                open(os.path.join(root, f"{kind}{rank}"), "w").close()
+            return
+        params, batch, tokens = tp_inputs(dev, cfg)
+        got = tp_serve(dev, cfg, params, batch, tokens, mesh=mesh,
+                       steps=TP_TWO_STEPS)
+        torch.save({"logits": [t.cpu() for t in got["logits"]],
+                    "coord": tuple(mesh.get_coordinate())},
+                   os.path.join(root, f"rank{rank}.pt"))
+    except Exception:  # noqa: BLE001 - the outcome is the finding
+        with open(os.path.join(root, f"error{rank}.txt"), "w") as fh:
+            fh.write(traceback.format_exc()[-3000:])
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_two_spawn(dev, cfg, probes: tuple = ()) -> tuple:
+    """Two ``tp_two_rank`` processes in a fresh directory: (the
+    directory, the crash or error they ended with, or ``None``)."""
+    import shutil
+    import torch.multiprocessing as mp
+    root = ROOT / "build" / "chip_smoke_tp_two"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    settings = {k: globals()[k] for k in ("TP_BATCH", "TP_PROMPT",
+                                          "TP_STEPS", "TP_TWO_STEPS")}
+    ctx = mp.start_processes(tp_two_rank, args=(str(root), dev.type, cfg,
+                                                settings, probes),
+                             nprocs=2, join=False, start_method="spawn")
+    t0, died = time.monotonic(), None
+    try:
+        while not ctx.join(timeout=1):
+            if time.monotonic() - t0 > TP_TWO_TIMEOUT_S:
+                died = f"did not end in {TP_TWO_TIMEOUT_S} s"
+                break
+    except mp.ProcessExitedException as e:   # a crash is the finding
+        died = str(e)
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    errors = sorted(root.glob("error*.txt"))
+    return root, died or (errors[0].read_text()[-1500:] if errors else None)
+
+
+def tp_two_process(dev, cfg, meshless: dict) -> dict:
+    """The model axis at 2 on the one card: two processes over gloo
+    (NCCL refuses two ranks on one device) with the card's tensors.  Each
+    kind of collective the step issues is first tried once, in order, in
+    one pair of processes; a pair that crashes marks the kind it died in
+    and a new pair takes the kinds after it (``carried``: kind -> ``True``
+    or the crash or error).  Where gloo carries all four, the tp prefill
+    and decode steps run at ``(1, 2)`` and each rank's logits blocks (its
+    half of the vocabulary) are held against the meshless serve's within
+    ``STEP_RTOL``."""
+    import shutil
+    import torch
+    from repro_torch.launch.dryrun import STEP_RTOL, rel_rms
+    from repro_torch.sharding import partition
+    t0 = time.monotonic()
+    out = {"backend": "gloo", "mesh_shape": [1, 2], "carried": {}}
+    left = list(TP_PROBES)
+    while left:
+        root, failed = tp_two_spawn(dev, cfg, tuple(left))
+        while left and all((root / f"{left[0]}{r}").exists()
+                           for r in range(2)):
+            out["carried"][left.pop(0)] = True
+        if left:        # the kind the pair stopped in
+            out["carried"][left.pop(0)] = failed or "no result"
+        shutil.rmtree(root, ignore_errors=True)
+    if any(v is not True for v in out["carried"].values()):
+        out.update(step="not run: gloo did not carry every kind",
+                   seconds=time.monotonic() - t0)
+        return out
+    root, failed = tp_two_spawn(dev, cfg)
+    if failed:
+        shutil.rmtree(root, ignore_errors=True)
+        out.update(step=f"failed: {failed}", seconds=time.monotonic() - t0)
+        return out
+    mesh = partition.AbstractMesh((1, 2), ("data", "model"))
+    sh = partition.NamedSharding(mesh, partition.logits_spec(
+        (TP_BATCH, 1, cfg.padded_vocab), cfg, mesh))
+    errs = []
+    for rank in range(2):
+        got = torch.load(root / f"rank{rank}.pt", weights_only=False)
+        for a, b in zip(got["logits"], meshless["logits"]):
+            want = torch.nn.functional.pad(
+                b, (0, cfg.padded_vocab - cfg.vocab_size)).cpu()
+            block = sh.local_block(want, got["coord"])
+            n = min(a.shape[-1], cfg.vocab_size - got["coord"][1]
+                    * block.shape[-1])
+            errs.append(rel_rms(a[..., :n], block[..., :n]))
+    shutil.rmtree(root, ignore_errors=True)
+    out.update(step="ran", steps=TP_TWO_STEPS, logits_rel_rms=max(errs),
+               limit=STEP_RTOL, seconds=time.monotonic() - t0)
+    if not max(errs) <= STEP_RTOL:
+        raise AssertionError(f"the two-process run's logits: {out}")
+    return out
+
+
+def phase_tp(dev) -> dict:
+    """Tensor-parallel compute on the card: the decode kernel's
+    log-sum-exp (``phase_tp_lse``); ``TP_ARCH`` at its published widths in
+    bfloat16 through the partitioned prefill and decode steps on a
+    one-rank NCCL ``(1, 1)`` mesh against the meshless steps (the same
+    kernels): logits and written cache rows within ``STEP_RTOL`` (and
+    whether bitwise), 28 flash launches a prefill and 28 decode launches
+    with the log-sum-exp a step counted from zero; the measured step bytes
+    of the (1, 1) steps against the ``--mesh`` meta reckoning of the same
+    steps (``tp_step_bytes``, within ``TP_BYTES_RTOL`` on the plain
+    routes); then the model axis at 2 tried in two processes over gloo
+    (``tp_two_process``)."""
+    import dataclasses
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh, make_mesh
+    out = {"lse": phase_tp_lse(dev)}
+    cfg = tp_config()
+    plain = dataclasses.replace(cfg, attention_impl="chunked")
+    t0 = time.monotonic()
+    reckoned = {}
+    for cell in tp_cells():
+        with fake_mesh((1, 1), ("data", "model")) as fmesh:
+            rec = dryrun.account_mesh(plain, cell, fmesh)
+        reckoned[cell.kind] = (rec["memory"]["argument_bytes"]
+                               + rec["memory"]["temp_bytes"])
+    out["reckon_seconds"] = time.monotonic() - t0
+    params, batch, tokens = tp_inputs(dev, cfg)
+    tp_serve(dev, cfg, params, batch, tokens, steps=1)    # a warm-up
+    meshless = tp_serve(dev, cfg, params, batch, tokens)
+    store = ROOT / "build" / "chip_smoke_tp_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(str(store), 1), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+        FA.flash_attention.launches = 0
+        DA.decode_attention.launches = DA.decode_attention.lse_launches = 0
+        meshed = tp_serve(dev, cfg, params, batch, tokens, mesh=mesh)
+        launches = {"flash_attention": FA.flash_attention.launches,
+                    "decode_attention": DA.decode_attention.launches,
+                    "decode_attention_lse":
+                        DA.decode_attention.lse_launches}
+        want = {"flash_attention": cfg.num_layers,
+                "decode_attention": cfg.num_layers * TP_STEPS,
+                "decode_attention_lse": cfg.num_layers * TP_STEPS}
+        if launches != want:
+            raise AssertionError(f"the (1, 1) serve launched {launches}, "
+                                 f"want {want}")
+        out["bytes"] = tp_step_bytes(dev, cfg, mesh, reckoned, params)
+    finally:
+        dist.destroy_process_group()
+        store.unlink(missing_ok=True)
+    errs = {f"logits_{i}": dryrun.rel_rms(a, b) for i, (a, b) in enumerate(
+        zip(meshed["logits"], meshless["logits"]))}
+    rows = TP_PROMPT + TP_STEPS
+    for name in ("k", "v"):
+        errs[f"cache_{name}"] = dryrun.rel_rms(
+            getattr(meshed["cache"], name)[:, :, :rows],
+            getattr(meshless["cache"], name)[:, :, :rows])
+    bitwise = all(torch.equal(a, b) for a, b in zip(
+        meshed["logits"], meshless["logits"])) and all(
+        torch.equal(getattr(meshed["cache"], n), getattr(
+            meshless["cache"], n)) for n in ("k", "v"))
+    out["serve"] = dict(
+        arch=TP_ARCH, batch=TP_BATCH, prompt=TP_PROMPT, steps=TP_STEPS,
+        dtype=cfg.param_dtype, mesh_shape=[1, 1],
+        backend="nccl" if dev.type == "cuda" else "gloo",
+        launches=launches, max_rel_rms=max(errs.values()),
+        limit=dryrun.STEP_RTOL, bitwise=bitwise,
+        prefill_s=meshed["seconds"][0],
+        meshless_prefill_s=meshless["seconds"][0],
+        decode_p50_s=statistics.median(meshed["seconds"][1:]),
+        meshless_decode_p50_s=statistics.median(meshless["seconds"][1:]))
+    del meshed
+    torch.cuda.empty_cache()
+    off = {k: e for k, e in errs.items() if not e <= dryrun.STEP_RTOL}
+    far = {k: r for k, r in out["bytes"].items()
+           if k.endswith("chunked") and not r["rel_err"] <= TP_BYTES_RTOL}
+    if off or far:
+        raise AssertionError(f"the (1, 1) partitioned serve: {off or far}")
+    out["two_process"] = tp_two_process(dev, cfg, meshless)
+    del meshless, params
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_camera(dev) -> tuple[dict, dict]:
     """The camera node's phases in order; returns (frame_knobs_kernel
     result, camera_node result) and emits one line per phase."""
@@ -4422,6 +4883,9 @@ def main(argv: list[str]) -> int:
     only.add_argument("--remat-only", action="store_true",
                       help="run only the build of the quantize pair and "
                            "the remat phase")
+    only.add_argument("--tp-only", action="store_true",
+                      help="run only the build of the attention kernels "
+                           "and the tp phase")
     only.add_argument("--mesh-only", action="store_true",
                       help="run only the build of the quantize pair and "
                            "the mesh phase")
@@ -4455,6 +4919,7 @@ def main(argv: list[str]) -> int:
      else run_dryrun if args.dryrun_only
      else run_remat if args.remat_only
      else run_mesh if args.mesh_only
+     else run_tp if args.tp_only
      else run)(torch.device("cuda"))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4633,6 +5098,18 @@ def run_mesh(dev) -> None:
     t0 = time.monotonic()
     mesh = phase_mesh(dev)
     emit("mesh", seconds=time.monotonic() - t0, **mesh)
+
+
+def run_tp(dev) -> None:
+    """``--tp-only``: build the two attention kernels, then the tp
+    phase."""
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    build_only("flash_attention", FA._load_lib)
+    build_only("decode_attention", DA._load_lib)
+    t0 = time.monotonic()
+    tp = phase_tp(dev)
+    emit("tp", seconds=time.monotonic() - t0, **tp)
 
 
 def run(dev) -> None:
@@ -4875,6 +5352,10 @@ def run(dev) -> None:
     t0 = time.monotonic()
     mesh = phase_mesh(dev)
     emit("mesh", seconds=time.monotonic() - t0, **mesh)
+    # -- tensor-parallel compute: the partitioned serve on a (1, 1) mesh ----
+    t0 = time.monotonic()
+    tp = phase_tp(dev)
+    emit("tp", seconds=time.monotonic() - t0, **tp)
     from repro_torch.configs import get_config
     serve_cfg = get_config(SERVE_ARCH)
     serve_hd = (serve_cfg.reduced() if SERVE_REDUCED else serve_cfg).head_dim
@@ -4912,7 +5393,15 @@ def run(dev) -> None:
                 **{a: z["launches"][name]
                    for a, z in {**zoo_serves, **fam_serves}.items()},
                 ENC_ARCH: enc_timed["launches"][name],
-                "dryrun": dryrun_launches(dry, name)},
+                "dryrun": dryrun_launches(dry, name),
+                f"{TP_ARCH} tp (1, 1)": tp["serve"]["launches"][name]},
+            # the decode kernel with its log-sum-exp (the partitioned
+            # decode's route) beside the launch without it, bfloat16
+            **({"lse_shapes": [r for r in tp["lse"]
+                               if r["dtype"] == "bfloat16"],
+                "lse_launches": tp["serve"]["launches"][
+                    "decode_attention_lse"]}
+               if name == "decode_attention" else {}),
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "max_abs_err_float32": max(r["max_abs_err"] for r in mine

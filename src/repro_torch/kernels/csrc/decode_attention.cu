@@ -39,8 +39,16 @@
 // nothing in the value pass.  Chunks of one split follow each other with
 // the running (m, l, acc) rescaled, as in the TPU kernel's grid loop.
 //
+// The log-sum-exp (optional): where the caller passes `lse` (float32 [B,
+// QH]), the merge also writes each q head's m + log(l) over the rows below
+// `length`, in the scaled scores' units -- what a caller needs to merge
+// this launch's output with another one's over other rows (a rank's rows
+// of a cache whose sequence axis is split over a mesh's model axis), as
+// the splits' partials are merged here.  It changes no output bit.
+//
 // Interface: plain C, bound with ctypes.  q [B, 1, QH, D]; caches
-// [B, S_max, KH, D]; out [B, 1, QH, D]; all contiguous, of one type
+// [B, S_max, KH, D]; out [B, 1, QH, D]; lse [B, QH] float32 or null; all
+// contiguous, of one type
 // (0 = float32, 1 = bfloat16), 16-byte aligned; D in {16, 32, 64, 112, 128};
 // QH / KH in {1, 2, 4, 8}.  The launch goes on the caller's stream and
 // returns cudaGetLastError().
@@ -163,8 +171,9 @@ __device__ __forceinline__ void block_reduce(float (&x)[G], float* red) {
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(NT)
 decode_fused(const T* __restrict__ q, const T* __restrict__ kc,
-             const T* __restrict__ vc, T* __restrict__ out, int S_max, int KH,
-             int length, int rows_per_split, float scale) {
+             const T* __restrict__ vc, T* __restrict__ out,
+             float* __restrict__ lse, int S_max, int KH, int length,
+             int rows_per_split, float scale) {
   using P = Plan<T, D, G>;
   constexpr int N = Vec<T>::N;
   extern __shared__ float4 smem4[];
@@ -344,14 +353,17 @@ decode_fused(const T* __restrict__ q, const T* __restrict__ kc,
     }
     out[(size_t(b) * QH + kh * G) * D + i] =
         from_f<T>(aa / fmaxf(ll, 1e-37f));
+    if (lse != nullptr && i % D == 0)
+      lse[size_t(b) * QH + kh * G + g] = mm + logf(ll);
   }
   cluster.sync();  // the other splits' shared memory outlives the reads
 }
 
 // Splits: at most MAX_SPLIT, and no more than the chunks the rows fill.
 template <typename T, int D, int G>
-int launch(const void* q, const void* kc, const void* vc, void* out, int B,
-           int S_max, int KH, int length, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* kc, const void* vc, void* out,
+           float* lse, int B, int S_max, int KH, int length, float scale,
+           cudaStream_t stream) {
   using P = Plan<T, D, G>;
   const int n_split =
       min(MAX_SPLIT, (length + P::CHUNK - 1) / P::CHUNK);
@@ -375,49 +387,53 @@ int launch(const void* q, const void* kc, const void* vc, void* out, int B,
   const cudaError_t err = cudaLaunchKernelEx(
       &cfg, decode_fused<T, D, G>, static_cast<const T*>(q),
       static_cast<const T*>(kc), static_cast<const T*>(vc),
-      static_cast<T*>(out), S_max, KH, length, rows_per_split, scale);
+      static_cast<T*>(out), lse, S_max, KH, length, rows_per_split, scale);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int D>
-int launch_g(const void* q, const void* kc, const void* vc, void* out, int B,
-             int S_max, int KH, int G, int length, float scale,
-             cudaStream_t s) {
+int launch_g(const void* q, const void* kc, const void* vc, void* out,
+             float* lse, int B, int S_max, int KH, int G, int length,
+             float scale, cudaStream_t s) {
   switch (G) {
     case 1:
-      return launch<T, D, 1>(q, kc, vc, out, B, S_max, KH, length, scale, s);
+      return launch<T, D, 1>(q, kc, vc, out, lse, B, S_max, KH, length,
+                             scale, s);
     case 2:
-      return launch<T, D, 2>(q, kc, vc, out, B, S_max, KH, length, scale, s);
+      return launch<T, D, 2>(q, kc, vc, out, lse, B, S_max, KH, length,
+                             scale, s);
     case 4:
-      return launch<T, D, 4>(q, kc, vc, out, B, S_max, KH, length, scale, s);
+      return launch<T, D, 4>(q, kc, vc, out, lse, B, S_max, KH, length,
+                             scale, s);
     case 8:
-      return launch<T, D, 8>(q, kc, vc, out, B, S_max, KH, length, scale, s);
+      return launch<T, D, 8>(q, kc, vc, out, lse, B, S_max, KH, length,
+                             scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <typename T>
-int launch_d(const void* q, const void* kc, const void* vc, void* out, int B,
-             int S_max, int KH, int G, int D, int length, float scale,
-             cudaStream_t s) {
+int launch_d(const void* q, const void* kc, const void* vc, void* out,
+             float* lse, int B, int S_max, int KH, int G, int D, int length,
+             float scale, cudaStream_t s) {
   switch (D) {
     case 16:
-      return launch_g<T, 16>(q, kc, vc, out, B, S_max, KH, G, length, scale,
-                             s);
+      return launch_g<T, 16>(q, kc, vc, out, lse, B, S_max, KH, G,
+                             length, scale, s);
     case 32:
-      return launch_g<T, 32>(q, kc, vc, out, B, S_max, KH, G, length, scale,
-                             s);
+      return launch_g<T, 32>(q, kc, vc, out, lse, B, S_max, KH, G,
+                             length, scale, s);
     case 64:
-      return launch_g<T, 64>(q, kc, vc, out, B, S_max, KH, G, length, scale,
-                             s);
+      return launch_g<T, 64>(q, kc, vc, out, lse, B, S_max, KH, G,
+                             length, scale, s);
     case 112:
-      return launch_g<T, 112>(q, kc, vc, out, B, S_max, KH, G, length,
-                              scale, s);
+      return launch_g<T, 112>(q, kc, vc, out, lse, B, S_max, KH, G,
+                              length, scale, s);
     case 128:
-      return launch_g<T, 128>(q, kc, vc, out, B, S_max, KH, G, length,
-                              scale, s);
+      return launch_g<T, 128>(q, kc, vc, out, lse, B, S_max, KH, G,
+                              length, scale, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -428,19 +444,19 @@ int launch_d(const void* q, const void* kc, const void* vc, void* out, int B,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = success).
-int da_launch(const void* q, const void* kc, const void* vc, void* out, int B,
-              int S_max, int QH, int KH, int D, int length, float scale,
-              int dtype, void* stream) {
+int da_launch(const void* q, const void* kc, const void* vc, void* out,
+              void* lse, int B, int S_max, int QH, int KH, int D, int length,
+              float scale, int dtype, void* stream) {
   if (B <= 0 || KH <= 0 || QH % KH != 0 || length < 1 || length > S_max)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int G = QH / KH;
   if (dtype == 0)
-    return launch_d<float>(q, kc, vc, out, B, S_max, KH, G, D, length, scale,
-                           s);
+    return launch_d<float>(q, kc, vc, out, static_cast<float*>(lse), B,
+                           S_max, KH, G, D, length, scale, s);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, kc, vc, out, B, S_max, KH, G, D, length,
-                                   scale, s);
+    return launch_d<__nv_bfloat16>(q, kc, vc, out, static_cast<float*>(lse),
+                                   B, S_max, KH, G, D, length, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -16,6 +16,12 @@ kernel ``decode_attention``).  Two pieces:
                             tensors to the plain version, anything else
                             raises.
 
+With ``return_lse=True`` both also return the float32 log-sum-exp of
+each q head's scaled scores over the valid rows, ``[B, QH]``: what merges
+two calls over disjoint rows of one cache (a rank's rows of a cache whose
+sequence axis lies on a mesh's model axis, ``models/attention.py::
+merge_decode_partials``).  The kernel writes it in the same launch.
+
 Shapes follow the JAX package: q ``[B, 1, QH, D]``, caches
 ``[B, S_max, KH, D]``.  ``length`` (the number of valid cache rows) is a
 Python int here, where the JAX cache keeps a device scalar: the port's
@@ -48,8 +54,8 @@ def _load_lib():
         from repro_torch.kernels import build
         lib = build.load_library("decode_attention")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.da_launch.argtypes = [ptr, ptr, ptr, ptr, i32, i32, i32, i32,
-                                  i32, i32, ctypes.c_float, i32, ptr]
+        lib.da_launch.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32,
+                                  i32, i32, i32, ctypes.c_float, i32, ptr]
         lib.da_launch.restype = i32
         lib.da_error_string.argtypes = [i32]
         lib.da_error_string.restype = ctypes.c_char_p
@@ -59,9 +65,12 @@ def _load_lib():
 
 def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
                            v_cache: torch.Tensor, length: int, *,
-                           scale: float | None = None) -> torch.Tensor:
+                           scale: float | None = None,
+                           return_lse: bool = False):
     """Single-query attention in f32 over the first ``length`` cache rows,
-    cast to ``q.dtype`` (``ref.decode_attention_ref``)."""
+    cast to ``q.dtype`` (``ref.decode_attention_ref``); with
+    ``return_lse`` also the float32 log-sum-exp ``[B, QH]`` of the scaled
+    scores over those rows."""
     qh, d = q.shape[2], q.shape[3]
     group = qh // k_cache.shape[2]
     scale = scale if scale is not None else d ** -0.5
@@ -71,7 +80,10 @@ def decode_attention_plain(q: torch.Tensor, k_cache: torch.Tensor,
     valid = torch.arange(k_cache.shape[1], device=q.device) < int(length)
     s = s.masked_fill(~valid, float("-inf"))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhqk,bkhd->bqhd", p, vx).to(q.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", p, vx).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(s, dim=-1)[:, :, 0]
+    return out
 
 
 def _check(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -115,7 +127,8 @@ def launch_limits(b: int, s_max: int, qh: int, kh: int, d: int) -> None:
                            f"CUDA's {GRID_YZ_MAX}")
 
 
-def _launch(q, k_cache, v_cache, length: int, scale: float) -> torch.Tensor:
+def _launch(q, k_cache, v_cache, length: int, scale: float,
+            return_lse: bool):
     if q.dtype not in KERNEL_DTYPES:
         raise RuntimeError(f"decode_attention: the kernel takes float32 or "
                            f"bfloat16, got {q.dtype}")
@@ -135,25 +148,33 @@ def _launch(q, k_cache, v_cache, length: int, scale: float) -> torch.Tensor:
                                "contiguous, 16-byte aligned tensors")
     lib = _load_lib()
     out = torch.empty_like(q)
+    lse = (torch.empty((b, qh), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.da_launch(q.data_ptr(), k_cache.data_ptr(),
-                           v_cache.data_ptr(), out.data_ptr(), b, s_max, qh,
-                           kh, d, length, float(scale),
+                           v_cache.data_ptr(), out.data_ptr(),
+                           None if lse is None else lse.data_ptr(), b,
+                           s_max, qh, kh, d, length, float(scale),
                            KERNEL_DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention: CUDA error {rc}: "
                            f"{lib.da_error_string(rc).decode()}")
     decode_attention.launches += 1
+    if return_lse:
+        decode_attention.lse_launches += 1
+        return out, lse
     return out
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: int, *,
-                     scale: float | None = None) -> torch.Tensor:
+                     scale: float | None = None, return_lse: bool = False):
     """One-query attention, q ``[B, 1, QH, D]`` against caches
     ``[B, S_max, KH, D]`` masked at ``length`` (a Python int, ``1 <= length
-    <= S_max``) -> ``[B, 1, QH, D]`` in q's dtype.
+    <= S_max``) -> ``[B, 1, QH, D]`` in q's dtype, and with ``return_lse``
+    the float32 log-sum-exp ``[B, QH]`` of the scaled scores, written by
+    the same launch (counted in ``decode_attention.lse_launches`` too).
 
     On CUDA tensors it launches the hand-written kernel once (float32 or
     bfloat16, contiguous; the output is the only allocation) and adds one
@@ -165,11 +186,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return decode_attention_plain(q, k_cache, v_cache, length,
-                                      scale=scale)
+                                      scale=scale, return_lse=return_lse)
     if q.device.type != "cuda":
         raise RuntimeError(f"decode_attention: no kernel for device "
                            f"{q.device}")
-    return _launch(q, k_cache, v_cache, length, scale)
+    return _launch(q, k_cache, v_cache, length, scale, return_lse)
 
 
 decode_attention.launches = 0
+decode_attention.lse_launches = 0

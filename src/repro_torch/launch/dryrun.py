@@ -56,15 +56,33 @@ the same step on the plain routes (``card_compare``, the comparison
 (seconds, the measured step bytes beside the reckoning, the relative
 errors).
 
-There is no ``--mesh`` and no parse of collectives yet: each cell is
-accounted on one card.  The step's shardings on the production meshes
-exist (``build_*_step(..., mesh=production_mesh_shape())``); the
-per-device bytes they give and a count of the sharded step's collectives
-wait for the next mesh slice (ROADMAP Queue 1, the dry-run's ``--mesh``).
+With ``--mesh single|multi|both`` each cell is accounted instead as JAX
+accounts it, for one device of the production mesh, ``(16, 16)``
+(``single``) and ``(2, 16, 16)`` (``multi``): the step is one rank's
+(``launch/steps.py`` on a ``DeviceMesh``: its blocks, its batch rows, its
+collectives), run on meta tensors over a fake process group of 256 or 512
+ranks in this process (``launch.mesh.fake_mesh``; rank 0), and
+``<out>/<arch>__<shape>__<mesh>.json`` holds, as JAX's record does:
+
+  devices; memory.{argument_bytes (the rank's blocks of the arguments),
+  output_bytes, temp_bytes (the peak of the step's own tensors),
+  alias_bytes (outputs in the arguments' storages: the donated cache, or
+  the parameters and moments AdamW writes)}; cost.{flops,
+  bytes_accessed, transcendentals} of the rank's step; collectives:
+  ``{kind: {"bytes", "count"}}`` for all-gather, all-reduce,
+  reduce-scatter, all-to-all and collective-permute (output bytes, as
+  ``parse_collectives`` records them; ``MetaPass`` counts them); and
+  model_axis: ``"compute"`` where the model axis partitions the step's
+  products (the dense, MoE and VLM families) or ``"storage"`` where it
+  shards the stored blocks only and the ranks compute on gathered whole
+  tensors (rwkv6, zamba2, enc-dec); fits: argument plus temp bytes within
+  ``H100.hbm_bytes``.  All of it is a reckoning on the meta device, not a
+  measurement.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
       [--shape S] [--out DIR] [--force] [--device meta|cuda]
+      [--mesh single|multi|both] [--jobs N]
 """
 
 from __future__ import annotations
@@ -82,17 +100,21 @@ import torch
 
 from repro_torch.configs import (ARCHS, SHAPE_CELLS, ModelConfig, ShapeCell,
                                  cells_for, get_config, skipped_cells_for)
-from repro_torch.launch.mesh import H100
+from repro_torch.launch.mesh import H100, fake_production_mesh
 from repro_torch.launch.steps import (StepBundle, build_prefill_step,
                                       build_serve_step, build_train_bundle,
-                                      microbatch_count)
+                                      local_specs, microbatch_count,
+                                      model_axis)
 from repro_torch.meta import META, MetaPass, distinct_bytes, tensors_of
 from repro_torch.models.registry import DECODE_SLACK, build_model, make_batch
 from repro_torch.optim.adamw import init_opt_state
 
-__all__ = ["cell_bundle", "depth_cut", "account", "find_cut",
-           "run_cell", "card_args", "card_run", "card_compare", "written",
-           "rel_rms", "main"]
+__all__ = ["cell_bundle", "depth_cut", "account", "account_mesh",
+           "argument_bytes",
+           "find_cut", "run_cell", "run_mesh_cell", "card_args", "card_run",
+           "card_compare", "written", "rel_rms", "main", "MESHES"]
+
+MESHES = ("single", "multi")
 
 PLAIN_IMPL = "chunked"      # the meta pass's routes
 KERNEL_IMPL = "kernel"      # the card's
@@ -120,16 +142,20 @@ def depth_cut(cfg: ModelConfig, num_layers: int) -> ModelConfig:
 
 def cell_bundle(cfg: ModelConfig, cell: ShapeCell, *,
                 impl: "str | None" = PLAIN_IMPL,
-                device: "torch.device | str" = META) -> StepBundle:
+                device: "torch.device | str" = META,
+                mesh=None) -> StepBundle:
     """The step of ``cell``: ``build_prefill_step`` / ``build_serve_step``
     with ``impl``, or for a train cell ``build_train_bundle`` (the
     config's own attention impl: the kernels have no backward) with meta
-    parameters, AdamW state and batch."""
+    parameters, AdamW state and batch.  On a ``DeviceMesh`` one rank's
+    step over its blocks."""
     if cell.kind == "prefill":
-        return build_prefill_step(cfg, cell, impl=impl, device=device)
+        return build_prefill_step(cfg, cell, impl=impl, device=device,
+                                  mesh=mesh)
     if cell.kind == "decode":
-        return build_serve_step(cfg, cell, impl=impl, device=device)
-    return build_train_bundle(cfg, cell, device=device)
+        return build_serve_step(cfg, cell, impl=impl, device=device,
+                                mesh=mesh)
+    return build_train_bundle(cfg, cell, device=device, mesh=mesh)
 
 
 def account(cfg: ModelConfig, cell: ShapeCell, *,
@@ -159,6 +185,61 @@ def account(cfg: ModelConfig, cell: ShapeCell, *,
     rec["flops"] = watch.flops
     rec["bytes_accessed"] = watch.bytes_accessed
     rec["transcendentals"] = watch.transcendentals
+    return rec
+
+
+def argument_bytes(cfg: ModelConfig, cell: ShapeCell, mesh) -> int:
+    """The bytes of one rank's arguments of ``cell``'s step on ``mesh``
+    (an ``AbstractMesh`` will do: no pass, no process group): every leaf
+    of the step's whole arguments at its local shape per the bundle's
+    ``in_shardings`` (a cache's host-side ``length`` holds none)."""
+    bundle = cell_bundle(cfg, cell, mesh=mesh)
+    return distinct_bytes(local_specs(bundle.arg_specs, bundle.in_shardings,
+                                      mesh))
+
+
+def account_mesh(cfg: ModelConfig, cell: ShapeCell, mesh, *,
+                 memo: "dict | None" = None) -> dict:
+    """One meta pass of one rank's step of ``cell`` on ``mesh`` (a
+    ``DeviceMesh``, the fake production mesh in the dry-run), on the plain
+    routes: JAX's record's ``memory``, ``cost`` and ``collectives`` (see
+    the module docstring), and ``model_axis``."""
+    bundle = cell_bundle(cfg, cell, mesh=mesh)
+    args = bundle.arg_specs
+    watch = MetaPass(exclude=args, memo=memo)
+    with watch:
+        out = bundle.fn(*args)
+    arg_keys = {t.untyped_storage()._cdata for t in tensors_of(args)}
+    out_bytes = distinct_bytes(out)
+    new_bytes = distinct_bytes([t for t in tensors_of(out)
+                                if t.untyped_storage()._cdata not in arg_keys])
+    return {"devices": mesh.size(), "model_axis": model_axis(cfg),
+            "memory": {"argument_bytes": distinct_bytes(args),
+                       "output_bytes": out_bytes,
+                       "temp_bytes": watch.peak,
+                       "alias_bytes": out_bytes - new_bytes},
+            "cost": {"flops": watch.flops,
+                     "bytes_accessed": watch.bytes_accessed,
+                     "transcendentals": watch.transcendentals},
+            "collectives": watch.collectives}
+
+
+def run_mesh_cell(arch: str, shape: str, mesh_kind: str) -> dict:
+    """``account_mesh`` of one cell for rank 0 of the fake production mesh
+    (``mesh_kind`` ``"single"``: 256 ranks, ``"multi"``: 512), with JAX's
+    record's keys and ``fits`` (argument plus temp bytes within
+    ``H100.hbm_bytes``)."""
+    cell = SHAPE_CELLS[shape]
+    t0 = time.monotonic()
+    with fake_production_mesh(multi_pod=mesh_kind == "multi") as mesh:
+        rec = {"arch": arch, "shape": shape, "mesh": mesh_kind, "ok": True,
+               "mesh_shape": list(mesh.mesh.shape),
+               **account_mesh(get_config(arch), cell, mesh)}
+    mem = rec["memory"]
+    rec["device_bytes"] = mem["argument_bytes"] + mem["temp_bytes"]
+    rec["fits"] = rec["device_bytes"] <= H100.hbm_bytes
+    rec["budget_bytes"] = H100.hbm_bytes
+    rec["seconds"] = time.monotonic() - t0
     return rec
 
 
@@ -472,22 +553,43 @@ def run_cell(arch: str, shape: str, *, device: str = "meta",
     return rec
 
 
-def _run_cell_safely(arch: str, shape: str, device: str) -> dict:
-    """``run_cell``, a failure recorded rather than raised (a pool worker's
-    entry point)."""
+def _run_cell_safely(arch: str, shape: str, device: str,
+                     mesh_kind: "str | None" = None) -> dict:
+    """``run_cell`` (or ``run_mesh_cell`` with ``mesh_kind``), a failure
+    recorded rather than raised (a pool worker's entry point)."""
     try:
+        if mesh_kind is not None:
+            return run_mesh_cell(arch, shape, mesh_kind)
         return run_cell(arch, shape, device=device)
     except Exception as e:  # noqa: BLE001 - report, keep going
-        return {"arch": arch, "shape": shape, "device": device, "ok": False,
-                "error": repr(e), "traceback": traceback.format_exc()[-4000:]}
+        return {"arch": arch, "shape": shape, "device": device,
+                "mesh": mesh_kind, "ok": False, "error": repr(e),
+                "traceback": traceback.format_exc()[-4000:]}
+
+
+def _tag(result: dict) -> str:
+    tag = f"{result['arch']}__{result['shape']}"
+    return tag + (f"__{result['mesh']}" if result.get("mesh") else "")
 
 
 def _report(result: dict, path: str) -> None:
-    tag = f"{result['arch']}__{result['shape']}"
+    tag = _tag(result)
     with open(path, "w") as fh:
         json.dump(result, fh, indent=1)
     if not result["ok"]:
         print(f"FAIL {tag}: {result['error']}", flush=True)
+        return
+    if result.get("mesh"):
+        mem = result["memory"]
+        coll = {k: f"{v['count']}x{v['bytes'] / 1e6:.1f}MB"
+                for k, v in result["collectives"].items() if v["count"]}
+        print(f"  ok {tag}: {result['seconds']:.1f}s "
+              f"{result['model_axis']} "
+              f"args={mem['argument_bytes'] / 1e9:.2f}GB "
+              f"temp={mem['temp_bytes'] / 1e9:.2f}GB "
+              f"fits={result['fits']} "
+              f"flops={result['cost']['flops']:.3e} coll={coll}",
+              flush=True)
         return
     cut = result["cut"]
     card = result.get("card")
@@ -514,7 +616,14 @@ def main(argv: "list[str] | None" = None) -> int:
     ap.add_argument("--device", default="meta", choices=["meta", "cuda"])
     ap.add_argument("--jobs", type=int, default=1,
                     help="worker processes for the meta passes (meta only)")
+    ap.add_argument("--mesh", default=None,
+                    choices=["single", "multi", "both"],
+                    help="account one device of the production mesh(es)")
     args = ap.parse_args(argv)
+    if args.mesh and args.device != "meta":
+        raise SystemExit("dryrun: --mesh accounts on the meta device")
+    meshes = ([None] if args.mesh is None else
+              list(MESHES) if args.mesh == "both" else [args.mesh])
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("dryrun: --device cuda needs a CUDA device")
     if args.device == "cuda" and args.jobs != 1:
@@ -533,15 +642,19 @@ def main(argv: "list[str] | None" = None) -> int:
                 print(f"SKIP {arch} x {skip}: {why}")
                 n_skip += 1
         for shape in shapes:
-            path = os.path.join(args.out, f"{arch}__{shape}.json")
-            if os.path.exists(path) and not args.force:
-                with open(path) as fh:
-                    prev = json.load(fh)
-                if prev.get("ok") and prev.get("device") == args.device:
-                    print(f"CACHED {arch}__{shape}")
-                    n_ok += 1
-                    continue
-            todo.append((arch, shape, path))
+            for mesh_kind in meshes:
+                tag = f"{arch}__{shape}" + (f"__{mesh_kind}" if mesh_kind
+                                            else "")
+                path = os.path.join(args.out, tag + ".json")
+                if os.path.exists(path) and not args.force:
+                    with open(path) as fh:
+                        prev = json.load(fh)
+                    if prev.get("ok") and (mesh_kind or prev.get(
+                            "device") == args.device):
+                        print(f"CACHED {tag}")
+                        n_ok += 1
+                        continue
+                todo.append((arch, shape, mesh_kind, path))
 
     def done(result, path):
         nonlocal n_ok, n_fail
@@ -554,14 +667,15 @@ def main(argv: "list[str] | None" = None) -> int:
         ctx = multiprocessing.get_context("spawn")
         with ProcessPoolExecutor(args.jobs, mp_context=ctx) as pool:
             futures = {pool.submit(_run_cell_safely, arch, shape,
-                                   args.device): path
-                       for arch, shape, path in todo}
+                                   args.device, mesh_kind): path
+                       for arch, shape, mesh_kind, path in todo}
             for fut in as_completed(futures):
                 done(fut.result(), futures[fut])
     else:
-        for arch, shape, path in todo:
-            print(f"RUN {arch}__{shape} ...", flush=True)
-            done(_run_cell_safely(arch, shape, args.device), path)
+        for arch, shape, mesh_kind, path in todo:
+            print(f"RUN {os.path.basename(path)[:-5]} ...", flush=True)
+            done(_run_cell_safely(arch, shape, args.device, mesh_kind),
+                 path)
     print(f"\ndry-run: {n_ok} ok, {n_fail} failed, {n_skip} skipped")
     return 1 if n_fail else 0
 

@@ -7,7 +7,14 @@ this module touches no process group.  A mesh here is a
 rank a card, as ``torchrun`` launches them: its size must be the group's
 world size, and a missing group raises (nothing falls back to one device).
 ``production_mesh_shape`` is the same mesh as an ``AbstractMesh`` (sizes
-and names, no devices), for code that needs only the specs.
+and names, no devices), for code that needs only the specs, and
+``fake_mesh`` / ``fake_production_mesh`` the counterpart of the JAX
+dry-run's 512 host devices: a ``DeviceMesh`` of the production shape over
+a fake process group of 256 or 512 ranks in the calling process, on which
+a rank's step runs its collectives on meta tensors (nothing is sent) so
+that ``meta.MetaPass`` can count them; it is torn down when the block
+ends (a default group left behind would leak into everything the process
+runs next).
 
 Production topology: 16 x 16 = 256 cards a pod (``("data", "model")``);
 multi-pod adds a leading ``"pod"`` axis (2 pods = 512 cards).  The pod
@@ -20,13 +27,14 @@ at the 700 W power limit).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 
 from repro_torch.sharding.partition import AbstractMesh
 
 __all__ = ["HardwareSpec", "H100", "make_mesh", "make_production_mesh",
-           "production_mesh_shape"]
+           "production_mesh_shape", "fake_mesh", "fake_production_mesh"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,3 +95,33 @@ def make_production_mesh(*, multi_pod: bool = False,
     ``(2, 16, 16)`` / ``("pod", "data", "model")`` with ``multi_pod``."""
     shape, axes = _production(multi_pod)
     return make_mesh(shape, axes, device_type=device_type)
+
+
+@contextlib.contextmanager
+def fake_mesh(shape: tuple, axes: tuple, *, rank: int = 0):
+    """A ``DeviceMesh`` of ``shape`` named ``axes`` over a ``"fake"``
+    process group of ``prod(shape)`` ranks in this process, as rank
+    ``rank``: its collectives return tensors of the right shapes and send
+    nothing (on meta tensors, nothing is computed either).  The group is
+    destroyed when the block ends; an initialised group already in place
+    raises ``RuntimeError``."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if dist.is_initialized():
+        raise RuntimeError("fake_mesh: a process group is already "
+                           "initialised in this process")
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=math.prod(shape))
+    try:
+        yield init_device_mesh("cpu", tuple(shape),
+                               mesh_dim_names=tuple(axes))
+    finally:
+        dist.destroy_process_group()
+
+
+def fake_production_mesh(*, multi_pod: bool = False, rank: int = 0):
+    """``fake_mesh`` of the production shape: ``(16, 16)`` /
+    ``("data", "model")``, or ``(2, 16, 16)`` / ``("pod", "data",
+    "model")`` with ``multi_pod``."""
+    return fake_mesh(*_production(multi_pod), rank=rank)

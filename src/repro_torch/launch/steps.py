@@ -27,6 +27,21 @@ bundle's ``arg_structs``), the arguments the step writes in place
 arguments and outputs (``in_shardings`` / ``out_shardings``, JAX's
 bundles' specs; ``None`` without one).  A serve cell's cache stands at
 ``length = seq_len``: one decode step at that context.
+
+On a ``DeviceMesh`` (over an initialised process group; the dry-run's
+fake group of 256 or 512 ranks too) each builder returns one rank's step
+instead: its arguments are the rank's blocks per the specs, plain tensors
+of their local shapes (``arg_specs`` holds meta tensors of those shapes),
+and its outputs are the rank's blocks of the out shardings' specs.  For
+the attention families (dense, MoE, VLM: ``models/transformer.py``) the
+step partitions its compute over the model axis and gathers each layer's
+FSDP blocks over the DP axes where the layer uses them
+(``PARTITIONED_FAMILIES``; the transformer's docstring says how).  The
+other families (rwkv6, zamba2, enc-dec) keep the storage-sharded step:
+each leaf is gathered whole (the cache to the rank's batch rows), the
+model runs on the whole tensors and the rank keeps its blocks of what it
+wrote; their partitioned compute is still to port (ROADMAP Queue 1 item
+4).  ``model_axis(cfg)`` names which of the two a config runs.
 """
 
 from __future__ import annotations
@@ -38,11 +53,10 @@ import torch
 
 from repro_torch.configs.base import ATTENTION_IMPLS, ModelConfig, ShapeCell
 from repro_torch.device import resolve_device
-from repro_torch.meta import loop_repeats, repeated
+from repro_torch.meta import loop_repeats, repeated, tensors_of
 from repro_torch.models.registry import (Model, build_model, cache_spec,
                                          input_specs, param_specs)
-from repro_torch.optim.adamw import (AdamWConfig, adamw_update, global_norm,
-                                    init_opt_state)
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
 from repro_torch.sharding import partition
 from repro_torch.sharding.partition import PartitionSpec as P
 from repro_torch.tree import tree_leaves, tree_map
@@ -51,9 +65,25 @@ __all__ = ["build_train_step", "build_train_bundle",
            "build_sharded_grads", "build_sharded_train_step",
            "build_prefill_step",
            "build_serve_step", "StepBundle", "microbatch_count",
-           "compute_grads"]
+           "compute_grads", "model_axis", "local_specs",
+           "PARTITIONED_FAMILIES"]
 
 STEP_DEVICES = ("cuda", "cpu", "meta")
+# the families whose rank's step partitions its compute over the model axis
+PARTITIONED_FAMILIES = ("dense", "moe", "vlm")
+
+
+def model_axis(cfg: ModelConfig) -> str:
+    """What the model axis does in a rank's step of ``cfg``: ``"compute"``
+    (its products partitioned over it) or ``"storage"`` (it shards the
+    stored blocks; the ranks compute on gathered whole tensors)."""
+    return "compute" if cfg.family in PARTITIONED_FAMILIES else "storage"
+
+
+def _on_groups(mesh) -> bool:
+    """A ``DeviceMesh`` with process groups (an ``AbstractMesh`` has
+    names and sizes only)."""
+    return mesh is not None and hasattr(mesh, "get_group")
 
 
 @dataclasses.dataclass
@@ -160,6 +190,98 @@ def build_train_step(cfg: ModelConfig, opt: AdamWConfig | None = None,
     return train_step
 
 
+def _rank_rows(batch: dict, cfg: ModelConfig, mesh, coord) -> dict:
+    """The rank's rows of the global ``batch`` per ``batch_specs``."""
+    bspecs = partition.batch_specs(batch, cfg, mesh)
+    return {k: partition.NamedSharding(mesh, bspecs[k]).local_block(
+        v, coord) for k, v in batch.items()}
+
+
+def _rank_grads(cfg: ModelConfig, mesh, grad_compress: Callable | None):
+    """``grads(params, rows, global_batch) -> (loss, grads)`` of one rank:
+    ``params`` the rank's blocks (plain tensors), ``rows`` its batch rows,
+    ``global_batch`` the step's whole batch size (the microbatch count is
+    ``microbatch_count`` at the mesh's DP size).  The loss is the DP mean;
+    the gradients are the rank's blocks of the DP-mean gradient.
+
+    Partitioned (``model_axis(cfg) == "compute"``): the model runs under
+    the rank's ``api.ComputeAxes``, its FSDP gathers' backward passes
+    reduce-scatter the gradients over the DP group -- each block comes
+    back as the DP sum of its gradients, with no whole gradient on any
+    rank -- and ``spmd.dp_mean`` all-reduces the leaves the DP axes leave
+    whole and divides by the DP size.  A reduce-scatter and not an
+    all-reduce and a slice: each rank keeps only its block, so it need not
+    receive the rest.  Storage-sharded: every leaf is gathered whole, the
+    whole gradients are averaged over the DP group by an all-reduce (every
+    rank of a model-axis row computed the same ones) and each rank keeps
+    its blocks.
+
+    ``grad_compress`` (the approximate collective's quantize round trip)
+    applies to each whole mean gradient, as JAX applies it to the global
+    array: its quantize tiles span the whole flattened leaf, so a split
+    leaf is gathered for it and cut back into the rank's block."""
+    from repro_torch.sharding import api, spmd
+    from repro_torch.sharding.collectives import all_reduce
+    model = build_model(cfg)
+    pshape = param_specs(cfg)
+    specs = partition.param_specs(pshape, cfg, mesh)
+    shardings = partition.logical_to_sharding(specs, mesh)
+    axes = spmd.compute_axes(mesh, cfg, pshape)
+    coord = spmd.coordinate(mesh)
+    dp = axes.dp_size
+
+    def whole(tree):
+        return tree_map(lambda x, sp: spmd.gather_whole(x, sp, mesh), tree,
+                        specs)
+
+    def blocks(tree):
+        return tree_map(lambda g, sh: sh.local_block(g, coord), tree,
+                        shardings)
+
+    def grads_fn(params: dict, rows: dict, global_batch: int
+                 ) -> tuple[torch.Tensor, dict]:
+        m = microbatch_count(cfg, global_batch, dp)
+        if model_axis(cfg) == "compute":
+            with api.active(mesh, axes):
+                loss, grads = compute_grads(model, params, rows, m)
+            grads = spmd.dp_mean(grads, axes)
+            if grad_compress is not None:
+                grads = blocks(grad_compress(whole(grads)))
+        else:
+            loss, grads = compute_grads(model, whole(params), rows, m)
+            grads = tree_map(lambda g: all_reduce(g, axes.dp_group).div_(dp)
+                             if dp > 1 else g, grads)
+            if grad_compress is not None:
+                grads = grad_compress(grads)
+            grads = blocks(grads)
+        loss = all_reduce(loss.float().clone(), axes.dp_group)
+        return (loss.div_(dp) if dp > 1 else loss), grads
+
+    grads_fn.axes = axes
+    return grads_fn
+
+
+def _rank_train_step(cfg: ModelConfig, mesh, opt: AdamWConfig | None,
+                     grad_compress: Callable | None) -> Callable:
+    """``step(params, opt_state, rows, global_batch)`` of one rank over its
+    plain blocks: ``_rank_grads``, then AdamW on the blocks clipped by the
+    norm of the whole mean gradient (``spmd.global_norm``: one all-reduce
+    of the blocks' sums of squares), so every rank scales alike."""
+    from repro_torch.sharding import spmd
+    opt = opt or AdamWConfig()
+    grads_fn = _rank_grads(cfg, mesh, grad_compress)
+
+    def step(params: dict, opt_state: dict, rows: dict, global_batch: int
+             ) -> tuple[dict, dict, dict[str, Any]]:
+        loss, grads = grads_fn(params, rows, global_batch)
+        gnorm = spmd.global_norm(grads, grads_fn.axes)
+        params, state = adamw_update(opt, params, grads, opt_state,
+                                     gnorm=gnorm)
+        return params, state, {"loss": loss}
+
+    return step
+
+
 def build_sharded_grads(cfg: ModelConfig, mesh,
                         grad_compress: Callable | None = None
                         ) -> Callable:
@@ -169,39 +291,30 @@ def build_sharded_grads(cfg: ModelConfig, mesh,
     tree of ``DTensor``s stored per ``param_specs`` and ``batch`` the
     global batch (every rank passes the same one).
 
-    It gathers the whole parameters, takes the rank's rows of the batch
-    per ``batch_specs`` (over the DP axes, so the model-axis ranks of one
-    DP group share rows; over every axis under ``zero3``), computes the
-    loss and gradients with ``compute_grads`` (the microbatch count at
-    the mesh's DP size), averages both over the rank's DP group
-    (``all_reduce``, then a division by its size) and applies
-    ``grad_compress`` to the mean gradients (after the reduction, as JAX
-    applies it after GSPMD's).  Every rank returns the whole DP mean."""
-    import torch.distributed as dist
+    It takes the rank's rows of the batch per ``batch_specs`` (over the DP
+    axes, so the model-axis ranks of one DP group share rows; over every
+    axis under ``zero3``) and runs ``_rank_grads`` on the rank's blocks:
+    for the attention families the partitioned compute, whose gradients
+    come back as the rank's blocks of the DP mean without a whole
+    parameter or gradient on any rank; for the others the
+    storage-sharded step (whole parameters gathered, the whole gradients
+    averaged over the DP group).  Returns the DP-mean loss and the mean
+    gradient as ``DTensor``s of the rank's blocks, placed as the
+    parameters (``full_tensor()`` gathers one whole)."""
     from repro_torch.sharding import spmd
-    model = build_model(cfg)
-    dp = partition.dp_size(mesh, cfg)
-    group = spmd.dp_group(mesh, partition.fsdp_axes(mesh, cfg))
+    grads_fn = _rank_grads(cfg, mesh, grad_compress)
     coord = spmd.coordinate(mesh)
+    shardings = partition.logical_to_sharding(
+        partition.param_specs(param_specs(cfg), cfg, mesh), mesh)
 
-    def mean(x: torch.Tensor) -> torch.Tensor:
-        dist.all_reduce(x, group=group)
-        return x.div_(dp)
+    def sharded_grads(params: dict, batch: dict
+                      ) -> tuple[torch.Tensor, dict]:
+        loss, grads = grads_fn(spmd.local_tree(params),
+                               _rank_rows(batch, cfg, mesh, coord),
+                               batch["tokens"].shape[0])
+        return loss, spmd.blocks_as_dtensors(grads, shardings, params)
 
-    def grads_fn(params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
-        m = microbatch_count(cfg, batch["tokens"].shape[0], dp)
-        bspecs = partition.batch_specs(batch, cfg, mesh)
-        rows = {k: partition.NamedSharding(mesh, bspecs[k]).local_block(
-            v, coord) for k, v in batch.items()}
-        loss, grads = compute_grads(model, spmd.full_tree(params), rows, m)
-        for g in tree_leaves(grads):
-            mean(g)
-        loss = mean(loss.float().clone())
-        if grad_compress is not None:
-            grads = grad_compress(grads)
-        return loss, grads
-
-    return grads_fn
+    return sharded_grads
 
 
 def build_sharded_train_step(cfg: ModelConfig, mesh,
@@ -215,35 +328,49 @@ def build_sharded_train_step(cfg: ModelConfig, mesh,
     ``count`` replicated, and ``batch`` the global batch (every rank
     passes the same one).
 
-    The step takes the loss and the DP-mean gradients from
-    ``build_sharded_grads`` and runs AdamW on the rank's blocks with the
-    matching blocks of the mean gradients, clipped by the norm of the
-    whole mean gradient, so every rank scales alike.  The loss it returns
-    is the DP mean.  The model axis shards storage only: its ranks
-    compute redundantly."""
+    The step runs ``_rank_train_step`` on the rank's blocks and its batch
+    rows: the DP-mean loss and gradient blocks of ``_rank_grads`` (for the
+    attention families the compute partitioned over the model axis, each
+    rank computing its heads, FFN columns, experts and vocabulary block;
+    for rwkv6, zamba2 and enc-dec whole parameters gathered and computed
+    alike on the model axis's ranks), then AdamW on the blocks, clipped by
+    the norm of the whole mean gradient.  The loss it returns is the DP
+    mean."""
     from repro_torch.sharding import spmd
-    opt = opt or AdamWConfig()
-    grads_fn = build_sharded_grads(cfg, mesh, grad_compress)
+    step = _rank_train_step(cfg, mesh, opt, grad_compress)
     coord = spmd.coordinate(mesh)
-    shardings = partition.logical_to_sharding(
-        partition.param_specs(param_specs(cfg), cfg, mesh), mesh)
 
     def train_step(params: dict, opt_state: dict, batch: dict
                    ) -> tuple[dict, dict, dict[str, Any]]:
-        loss, grads = grads_fn(params, batch)
-        gnorm = global_norm(tree_leaves(grads))
-        blocks = tree_map(lambda g, sh: sh.local_block(g, coord), grads,
-                          shardings)
-        del grads
-        _, state = adamw_update(
-            opt, spmd.local_tree(params), blocks,
+        _, state, metrics = step(
+            spmd.local_tree(params),
             {"m": spmd.local_tree(opt_state["m"]),
              "v": spmd.local_tree(opt_state["v"]),
-             "count": opt_state["count"]}, gnorm=gnorm)
+             "count": opt_state["count"]},
+            _rank_rows(batch, cfg, mesh, coord), batch["tokens"].shape[0])
         return params, {"m": opt_state["m"], "v": opt_state["v"],
-                        "count": state["count"]}, {"loss": loss}
+                        "count": state["count"]}, metrics
 
     return train_step
+
+
+def local_specs(tree: Any, specs: Any, mesh) -> Any:
+    """Meta stand-ins of one rank's blocks of ``tree`` (meta tensors, in
+    tuples, dicts and dataclasses; a dataclass's int fields kept) per ``specs``
+    (the tree's ``PartitionSpec``s) on ``mesh``."""
+    if isinstance(tree, dict):
+        return {k: local_specs(v, specs[k], mesh) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(local_specs(v, sp, mesh) for v, sp in zip(tree, specs))
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: local_specs(getattr(tree, f.name),
+                                getattr(specs, f.name), mesh)
+            for f in dataclasses.fields(tree)})
+    if not isinstance(tree, torch.Tensor):
+        return tree
+    shape = partition.NamedSharding(mesh, specs).local_shape(tree.shape)
+    return torch.empty(shape, dtype=tree.dtype, device=tree.device)
 
 
 def build_train_bundle(cfg: ModelConfig, cell: ShapeCell, *, mesh=None,
@@ -260,15 +387,129 @@ def build_train_bundle(cfg: ModelConfig, cell: ShapeCell, *, mesh=None,
     batch = input_specs(cfg, cell)["batch"]
     specs = (params, init_opt_state(params, device="meta"), batch)
     in_sh = out_sh = None
+    fn = None
     if mesh is not None:
         p = partition.param_specs(params, cfg, mesh)
         o = {"m": p, "v": p, "count": P()}
         in_sh = (p, o, partition.batch_specs(batch, cfg, mesh, cell))
         out_sh = (p, o, {"loss": P()})
-    return StepBundle(fn=build_train_step(cfg, opt, grad_compress,
-                                          mesh=mesh),
-                      arg_specs=specs, donate_argnums=(0, 1), device=dev,
-                      in_shardings=in_sh, out_shardings=out_sh)
+        if _on_groups(mesh):
+            specs = local_specs(specs, in_sh, mesh)
+            step = _rank_train_step(cfg, mesh, opt, grad_compress)
+
+            def fn(params, opt_state, batch):
+                return step(params, opt_state, batch, cell.global_batch)
+    if fn is None:
+        fn = build_train_step(cfg, opt, grad_compress, mesh=mesh)
+    return StepBundle(fn=fn, arg_specs=specs, donate_argnums=(0, 1),
+                      device=dev, in_shardings=in_sh, out_shardings=out_sh)
+
+
+def _rank_serving(cfg: ModelConfig, mesh, shardings: tuple, whole: tuple,
+                  run: Callable) -> Callable:
+    """One rank's serving step ``(params, inputs, cache) -> (logits,
+    cache)`` over its blocks, ``run(params, inputs, cache)`` being the
+    model's prefill or decode step and ``whole`` the meta stand-ins of its
+    whole arguments.  Partitioned: ``run`` under the rank's
+    ``api.ComputeAxes`` (the cache's rows on the model axis where
+    ``cache_specs`` puts them there).  Storage-sharded: the parameters
+    gathered whole and each cache leaf gathered to the rank's batch rows
+    (``_StorageRows``), ``run`` on them, and the rank's blocks of the
+    logits and of what it wrote kept (its cache leaves written in
+    place)."""
+    from repro_torch.sharding import api, spmd
+    (pspecs, ispecs, cspecs), (lspec, _) = shardings
+    if model_axis(cfg) == "compute":
+        axes = spmd.compute_axes(mesh, cfg, whole[0],
+                                 kv_split=cspecs.k[2] == "model")
+
+        def partitioned(params, inputs, cache):
+            with api.active(mesh, axes):
+                return run(params, inputs, cache)
+        return partitioned
+
+    rows = _StorageRows(mesh, ispecs)
+    n = tensors_of(whole[1])[0].shape[0]
+
+    def bdim(g: torch.Tensor) -> int:
+        # [L, B, ...]; an encoder output [B, S, D] has its rows first
+        return 1 if g.dim() > 1 and g.shape[1] == n else 0
+
+    def storage(params, inputs, cache):
+        wp = tree_map(lambda x, sp: spmd.gather_whole(x, sp, mesh), params,
+                      pspecs)
+        full = _cache_map(lambda x, sp, g: rows.gather(x, sp, bdim(g)),
+                          cache, cspecs, whole[2])
+        logits, new = run(wp, inputs, full)
+        del wp, full
+        _cache_map(lambda x, sp, g, y: x.copy_(rows.block(y, sp, bdim(g))),
+                   cache, cspecs, whole[2], new)
+        out = _cache_map(lambda x, sp: x, cache, cspecs, keep=new)
+        return rows.block(logits, lspec, 0), out
+    return storage
+
+
+class _StorageRows:
+    """A storage-sharded serving step's cache leaves against its inputs'
+    batch rows (split over the DP axes, or whole where the batch does not
+    divide them).  ``gather`` turns the rank's block of a leaf into what
+    the whole model reads: every split gathered but a DP split of the
+    leaf's batch dim, and then the rank's rows of it.  ``block`` cuts what
+    the model wrote (the rank's rows) back to the rank's block, gathering
+    the DP group's rows first where the spec splits another dim over the
+    DP axes (JAX's ``cache_specs`` splits dim 1 of any 3-D leaf so: an
+    encoder output's ``[B, S, D]`` sequence)."""
+
+    def __init__(self, mesh, input_specs):
+        from repro_torch.sharding import spmd
+        first = partition.spec_leaves(input_specs)[0]
+        self.mesh = mesh
+        self.dp = partition._axes_of(first[0]) if len(first) else ()
+        self.dp_group = (spmd._dp_group_cached(mesh, self.dp) if self.dp
+                         else None)
+        self.coord = spmd.coordinate(mesh)
+
+    def _rows_split(self, spec, b: int) -> bool:
+        return bool(self.dp) and len(spec) > b and \
+            partition._axes_of(spec[b]) == self.dp
+
+    def gather(self, x: torch.Tensor, spec, b: int) -> torch.Tensor:
+        from repro_torch.sharding import spmd
+        from repro_torch.sharding.collectives import rank
+        if self._rows_split(spec, b):
+            return spmd.gather_whole(x, spec, self.mesh, skip=(b,))
+        x = spmd.gather_whole(x, spec, self.mesh)
+        if self.dp:
+            n = x.shape[b] // self.dp_group.size()
+            x = x.narrow(b, rank(self.dp_group) * n, n)
+        return x
+
+    def block(self, y: torch.Tensor, spec, b: int) -> torch.Tensor:
+        from repro_torch.sharding.collectives import all_gather
+        if self._rows_split(spec, b):
+            spec = partition.PartitionSpec(*[None if d == b else e
+                                             for d, e in enumerate(spec)])
+        elif self.dp:
+            y = all_gather(y, b, self.dp_group)
+        return partition.NamedSharding(self.mesh, spec).local_block(
+            y, self.coord)
+
+
+def _cache_map(fn: Callable, cache, specs, *rest, keep=None):
+    """``fn(leaf, spec, *rest_leaves)`` over a cache's tensors (nested
+    dataclasses), its int fields kept -- from ``keep`` where given (a
+    step's returned cache, whose ``length`` moved)."""
+    def walk(node, spec, others, kept):
+        if dataclasses.is_dataclass(node) and not isinstance(node, type):
+            return dataclasses.replace(node, **{
+                f.name: walk(getattr(node, f.name), getattr(spec, f.name),
+                             [getattr(o, f.name) for o in others],
+                             None if kept is None else getattr(kept, f.name))
+                for f in dataclasses.fields(node)})
+        if not isinstance(node, torch.Tensor):
+            return node if kept is None else kept
+        return fn(node, spec, *others)
+    return walk(cache, specs, list(rest), keep)
 
 
 def _io_shardings(cfg: ModelConfig, cell: ShapeCell, mesh, specs: tuple,
@@ -322,7 +563,12 @@ def build_prefill_step(cfg: ModelConfig, cell: ShapeCell, *,
              cache_spec(cfg, cell.global_batch, cell.seq_len))
     in_sh, out_sh = (None, None) if mesh is None else _io_shardings(
         cfg, cell, mesh, specs, specs[1])
-    return StepBundle(fn=prefill_step, arg_specs=specs, donate_argnums=(2,),
+    fn = prefill_step
+    if _on_groups(mesh):
+        fn = _rank_serving(cfg, mesh, (in_sh, out_sh), specs,
+                           model.prefill)
+        specs = local_specs(specs, in_sh, mesh)
+    return StepBundle(fn=fn, arg_specs=specs, donate_argnums=(2,),
                       device=dev, in_shardings=in_sh, out_shardings=out_sh)
 
 
@@ -347,5 +593,10 @@ def build_serve_step(cfg: ModelConfig, cell: ShapeCell, *,
         cfg, cell, mesh, args, {"tokens": args[1]})
     if in_sh is not None:
         in_sh = (in_sh[0], in_sh[1]["tokens"], in_sh[2])
-    return StepBundle(fn=serve_step, arg_specs=args, donate_argnums=(2,),
+    fn = serve_step
+    if _on_groups(mesh):
+        fn = _rank_serving(cfg, mesh, (in_sh, out_sh), args,
+                           model.decode_step)
+        args = local_specs(args, in_sh, mesh)
+    return StepBundle(fn=fn, arg_specs=args, donate_argnums=(2,),
                       device=dev, in_shardings=in_sh, out_shardings=out_sh)

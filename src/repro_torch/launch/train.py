@@ -30,13 +30,16 @@ card on ``cuda:<local rank>``, as ``torchrun`` launches them; gloo with
 ``launch.mesh.make_mesh(mesh_shape, axes)`` over it.  Each rank stores
 its parameters and both AdamW moments as its blocks per
 ``param_specs`` / ``opt_state_specs`` (``DTensor``s), and the step is
-``launch.steps.build_sharded_train_step``: gather the whole parameters,
-the rank's batch rows, the gradients averaged over its DP group, the
-gradient hook on the mean, AdamW on its blocks.  The numbers are JAX's
-and the bytes at rest are JAX's; tensor-parallel compute (column- and
-row-parallel products with their reductions, sequence-parallel
-attention) is not ported: the model axis shards storage and its ranks
-compute redundantly, so activation memory is not divided by it.
+``launch.steps.build_sharded_train_step``: the rank's batch rows, its
+blocks' DP-mean gradients, the gradient hook on the mean, AdamW on its
+blocks.  For the dense, MoE and VLM families the step computes
+partitioned over the model axis (each rank its heads, FFN columns,
+experts and vocabulary block; each layer's FSDP blocks gathered over the
+DP group inside the layer), so no whole parameter is held and activation
+memory is divided by the model axis; rwkv6, zamba2 and the enc-dec family
+gather their whole parameters and compute alike on the model axis's ranks
+(their partitioned compute is still to port).  Sequence-parallel
+attention is not ported.
 Checkpoints stay whole arrays (rank 0 writes the gathered tree), and a
 restore puts each rank's blocks back (``Checkpointer.restore(...,
 shardings=)``).  A ``mesh_shape`` without a process group, or whose size

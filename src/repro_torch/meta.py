@@ -5,7 +5,8 @@ Tensors on ``torch.device("meta")`` have shapes, strides and dtypes but no
 storage: an operation on them allocates nothing and computes nothing.
 ``MetaPass`` watches a step run on them and counts the bytes the step's
 own tensors hold, the FLOPs of its matrix products, the bytes its
-operations read and write and their transcendental functions
+operations read and write and their transcendental functions, and the
+collectives a rank's partitioned step issues, by JAX's kinds
 (``launch/dryrun.py`` reads them all).
 
 PyTorch's meta functions are mostly Python, and a model's loops repeat the
@@ -42,6 +43,8 @@ import torch
 from torch.multiprocessing.reductions import StorageWeakRef
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
+
+from repro_torch.sharding.collectives import KINDS, OP_KINDS
 
 __all__ = ["MetaPass", "tensors_of", "distinct_bytes", "repeated",
            "loop_repeats", "checkpoint_repeated", "META", "TRANSCENDENTAL"]
@@ -204,7 +207,19 @@ class MetaPass(TorchDispatchMode):
     few signatures, and PyTorch's meta functions are Python: this takes a
     32k prefill's pass from ~10 s to ~4 s.  ``memo`` may be shared between
     passes.  Operations run under ``repeated(n)`` count their FLOPs, bytes
-    and transcendentals ``n`` times."""
+    and transcendentals ``n`` times.
+
+    The collectives (the ``_c10d_functional`` ops a rank's step issues
+    through ``sharding/collectives.py``, on meta tensors over a fake
+    process group) are counted by JAX's kinds as its
+    ``parse_collectives`` records them: ``collectives[kind]`` holds the
+    count and the bytes of the outputs, each multiplied by the
+    ``repeated(n)`` around it (a loop's representative iteration).  They
+    are always run, never taken from the memo, and counted here rather
+    than by a ``CommDebugMode`` outside the pass, which would miss the
+    iterations ``repeated`` stands for; a ``remat`` block's recomputation
+    in the backward pass re-issues its collectives, and they count
+    too."""
 
     def __init__(self, exclude=(), memo: "dict | None" = None):
         super().__init__()
@@ -220,6 +235,7 @@ class MetaPass(TorchDispatchMode):
         self.flops = 0
         self.bytes_accessed = 0
         self.transcendentals = 0
+        self.collectives = {k: {"bytes": 0, "count": 0} for k in KINDS}
 
     @staticmethod
     def _key(a):
@@ -322,11 +338,19 @@ class MetaPass(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        kind = self._kind(func)
-        if kind == "view":
+        if func.namespace == "_c10d_functional":
+            out, fresh = func(*args, **kwargs), False
+            coll = OP_KINDS.get(func._schema.name.split("::")[-1])
+            if coll is not None:        # not a wait
+                n = _REPEAT.get()
+                self.collectives[coll]["count"] += n
+                self.collectives[coll]["bytes"] += n * sum(
+                    t.numel() * t.element_size() for t in tensors_of(out))
+        elif self._kind(func) == "view":
             out, fresh = func(*args, **kwargs), False
         else:
-            out, fresh, cost = self._run(func, args, kwargs, kind)
+            out, fresh, cost = self._run(func, args, kwargs,
+                                         self._kind(func))
             n = _REPEAT.get()
             self.flops += n * cost[0]
             self.bytes_accessed += n * cost[1]

@@ -15,7 +15,11 @@ implementations (``impl`` of ``gqa_attention``):
 
 Decode (``decode_attention``): ``"einsum"`` is the JAX package's ``"jnp"``
 path (grouped einsums, masking by cache length); ``"kernel"`` is
-``repro_torch.kernels.decode_attention``.
+``repro_torch.kernels.decode_attention``.  With ``return_lse`` both also
+give each head's log-sum-exp over the rows they read, and
+``merge_decode_partials`` merges the outputs of the ranks that each hold
+some rows of a cache whose sequence axis lies on a mesh's model axis (the
+flash-decode merge of the kernel's splits, across ranks).
 
 GQA is computed grouped (q reshaped to ``[B, S, KH, G, D]``) in the einsum
 paths, so KV is never repeated there.  Where the JAX package takes bf16
@@ -32,8 +36,9 @@ from repro_torch.kernels import decode_attention as _decode_kernel
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.meta import loop_repeats, repeated
 from repro_torch.models.layers import NEG_INF
+from repro_torch.sharding import collectives
 
-__all__ = ["gqa_attention", "decode_attention"]
+__all__ = ["gqa_attention", "decode_attention", "merge_decode_partials"]
 
 
 def _group_q(q: torch.Tensor, kh: int) -> torch.Tensor:
@@ -137,20 +142,29 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: int, *,
-                     impl: str = "einsum",
-                     scale: float | None = None) -> torch.Tensor:
+                     impl: str = "einsum", scale: float | None = None,
+                     return_lse: bool = False):
     """Single-token attention against a KV cache.
 
     q: ``[B, 1, QH, D]``; caches ``[B, S_max, KH, D]``; ``length`` (a
     Python int) valid cache rows.  ``"einsum"`` reads the whole cache and
-    masks; ``"kernel"`` reads only the rows below ``length``.
+    masks; ``"kernel"`` reads only the rows below ``length``.  With
+    ``return_lse``: ``(out, lse)``, ``lse`` the float32 log-sum-exp
+    ``[B, QH]`` of each head's scaled scores over the valid rows; at
+    ``length == 0`` nothing is read or launched, ``out`` is zero and
+    ``lse`` is ``-inf`` (a rank holding no valid row).
     """
     b, sq, qh, d = q.shape
     kh = k_cache.shape[2]
     scale = scale if scale is not None else d ** -0.5
+    if return_lse and length == 0:
+        return (torch.zeros_like(q),
+                torch.full((b, qh), float("-inf"), dtype=torch.float32,
+                           device=q.device))
     if impl == "kernel":
         return _decode_kernel.decode_attention(q, k_cache, v_cache, length,
-                                               scale=scale)
+                                               scale=scale,
+                                               return_lse=return_lse)
     if impl != "einsum":
         raise ValueError(f"unknown decode impl {impl!r}; one of "
                          f"einsum, kernel")
@@ -162,4 +176,33 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgqs,bskd->bqkgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
-    return out.reshape(b, sq, qh, d).to(q.dtype)
+    out = out.reshape(b, sq, qh, d).to(q.dtype)
+    if return_lse:     # s [B, KH, G, 1, S_max] -> [B, QH]
+        return out, torch.logsumexp(s, dim=-1).reshape(b, qh)
+    return out
+
+
+def merge_decode_partials(out: torch.Tensor, lse: torch.Tensor, group, *,
+                          own_columns: bool) -> torch.Tensor:
+    """The attention over every rank's rows from each rank's ``out``
+    ``[B, 1, QH, D]`` and ``lse`` ``[B, QH]`` over its own rows (``-inf``
+    where it holds none): the log-sum-exps are all-gathered over the
+    model-axis ``group``, each rank weighs its output by ``exp(lse -
+    LSE)`` in float32, and the weighted outputs are summed over the group
+    -- by a reduce-scatter that leaves each rank its block of the ``QH *
+    D`` columns (``own_columns``, ``[B, 1, QH * D / m]``: what its
+    row-parallel ``wo`` block reads), else by an all-reduce (``[B, 1,
+    QH * D]``).  Cast to ``out``'s dtype.  A group of one returns ``out``
+    as it is."""
+    b, sq, qh, d = out.shape
+    if collectives.size(group) == 1:
+        return out.reshape(b, sq, qh * d)
+    every = collectives.all_gather(lse[None], 0, group)        # [m, B, QH]
+    top = every.amax(0)
+    weight = torch.exp(lse - top) / torch.exp(every - top).sum(0)
+    part = (out.float() * weight[:, None, :, None]).reshape(b, sq, qh * d)
+    if own_columns:
+        part = collectives.reduce_scatter(part, -1, group)
+    else:
+        part = collectives.all_reduce(part, group)
+    return part.to(out.dtype)

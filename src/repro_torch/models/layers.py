@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.sharding import collectives
 from repro_torch.tree import tree_leaves
 
 __all__ = ["rms_norm", "layer_norm", "init_norm", "init_linear", "swiglu",
@@ -108,19 +109,38 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int, *,
 
 
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor) -> torch.Tensor:
-    """SwiGLU FFN: ``(silu(x W_g) * (x W_u)) W_d``."""
-    return (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+           w_down: torch.Tensor, *, group=None,
+           reduce: bool = True) -> torch.Tensor:
+    """SwiGLU FFN: ``(silu(x W_g) * (x W_u)) W_d``.
+
+    With a model-axis ``group`` the weights are the rank's blocks of a
+    column-parallel ``W_g`` / ``W_u`` (``[d, f/m]``) and a row-parallel
+    ``W_d`` (``[f/m, d]``): ``x`` enters as Megatron's ``f`` (its gradient
+    summed over the group) and the partial products are summed by one
+    all-reduce over the group (``reduce=False`` leaves the partial sum to a
+    caller that adds it to another before reducing)."""
+    if group is not None:
+        x = collectives.copy_to(x, group)
+    y = (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
+    return collectives.reduce_from(y, group) if group is not None \
+        and reduce else y
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
              b_up: torch.Tensor | None = None,
-             b_down: torch.Tensor | None = None) -> torch.Tensor:
-    """GELU FFN with the tanh approximation (``jax.nn.gelu``'s default)."""
+             b_down: torch.Tensor | None = None, *,
+             group=None) -> torch.Tensor:
+    """GELU FFN with the tanh approximation (``jax.nn.gelu``'s default);
+    ``group`` as in ``swiglu`` (the up bias is the rank's block of it, the
+    down bias is added once, after the reduction)."""
+    if group is not None:
+        x = collectives.copy_to(x, group)
     h = x @ w_up
     if b_up is not None:
         h = h + b_up
     h = F.gelu(h, approximate="tanh") @ w_down
+    if group is not None:
+        h = collectives.reduce_from(h, group)
     if b_down is not None:
         h = h + b_down
     return h
@@ -206,13 +226,16 @@ def unbind_layers(params: dict) -> list[dict]:
     return split(params["layers"])
 
 
-def mask_padded_vocab(logits: torch.Tensor, real_vocab: int) -> torch.Tensor:
+def mask_padded_vocab(logits: torch.Tensor, real_vocab: int, *,
+                      offset: int = 0) -> torch.Tensor:
     """Set logits of padded vocab columns (``>= real_vocab``) to the finite
-    ``NEG_INF``, so they never win softmax or argmax."""
+    ``NEG_INF``, so they never win softmax or argmax.  ``offset``: the
+    vocabulary index of the first column (a rank's block of
+    vocabulary-parallel logits)."""
     v = logits.shape[-1]
-    if v == real_vocab:
+    if offset + v <= real_vocab:
         return logits
-    col = torch.arange(v, device=logits.device)
+    col = torch.arange(offset, offset + v, device=logits.device)
     neg = torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device)
     return torch.where(col < real_vocab, logits, neg)
 

@@ -25,6 +25,16 @@ functions on tensors:
 
 The expert weights are ``[E, d, f]`` / ``[E, f, d]``; the router ``[d, E]``
 stays float32 whatever the parameter dtype.
+
+In a partitioned step (``sharding.api.compute_axes()``) the tokens are
+replicated over the model axis: every rank routes and dispatches alike.
+Under ``moe_parallel="ep"`` (the configs' setting) a rank holds ``E/m``
+experts and runs them on its slice of the dispatch buffer, under ``"tp"``
+the rank's ``F/m`` slice of every expert; the shared experts run column-
+into row-parallel.  The combine's partial sums, the shared experts'
+added, are summed over the model axis by one all-reduce.  The tokens and
+the gates enter that part as Megatron's ``f`` (their gradients summed
+over the axis).
 """
 
 from __future__ import annotations
@@ -34,6 +44,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import init_linear, swiglu
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding.api import compute_axes
 
 __all__ = ["init_moe", "moe_ffn", "moe_shapes", "route", "capacity",
            "dispatch"]
@@ -150,6 +162,11 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_token
     cap = capacity(s, cfg)
+    tp = compute_axes()
+    group, split, shared_group = None, None, None
+    if tp is not None:
+        params, split, shared_group = _partition(params, cfg, tp)
+        group = tp.model_group if split else None
 
     probs, gates, experts = route(params, x, cfg)
 
@@ -159,8 +176,18 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig
     order, slot, keep = dispatch(experts, e, cap)               # [B, S*k]
     sorted_tok = torch.div(order, k, rounding_mode="floor")
     sorted_g = gates.reshape(b, s * k).gather(-1, order)
+    xe = x
+    if group is not None:
+        xe, sorted_g = C.copy_to(x, group), C.copy_to(sorted_g, group)
+    if split == "ep":
+        # the rank's experts: its slots, the others' to the sentinel
+        el = params["w_gate"].shape[0]
+        lo = tp.model_rank * el * cap
+        mine = (slot >= lo) & (slot < lo + el * cap)
+        slot = torch.where(mine, slot - lo, torch.full_like(slot, el * cap))
+        e = el
 
-    xg = x.gather(1, sorted_tok[..., None].expand(b, s * k, d))
+    xg = xe.gather(1, sorted_tok[..., None].expand(b, s * k, d))
     buf = x.new_zeros((b, e * cap + 1, d))
     buf.scatter_(1, slot[..., None].expand(b, s * k, d), xg)
     yb = _experts(buf[:, :e * cap].reshape(b, e, cap, d), params)
@@ -175,5 +202,52 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig
 
     if cfg.num_shared_experts:
         sh = params["shared"]
-        y = y + swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"])
+        ys = swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"],
+                    group=shared_group, reduce=group is None)
+        if group is not None and shared_group is None:
+            y = C.reduce_from(y, group) + ys
+            group = None
+        else:
+            y = y + ys
+    if group is not None:
+        y = C.reduce_from(y, group)
     return y, aux.float()
+
+
+_EXPERTS = ("w_gate", "w_up", "w_down")
+# the model-axis dim of an expert leaf ([E, d, f] / [E, f, d]) per mode
+_SPLIT_DIM = {"ep": {"w_gate": 0, "w_up": 0, "w_down": 0},
+              "tp": {"w_gate": 2, "w_up": 2, "w_down": 1}}
+
+
+def _partition(params: dict, cfg: ModelConfig, tp) -> tuple:
+    """A rank's MoE leaves (their FSDP blocks already gathered by the
+    layer) as it computes on them: the mode whose split the specs give the
+    experts (``"ep"`` / ``"tp"``), else ``None`` with the experts gathered
+    whole over the model axis; the shared experts' model group where the
+    specs split them, else ``None`` with them gathered whole."""
+    pre = ("layers", "moe")
+
+    def whole(tree, prefix, names):
+        tree = dict(tree)
+        for n in names:
+            plan = tp.plan(prefix + (n,))
+            if plan.model_dim is not None:
+                tree[n] = C.gather_from(tree[n], plan.model_dim,
+                                        tp.model_group)
+        return tree
+
+    dims = {n: tp.plan(pre + (n,)).model_dim for n in _EXPERTS}
+    split = cfg.moe_parallel if dims == _SPLIT_DIM[cfg.moe_parallel] \
+        else None
+    if split is None:
+        params = whole(params, pre, _EXPERTS)
+    shared = None
+    if cfg.num_shared_experts:
+        sp = pre + ("shared",)
+        if all(tp.plan(sp + (n,)).model_dim is not None for n in _EXPERTS):
+            shared = tp.model_group
+        else:
+            params = dict(params, shared=whole(params["shared"], sp,
+                                               _EXPERTS))
+    return params, split, shared

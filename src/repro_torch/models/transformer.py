@@ -15,11 +15,41 @@ loss as the JAX package's do.  The VLM's stub frontend: ``batch
 ["patch_embeds"]`` ``[B, P, D]`` go before the token embeddings, and a
 decode step may add ``extra_embeds`` to its token's embedding.  Inputs
 of another family (the audio family's ``embeds``, which
-``models/encdec.py`` reads) raise ``ValueError``.  The JAX ``shard(...)``
-constraints pin activation layouts for GSPMD; the port's SPMD training
-computes on whole parameters and its own batch rows
-(``launch/steps.py::build_sharded_train_step``), so there is no layout
-to pin and they are left out (``sharding/api.py::shard`` says why).
+``models/encdec.py`` reads) raise ``ValueError``.
+
+Tensor-parallel compute.  Where JAX's ``shard(...)`` constraints let
+GSPMD partition the products over the mesh's model axis, a rank of the
+port's partitioned step (``launch/steps.py``) runs these functions on its
+own blocks while ``sharding.api.compute_axes()`` gives its groups, and
+they issue the collectives themselves (``sharding/collectives.py``):
+
+  * each layer gathers its weights' FSDP blocks over the DP group
+    (``spmd.fsdp_gather``) inside the layer;
+  * attention runs column-parallel into a row-parallel ``wo`` with one
+    all-reduce: over the rank's own query heads where the heads divide
+    the model axis (its K/V heads gathered over the axis where the KV
+    heads do not: 8 KV heads over 16 ranks hold half a head each), else
+    over every head with Q, K and V gathered, taking the rank's columns
+    of the output for ``wo``;
+  * a KV cache whose sequence axis lies on the model axis
+    (``partition.cache_specs``) holds the rank's rows of every head: a
+    prefill sends each rank its rows (an all-to-all, or a slice of the
+    gathered K/V), a decode step writes the new row on the rank that owns
+    it, attends over the rank's rows with the decode kernel's
+    log-sum-exp and merges the ranks' partials
+    (``attention.merge_decode_partials``);
+  * the FFN runs column- into row-parallel (``layers.swiglu``), the MoE
+    FFN over the rank's experts or its slice of each expert's ``F``
+    (``moe.moe_ffn``), each with one all-reduce;
+  * the embedding is vocabulary-parallel (a masked lookup of the rank's
+    rows, then an all-reduce), the logits stay vocabulary-sharded (the
+    rank's columns, ``logits_spec``), and ``loss_fn`` takes a
+    vocabulary-parallel cross-entropy.
+
+A weight whose spec leaves the model axis off (its dim does not divide)
+is gathered over the axis and that part runs on every rank alike.  At a
+model axis of one rank nothing is issued and every product is the
+unpartitioned one.
 
 Parameter dict (the JAX tree's names and layouts, so
 ``repro_torch.convert.model_params_from_numpy`` copies it as it is):
@@ -49,11 +79,15 @@ import torch
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.attention import decode_attention, gqa_attention
+from repro_torch.models.attention import (decode_attention, gqa_attention,
+                                          merge_decode_partials)
 from repro_torch.models.layers import (apply_rope, gelu_mlp, init_linear,
                                        layer_norm, mask_padded_vocab,
                                        mrope_frequencies, remat_block,
                                        rms_norm, rope, swiglu, unbind_layers)
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import spmd
+from repro_torch.sharding.api import compute_axes
 
 __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "KVCache", "attention_block",
@@ -168,46 +202,240 @@ def _qkv(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
+def _split(tp, path: tuple) -> bool:
+    """Whether the leaf at ``path`` is split over the model axis."""
+    return tp.plan(path).model_dim is not None
+
+
+def _whole(p: dict, tp, names: tuple) -> dict:
+    """A layer's ``p`` with the leaves ``names`` gathered whole over the
+    model axis (used alike on every rank: the gradient of a block is its
+    slice)."""
+    p = dict(p)
+    for n in names:
+        plan = tp.plan(("layers", n))
+        if plan is not None and plan.model_dim is not None:
+            p[n] = C.gather_from(p[n], plan.model_dim, tp.model_group)
+    return p
+
+
+def _write_rows(cache_l: torch.Tensor, rows: torch.Tensor, first: int
+                ) -> None:
+    """Write ``rows`` ``[B, n, KH, HD]`` into one layer's cache of the
+    rank from its row ``first``."""
+    n = rows.shape[1]
+    cache_l[:, first:first + n] = rows.to(cache_l.dtype)
+
+
+def _write_new_rows(tp, cache, k, v) -> int:
+    """A decode step's cache write in a partitioned step: the new rows
+    (every KV head) at ``length``, on the rank whose rows they are (every
+    rank without a split cache); returns how many of the rank's rows are
+    valid after it (0: the rank holds none yet)."""
+    k_cache, v_cache, length = cache
+    rows, s = k_cache.shape[1], k.shape[1]
+    first = tp.model_rank * rows if tp.kv_split else 0
+    if first <= length < first + rows:
+        _write_rows(k_cache, k, length - first)
+        _write_rows(v_cache, v, length - first)
+    return min(max(length + s - first, 0), rows)
+
+
+def _fill_cache(tp, fill, s: int, k, v, *, whole: bool) -> None:
+    """A prefill's cache write: the ``s`` prompt rows of ``k`` / ``v``
+    (every KV head where ``whole``, else the rank's KV heads) into the
+    rank's cache rows -- all of them without a split cache, else rows
+    ``r*R .. (r+1)*R`` of the prompt, sent to their rank by an all-to-all
+    where the rank holds only its own heads."""
+    k_cache, v_cache = fill
+    rows = k_cache.shape[1]
+    if not tp.kv_split:
+        if not whole:
+            k = C.all_gather(k, 2, tp.model_group)
+            v = C.all_gather(v, 2, tp.model_group)
+        _write_rows(k_cache, k, 0)
+        _write_rows(v_cache, v, 0)
+        return
+    m, r = tp.model_size, tp.model_rank
+    if whole or m == 1:
+        lo, hi = r * rows, min((r + 1) * rows, s)
+        if hi > lo:
+            _write_rows(k_cache, k[:, lo:hi], 0)
+            _write_rows(v_cache, v[:, lo:hi], 0)
+        return
+    pad = (0, 0, 0, 0, 0, m * rows - s)
+    for t, cache_l in ((k, k_cache), (v, v_cache)):
+        t = torch.nn.functional.pad(t, pad)       # [B, m*R, KH/m, HD]
+        _write_rows(cache_l, C.all_to_all(t, 1, 2, tp.model_group), 0)
+
+
+def _attention_tp(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin,
+                  tp, *, cache=None, fill=None) -> torch.Tensor:
+    """One rank's attention sub-block (see the module docstring), its
+    weights the rank's model-axis blocks: ``wq`` ``[D, QH*HD/m]``, ``wk``
+    / ``wv`` ``[D, KH*HD/m]``, ``wo`` ``[QH*HD/m, D]``."""
+    b, s, _ = h.shape
+    qh, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    group, m, r = tp.model_group, tp.model_size, tp.model_rank
+    x = C.copy_to(h, group)
+    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
+    q_scale = k_scale = None
+    if cfg.qk_norm:
+        q_scale = C.copy_to(p["q_scale"], group)
+        k_scale = C.copy_to(p["k_scale"], group)
+
+    def heads(t, n, scale):
+        t = t.reshape(b, s, n, hd)
+        if scale is not None:
+            t = rms_norm(t, scale)
+        return t
+
+    if cache is not None:
+        # decode: every head of the new token, for the rank's cache rows
+        q = heads(C.gather_summed(q, -1, group), qh, q_scale)
+        k = heads(C.gather_summed(k, -1, group), kh, k_scale)
+        v = heads(C.gather_summed(v, -1, group), kh, None)
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        valid = _write_new_rows(tp, cache, k, v)
+        impl = "kernel" if cfg.attention_impl == "kernel" else "einsum"
+        out, lse = decode_attention(q, cache[0], cache[1], valid, impl=impl,
+                                    return_lse=True)
+        if tp.kv_split:
+            out = merge_decode_partials(out, lse, group, own_columns=True)
+        else:
+            out = out.reshape(b, s, -1).narrow(-1, r * (qh * hd // m),
+                                               qh * hd // m)
+        return C.reduce_from(out @ p["wo"], group)
+
+    own = qh % m == 0 and (kh % m == 0 or m % kh == 0)
+    if own:
+        # the rank's query heads, and the KV heads they read
+        nq = qh // m
+        q = apply_rope(heads(q, nq, q_scale), cos, sin)
+        if kh % m == 0:
+            k = apply_rope(heads(k, kh // m, k_scale), cos, sin)
+            v = heads(v, kh // m, None)
+            if fill is not None:
+                _fill_cache(tp, fill, s, k, v, whole=m == 1)
+            kq, vq = k, v
+        else:
+            k = apply_rope(heads(C.gather_summed(k, -1, group), kh,
+                                 k_scale), cos, sin)
+            v = heads(C.gather_summed(v, -1, group), kh, None)
+            if fill is not None:
+                _fill_cache(tp, fill, s, k, v, whole=True)
+            j = (r * nq) // (qh // kh)
+            kq, vq = k[:, :, j:j + 1], v[:, :, j:j + 1]
+        out = gqa_attention(q, kq, vq, causal=True, impl=cfg.attention_impl,
+                            chunk=cfg.attention_chunk)
+        out = out.reshape(b, s, -1)
+    else:
+        # every head on every rank, the rank's columns of the output
+        q = apply_rope(heads(C.gather_summed(q, -1, group), qh, q_scale),
+                       cos, sin)
+        k = apply_rope(heads(C.gather_summed(k, -1, group), kh, k_scale),
+                       cos, sin)
+        v = heads(C.gather_summed(v, -1, group), kh, None)
+        if fill is not None:
+            _fill_cache(tp, fill, s, k, v, whole=True)
+        out = gqa_attention(q, k, v, causal=True, impl=cfg.attention_impl,
+                            chunk=cfg.attention_chunk)
+        c = qh * hd // m
+        out = out.reshape(b, s, -1).narrow(-1, r * c, c)
+    return C.reduce_from(out @ p["wo"], group)
+
+
+_ATTN = ("wq", "wk", "wv", "wo")
+
+
 def attention_block(p: dict, h: torch.Tensor, cfg: ModelConfig,
                     cos: torch.Tensor, sin: torch.Tensor, *,
                     cache: "tuple[torch.Tensor, torch.Tensor, int] | None"
-                    = None) -> torch.Tensor:
+                    = None,
+                    fill: "tuple[torch.Tensor, torch.Tensor] | None" = None
+                    ) -> torch.Tensor:
     """The attention sub-block.  ``cache = (k_cache, v_cache, length)``
     (one layer's ``[B, S_max, KH, HD]`` tensors) for decode: the new keys
-    and values are written at ``length`` in place.
+    and values are written at ``length`` in place.  ``fill = (k_cache,
+    v_cache)`` for a prefill: the prompt's keys and values are written into
+    the cache's first rows.  In a partitioned step (``compute_axes()``)
+    the rank's part, as the module docstring says.
 
     One deliberate difference in routing: the JAX package's decode path
     calls ``decode_attention`` without ``impl``, so it never reaches its
     own decode kernel; here ``cfg.attention_impl == "kernel"`` routes decode
     to the decode kernel too.  Both compute the same function."""
+    tp = compute_axes()
+    if tp is not None:
+        if all(_split(tp, ("layers", n)) for n in _ATTN):
+            return _attention_tp(p, h, cfg, cos, sin, tp, cache=cache,
+                                 fill=fill)
+        p = _whole(p, tp, _ATTN)
     b, s, _ = h.shape
     q, k, v = _qkv(p, h, cfg, cos, sin)
     if cache is None:
+        if fill is not None:
+            if tp is not None:
+                _fill_cache(tp, fill, s, k, v, whole=True)
+            else:
+                fill[0][:, :s] = k.to(fill[0].dtype)
+                fill[1][:, :s] = v.to(fill[1].dtype)
         out = gqa_attention(q, k, v, causal=True, impl=cfg.attention_impl,
                             chunk=cfg.attention_chunk)
     else:
         k_cache, v_cache, length = cache
-        k_cache[:, length:length + s] = k.to(k_cache.dtype)
-        v_cache[:, length:length + s] = v.to(v_cache.dtype)
         impl = "kernel" if cfg.attention_impl == "kernel" else "einsum"
-        out = decode_attention(q, k_cache, v_cache, length + s, impl=impl)
+        if tp is None:
+            k_cache[:, length:length + s] = k.to(k_cache.dtype)
+            v_cache[:, length:length + s] = v.to(v_cache.dtype)
+            out = decode_attention(q, k_cache, v_cache, length + s,
+                                   impl=impl)
+        else:
+            valid = _write_new_rows(tp, cache, k, v)
+            out, lse = decode_attention(q, k_cache, v_cache, valid,
+                                        impl=impl, return_lse=True)
+            if tp.kv_split:
+                return merge_decode_partials(
+                    out, lse, tp.model_group, own_columns=False) @ p["wo"]
     return out.reshape(b, s, -1) @ p["wo"]
+
+
+_FFN = ("w_gate", "w_up", "w_down")
 
 
 def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig
          ) -> tuple[torch.Tensor, torch.Tensor | float]:
     """The FFN's output and its auxiliary loss: the MoE router's float32
     scalar, or a Python ``0.0`` for the dense family (no device tensor is
-    made where nothing reads it)."""
+    made where nothing reads it).  In a partitioned step the dense FFN
+    runs column- into row-parallel where the specs split its weights over
+    the model axis (else gathered whole, alike on every rank)."""
     if cfg.family == "moe":
         return moe_mod.moe_ffn(p["moe"], h, cfg)
+    tp = compute_axes()
+    group = None
+    if tp is not None:
+        names = _FFN if cfg.act == "swiglu" else _FFN[1:]
+        if all(_split(tp, ("layers", n)) for n in names):
+            group = tp.model_group
+        else:
+            p = _whole(p, tp, names)
     if cfg.act == "swiglu":
-        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"]), 0.0
-    return gelu_mlp(h, p["w_up"], p["w_down"]), 0.0
+        return swiglu(h, p["w_gate"], p["w_up"], p["w_down"],
+                      group=group), 0.0
+    return gelu_mlp(h, p["w_up"], p["w_down"], group=group), 0.0
+
+
+def _layer(p: dict) -> dict:
+    """A layer's weights as its compute reads them: in a partitioned step
+    their FSDP blocks gathered over the DP group."""
+    tp = compute_axes()
+    return p if tp is None else spmd.fsdp_gather(p, tp, ("layers",))
 
 
 def _block(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin, *,
            cache=None) -> tuple[torch.Tensor, torch.Tensor | float]:
+    p = _layer(p)
     h = h + attention_block(p, _norm(h, p["attn_norm"], cfg), cfg, cos, sin,
                             cache=cache)
     ffn_out, aux = _ffn(p, _norm(h, p["mlp_norm"], cfg), cfg)
@@ -225,9 +453,9 @@ def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
             f"inputs {sorted(set(batch) - _INPUTS)} are not the "
             f"{cfg.family} family's (models.encdec reads the audio "
             f"family's embeds)")
-    compute = dtype_of(cfg.compute_dtype)
-    h = params["embed"][batch["tokens"].long()].to(compute)
+    h = _embed(params, batch["tokens"], cfg)
     if "patch_embeds" in batch:
+        compute = dtype_of(cfg.compute_dtype)
         h = torch.cat([batch["patch_embeds"].to(compute), h], dim=1)
     return h
 
@@ -253,10 +481,79 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     return rope(positions, cfg.head_dim, theta=cfg.rope_theta)
 
 
+def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
+           ) -> torch.Tensor:
+    """The token embeddings in the compute dtype.  In a partitioned step
+    the table's FSDP block is gathered and, where the model axis splits
+    the vocabulary, each rank looks up the tokens in its rows (zero for
+    the others') and an all-reduce sums the ranks' lookups."""
+    compute = dtype_of(cfg.compute_dtype)
+    tp = compute_axes()
+    if tp is None:
+        return params["embed"][tokens.long()].to(compute)
+    table = spmd.fsdp_gather({"embed": params["embed"]}, tp)["embed"]
+    if not _split(tp, ("embed",)) or tp.model_size == 1:
+        return table[tokens.long()].to(compute)
+    n = table.shape[0]
+    local = tokens.long() - tp.model_rank * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(compute)
+    rows = rows * mine[..., None].to(compute)
+    return C.reduce_from(rows, tp.model_group)
+
+
+def _head(params: dict, cfg: ModelConfig, tp) -> "tuple[torch.Tensor, int]":
+    """The output head ``[D, V]`` as this rank computes with it, and the
+    vocabulary index of its first column: the rank's columns where the
+    model axis splits the vocabulary, else all of them."""
+    name = "embed" if cfg.tie_embeddings else "lm_head"
+    w = params[name]
+    if tp is not None:
+        w = spmd.fsdp_gather({name: w}, tp)[name]
+    head = w.T if cfg.tie_embeddings else w
+    split = tp is not None and _split(tp, (name,))
+    return head, tp.model_rank * head.shape[1] if split else 0
+
+
 def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The logits ``[B, S, V]`` -- in a partitioned step the rank's block
+    of the vocabulary where the model axis splits it, ``[B, S, V/m]``."""
     h = _norm(h, params["final_norm"], cfg)
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return mask_padded_vocab(h @ head.to(h.dtype), cfg.vocab_size)
+    tp = compute_axes()
+    head, first = _head(params, cfg, tp)
+    if head.shape[1] < cfg.padded_vocab:        # the rank's columns
+        h = C.copy_to(h, tp.model_group)
+    return mask_padded_vocab(h @ head.to(h.dtype), cfg.vocab_size,
+                             offset=first)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """The negative log-likelihood of ``labels`` under logits whose
+    vocabulary is split over the model axis: each rank holds ``[N, V/m]``
+    float32 columns from ``first``.  The max, the sum of exponents and the
+    label's logit are each reduced over the group; the backward pass is
+    the rank's columns of ``softmax - onehot``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, first, group):
+        n = logits.shape[1]
+        top = C.all_reduce(logits.amax(-1), group, "max")
+        z = logits - top[:, None]
+        e = torch.exp(z)
+        total = C.all_reduce(e.sum(-1), group)
+        local = labels - first
+        mine = (local >= 0) & (local < n)
+        idx = local.clamp(0, n - 1)
+        picked = C.all_reduce(z.gather(-1, idx[:, None])[:, 0]
+                              * mine.to(z.dtype), group)
+        ctx.save_for_backward(e.div_(total[:, None]), idx, mine)
+        return torch.log(total) - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, mine = ctx.saved_tensors
+        grad = p.scatter_add(-1, idx[:, None], -mine.to(p.dtype)[:, None])
+        return grad * g[:, None], None, None, None
 
 
 # -----------------------------------------------------------------------------
@@ -302,8 +599,15 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     logits, aux = _forward(params, batch, cfg)
     labels = batch["labels"].long()
     logits = logits[:, -labels.shape[1]:].float()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    tp = compute_axes()
+    if tp is not None and logits.shape[-1] < cfg.padded_vocab:
+        first = tp.model_rank * logits.shape[-1]
+        nll = _VocabParallelNLL.apply(
+            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1), first,
+            tp.model_group).reshape(labels.shape)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     mask = (labels >= 0).float()
     loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return loss + cfg.router_aux_coef * aux
@@ -343,13 +647,9 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: KVCache
     b, s, _ = h.shape
     cos, sin = _rope_tables(cfg, _positions(batch, cfg, s, b, h.device))
     for i, p in enumerate(unbind_layers(params)):
-        attn_in = _norm(h, p["attn_norm"], cfg)
-        q, k, v = _qkv(p, attn_in, cfg, cos, sin)
-        cache.k[i, :, :s] = k.to(cache.k.dtype)
-        cache.v[i, :, :s] = v.to(cache.v.dtype)
-        out = gqa_attention(q, k, v, causal=True, impl=cfg.attention_impl,
-                            chunk=cfg.attention_chunk)
-        h = h + out.reshape(b, s, -1) @ p["wo"]
+        p = _layer(p)
+        h = h + attention_block(p, _norm(h, p["attn_norm"], cfg), cfg, cos,
+                                sin, fill=(cache.k[i], cache.v[i]))
         h = h + _ffn(p, _norm(h, p["mlp_norm"], cfg), cfg)[0]
     logits = _logits(params, h[:, -1:], cfg)
     return logits, KVCache(k=cache.k, v=cache.v, length=s)
@@ -364,13 +664,16 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     compute dtype.  The position is ``cache.length``, in all three streams
     under M-RoPE."""
     compute = dtype_of(cfg.compute_dtype)
-    h = params["embed"][tokens.long()].to(compute)
+    h = _embed(params, tokens, cfg)
     if extra_embeds is not None:
         h = h + extra_embeds.to(compute)
     b, s, _ = h.shape
-    if cache.length + s > cache.k.shape[2]:
+    tp = compute_axes()
+    s_max = cache.k.shape[2] * (tp.model_size if tp is not None
+                                and tp.kv_split else 1)
+    if cache.length + s > s_max:
         raise RuntimeError(f"KV cache full: length {cache.length} + {s} > "
-                           f"{cache.k.shape[2]}")
+                           f"{s_max}")
     pos = torch.full((b, s), cache.length, device=h.device)
     if cfg.mrope_sections is not None:
         pos = pos[None].expand(3, b, s)

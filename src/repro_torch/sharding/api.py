@@ -1,58 +1,115 @@
-"""Activation sharding roles, mesh-agnostic.
+"""The activated mesh: what a rank's partitioned layers read.
 
 The port of the JAX package's ``sharding/api.py``.  There, model code calls
 ``shard(x, "dp", None, "model")`` at key activation points and, under an
-activated mesh, that lowers to a ``with_sharding_constraint``.  The port
-trains SPMD the torch way (``launch/train.py``): each rank computes on
-whole (gathered) parameters and its own batch rows, so no activation has
-a layout to pin, and ``shard`` checks that it got one role a dimension,
-as JAX's assert does, and returns ``x`` unchanged.  The models do not
-call it.  ``activate`` / ``active_axes`` keep JAX's record of the mesh's
-DP and model axes.  No code of the port reads that record yet: it is
-there for tensor-parallel compute, whose layers will read the model
-axis from it (ROADMAP Queue 1 item 4, the third step left).
+activated mesh, GSPMD partitions the products by the constraints.  Here
+each rank runs its own program on its own blocks with explicit
+collectives (``sharding/collectives.py``), and the layers read the mesh
+from this module: ``compute_axes()`` gives, while a partitioned step runs
+(``launch/steps.py`` enters ``active(...)`` around it), the model axis,
+its process group, size and this rank's index on it, the DP axes
+(``("pod", "data")`` flattened, all three under ``zero3``) and their
+group and size, each parameter leaf's ``partition.LeafPlan`` and whether
+the KV cache's sequence axis lies on the model axis.  Without an active
+mesh (or on an ``AbstractMesh``, which has no groups) it is ``None`` and
+every layer runs unpartitioned, as before.
+
+``activate`` / ``active_axes`` keep JAX's record of the mesh's DP and model
+axes and sizes, and ``shard`` stays a check of one role a dimension, as
+JAX's assert is, returning ``x`` unchanged: a rank's tensors are already
+its blocks, so there is no layout to pin.
+
+The record is process-wide, not a thread's: one process is one rank, and
+autograd runs a CUDA backward pass (with a ``remat`` block's recomputed
+forward) on a thread of its own, which must read the same mesh.
 
 Roles per dim: "dp" (pod+data, all three axes under zero3), "model", None.
 """
 
 from __future__ import annotations
 
-import threading
+import contextlib
+import dataclasses
+import types
 
 from repro_torch.sharding.partition import mesh_axes
 
-__all__ = ["activate", "deactivate", "shard", "active_axes"]
+__all__ = ["activate", "deactivate", "shard", "active_axes", "active",
+           "compute_axes", "ComputeAxes"]
 
-_ctx = threading.local()
+_ctx = types.SimpleNamespace(on=False, compute=None)
 
 
-def activate(mesh, *, zero3: bool = False) -> None:
+@dataclasses.dataclass(frozen=True)
+class ComputeAxes:
+    """One rank's view of an activated ``DeviceMesh``: the groups its
+    collectives run over.  ``model_group`` is ``None`` where the model
+    axis takes no part in compute (absent, or folded into DP under
+    ``zero3``); ``plans`` maps a parameter's path (a layer's leaves by
+    their path inside the layer, the ``[L]`` axis dropped) to its
+    ``partition.LeafPlan``; ``kv_split`` says a KV cache's rows lie on
+    the model axis (``partition.cache_specs``)."""
+    model_group: object
+    model_size: int
+    model_rank: int
+    dp: tuple
+    dp_group: object
+    dp_size: int
+    plans: dict
+    kv_split: bool = False
+
+    def plan(self, path: tuple):
+        return self.plans.get(tuple(path))
+
+
+def activate(mesh, *, zero3: bool = False, compute: "ComputeAxes | None"
+             = None) -> None:
     """Record ``mesh``'s axes (an ``AbstractMesh`` or a ``DeviceMesh``)
-    for this thread."""
-    mesh = mesh_axes(mesh)
+    and, for a partitioned step, the rank's ``compute`` axes."""
+    axes = mesh_axes(mesh)
     names = ("pod", "data", "model") if zero3 else ("pod", "data")
-    _ctx.dp = tuple(n for n in names if n in mesh.axis_names)
+    _ctx.dp = tuple(n for n in names if n in axes.axis_names)
     # under zero3 the model axis is free for sequence sharding
-    _ctx.model = "model" if "model" in mesh.axis_names else None
-    _ctx.sizes = dict(mesh.shape)
+    _ctx.model = "model" if "model" in axes.axis_names else None
+    _ctx.sizes = dict(axes.shape)
     _ctx.mesh = mesh
+    _ctx.compute = compute
     _ctx.on = True
 
 
 def deactivate() -> None:
     _ctx.on = False
+    _ctx.compute = None
 
 
 def active_axes() -> dict | None:
     """``{"dp", "model", "sizes"}`` of the activated mesh, else None."""
-    if not getattr(_ctx, "on", False):
+    if not _ctx.on:
         return None
     return {"dp": _ctx.dp, "model": _ctx.model, "sizes": _ctx.sizes}
 
 
+def compute_axes() -> "ComputeAxes | None":
+    """The rank's groups while a partitioned step runs, else None."""
+    return _ctx.compute if _ctx.on else None
+
+
+@contextlib.contextmanager
+def active(mesh, compute: ComputeAxes, *, zero3: bool = False):
+    """``activate(mesh, compute=compute)`` for the block; the previous
+    record (or none) is restored after it."""
+    saved = dict(vars(_ctx))
+    activate(mesh, zero3=zero3, compute=compute)
+    try:
+        yield compute
+    finally:
+        vars(_ctx).clear()
+        vars(_ctx).update(saved)
+
+
 def shard(x, *roles):
     """``x``, unchanged: one role ("dp" | "model" | None) a dimension."""
-    if not getattr(_ctx, "on", False):
+    if not _ctx.on:
         return x
     assert len(roles) == x.ndim, (roles, tuple(x.shape))
     for role in roles:

@@ -69,7 +69,7 @@ __all__ = ["PartitionSpec", "AbstractMesh", "NamedSharding", "mesh_axes",
            "param_specs", "batch_specs", "cache_specs", "fsdp_axes",
            "dp_size", "shardings_for", "opt_state_specs",
            "logical_to_sharding", "logits_spec", "spec_leaves",
-           "map_specs", "FleetMesh", "fleet_mesh", "padded_lane_count",
+           "map_specs", "LeafPlan", "leaf_plans", "FleetMesh", "fleet_mesh", "padded_lane_count",
            "LaneSharding", "fleet_sharding", "LaneChunks",
            "shard_fleet_tick", "rec_map"]
 
@@ -321,6 +321,50 @@ def param_specs(params_shape: Any, cfg, mesh):
         return P()
 
     return _map_with_path(spec, params_shape)
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafPlan:
+    """How a parameter leaf is split, for a rank that computes on its
+    block: the dimension the DP/FSDP axes split (``dp_dim``, gathered
+    over the rank's DP group where the leaf is used) and the one the model
+    axis splits (``model_dim``, kept: the layer computes on it), each
+    ``None`` where the spec leaves the leaf whole.  A layer's leaf is
+    planned without its ``[L]`` axis."""
+    dp_dim: "int | None"
+    model_dim: "int | None"
+
+
+def leaf_plans(params_shape: Any, cfg, mesh) -> dict:
+    """``{path: LeafPlan}`` of every parameter leaf by ``param_specs`` on
+    ``mesh``: a path is the leaf's dict keys, and a leaf under ``layers``
+    is planned for one layer (its dims one lower)."""
+    mesh = mesh_axes(mesh)
+    dp = set(_dp(mesh, cfg))
+    plans = {}
+
+    def plan(path, spec):
+        names = _path_names(path)
+        lead = 1 if names and names[0] == "layers" else 0
+        dp_dim = model_dim = None
+        for d, entry in enumerate(spec):
+            axes = set(_axes_of(entry))
+            if not axes:
+                continue
+            if axes == {"model"} and not cfg.zero3:
+                model_dim = d - lead
+            elif axes == dp:
+                dp_dim = d - lead
+            else:
+                raise NotImplementedError(
+                    f"{'/'.join(names)}: spec {spec} splits a dim over "
+                    f"{sorted(axes)}, neither the model axis nor the DP "
+                    f"axes {sorted(dp)}")
+        plans[tuple(names)] = LeafPlan(dp_dim, model_dim)
+        return spec
+
+    _map_with_path(plan, param_specs(params_shape, cfg, mesh))
+    return plans
 
 
 def opt_state_specs(params_shape: Any, cfg, mesh):

@@ -1,17 +1,31 @@
-"""SPMD training state on a ``DeviceMesh``: parameters and AdamW moments
-stored as the specs say, one process a rank.
+"""SPMD state on a ``DeviceMesh``, and what a rank's partitioned step
+needs of it.
 
-Each rank holds, for every leaf, its block of the whole tensor per
-``partition.param_specs`` as a ``DTensor`` (``shard_tree``; the moments
-mirror the parameters, ``count`` is a replicated plain tensor), gathers
-the whole tree for a step (``full_tree``, DTensor's all-gathers over the
-mesh's dimensions), and averages gradients over its data-parallel group
-(``dp_group``: the ranks that differ only in the DP axes' coordinates).
+Storage: each rank holds, for every leaf, its block of the whole tensor
+per ``partition.param_specs`` as a ``DTensor`` (``shard_tree``; the
+AdamW moments mirror the parameters, ``count`` is a replicated plain
+tensor).  ``full_tree`` gathers whole tensors for a checkpoint or a
+caller's ``return_params``; no step computes on it.
+
+Compute (``launch/steps.py``): a rank's step takes the plain local blocks
+(``local_tree``) and the rank's ``api.ComputeAxes`` (``compute_axes``: the
+model axis's group, the DP axes' group, each leaf's ``LeafPlan``).  A
+layer gathers a weight's FSDP block over the DP group where it uses it
+(``fsdp_gather``, inside the layer, so a ``remat`` block gathers again in
+its recomputation and the gathered copy is freed after the layer) and
+keeps its model-axis block.  The backward pass of that gather is a
+reduce-scatter over the DP group, so a leaf's gradient comes back as the
+rank's block of the DP sum; a leaf the DP axes leave whole gets its sum
+by an all-reduce (``dp_mean``, which also divides by the DP size).  The
+families whose layers do not partition their compute yet (rwkv6, zamba2,
+enc-dec) gather every leaf whole instead (``gather_whole``) and compute
+on it, the model axis sharding their storage only.
 """
 
 from __future__ import annotations
 
 import math
+import weakref
 
 import numpy as np
 import torch
@@ -21,7 +35,8 @@ from repro_torch.tree import tree_leaves, tree_map
 
 __all__ = ["coordinate", "dp_group", "shard_tree", "full_tree",
            "local_tree", "zeros_like_tree", "resident_elements",
-           "spec_elements"]
+           "spec_elements", "compute_axes", "fsdp_gather", "gather_whole",
+           "dp_mean", "global_norm", "blocks_as_dtensors"]
 
 
 def coordinate(mesh) -> dict:
@@ -93,3 +108,124 @@ def spec_elements(tree, specs, mesh) -> int:
         shape = partition.NamedSharding(mesh, spec).local_shape(x.shape)
         total += math.prod(shape)
     return total
+
+
+_GROUPS: dict = {}      # id(mesh) -> (ref to the mesh, its world, groups)
+
+
+def _dp_group_cached(mesh, axes: tuple):
+    """``dp_group(mesh, axes)``, made once a mesh and process group (every
+    rank makes the groups in one order, so the first call is collective).
+    Keyed by the mesh object, not its layout: a mesh of the same layout
+    over a later process group (the dry-run's fake group is made anew a
+    cell) gets groups of its own."""
+    import torch.distributed as dist
+    ref, world, cache = _GROUPS.get(id(mesh), (None, None, None))
+    if ref is None or ref() is not mesh or world is not dist.group.WORLD:
+        cache = {}
+        _GROUPS[id(mesh)] = (weakref.ref(mesh), dist.group.WORLD, cache)
+    if axes not in cache:
+        cache[axes] = (mesh.get_group(axes[0]) if len(axes) == 1
+                       else dp_group(mesh, axes))
+    return cache[axes]
+
+
+def compute_axes(mesh, cfg, params_shape, *, kv_split: bool = False):
+    """This rank's ``api.ComputeAxes`` on ``mesh`` (a ``DeviceMesh``) for
+    ``cfg``'s parameter tree ``params_shape``: the model axis's group
+    (``None`` under ``zero3``, which folds it into DP), the DP axes' group
+    and every leaf's ``LeafPlan``."""
+    from repro_torch.sharding.api import ComputeAxes
+    from repro_torch.sharding.collectives import rank, size
+    names = tuple(mesh.mesh_dim_names)
+    dp = partition.fsdp_axes(mesh, cfg)
+    model = None
+    if "model" in names and not cfg.zero3:
+        model = mesh.get_group("model")
+    dpg = _dp_group_cached(mesh, dp) if dp else None
+    return ComputeAxes(model_group=model, model_size=size(model),
+                       model_rank=rank(model), dp=dp, dp_group=dpg,
+                       dp_size=size(dpg),
+                       plans=partition.leaf_plans(params_shape, cfg, mesh),
+                       kv_split=kv_split)
+
+
+def fsdp_gather(tree, axes, prefix: tuple = ()):
+    """Every leaf of ``tree`` (a dict, a layer's under ``prefix =
+    ("layers",)``) with its FSDP block gathered over the DP group
+    (``collectives.gather_summed``: the backward pass reduce-scatters the
+    gradient); leaves the DP axes leave whole, as they are."""
+    from repro_torch.sharding.collectives import gather_summed
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        plan = axes.plan(path)
+        if plan is None or plan.dp_dim is None:
+            return node
+        return gather_summed(node, plan.dp_dim, axes.dp_group)
+    return walk(tree, tuple(prefix))
+
+
+def gather_whole(x: torch.Tensor, spec, mesh, *, skip: tuple = ()):
+    """The whole tensor of the block ``x`` holds per ``spec`` on ``mesh``:
+    one all-gather a split dimension, over the group of the axes that
+    split it (the dims in ``skip`` stay split)."""
+    from repro_torch.sharding.collectives import all_gather
+    for d, entry in enumerate(spec):
+        axes = partition._axes_of(entry)
+        if not axes or d in skip:
+            continue
+        group = (mesh.get_group(axes[0]) if len(axes) == 1
+                 else _dp_group_cached(mesh, tuple(axes)))
+        x = all_gather(x, d, group)
+    return x
+
+
+def dp_mean(grads: dict, axes, scale: float = 1.0) -> dict:
+    """The DP mean of a rank's gradient blocks: the leaves the DP axes
+    leave whole are summed over the DP group (an all-reduce: their
+    gradients are each DP rank's own), the FSDP leaves came summed from
+    their gathers' reduce-scatters; all are divided by the DP size (and
+    multiplied by ``scale``)."""
+    from repro_torch.sharding.collectives import all_reduce
+    factor = scale / axes.dp_size
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            return {k: walk(v, path + (k,)) for k, v in node.items()}
+        plan = axes.plan(path)
+        if plan is None or plan.dp_dim is None:
+            node = all_reduce(node, axes.dp_group)
+        return node.mul_(factor) if factor != 1.0 else node
+    return walk(grads, ())
+
+
+def global_norm(grads: dict, axes) -> torch.Tensor:
+    """The global norm of the whole gradient from the rank's blocks: each
+    leaf's float32 sum of squares (leaf by leaf in sorted-key order, as
+    ``optim.adamw.global_norm``) over its replica count (the ranks that
+    hold the same block), summed over every rank by one all-reduce."""
+    import torch.distributed as dist
+    from repro_torch.sharding.collectives import all_reduce
+    from repro_torch.tree import tree_items
+    world = dist.get_world_size()
+    total = None
+    for key, g in tree_items(grads):
+        plan = axes.plan(tuple(key.split("/")))
+        shards = ((axes.dp_size if plan.dp_dim is not None else 1)
+                  * (axes.model_size if plan.model_dim is not None else 1))
+        sq = g.to(torch.float32, copy=True).square_().sum()
+        if shards != world:
+            sq = sq * (shards / world)
+        total = sq if total is None else total + sq
+    return torch.sqrt(all_reduce(total, dist.group.WORLD))
+
+
+def blocks_as_dtensors(blocks, shardings, like):
+    """A tree of the rank's blocks as ``DTensor``s placed as ``shardings``
+    say, of the whole shapes of ``like``'s leaves."""
+    from torch.distributed.tensor import DTensor
+    return tree_map(lambda b, sh, x: DTensor.from_local(
+        b, sh.mesh, sh.placements, run_check=False, shape=x.shape,
+        stride=x.stride()), blocks, shardings, like)

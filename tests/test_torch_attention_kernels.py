@@ -132,6 +132,75 @@ def test_model_decode_impls_match_jax(jx, impl, length):
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=0, atol=2e-5)
 
 
+LSE_CASES = [(1, 16, 1), (2, 128, 77), (4, 112, 128)]
+
+
+def _numpy_lse(q, k, length, scale):
+    """float64 log-sum-exp of each q head's scaled scores over the first
+    ``length`` rows: q ``[B, 1, QH, D]``, k ``[B, S, KH, D]`` ->
+    ``[B, QH]``."""
+    q, k = q.astype(np.float64), k.astype(np.float64)
+    g = q.shape[2] // k.shape[2]
+    kx = np.repeat(k[:, :length], g, axis=2)
+    s = np.einsum("bqhd,bkhd->bhk", q, kx) * scale
+    top = s.max(-1, keepdims=True)
+    return (top + np.log(np.exp(s - top).sum(-1, keepdims=True)))[..., 0]
+
+
+@pytest.mark.parametrize("group,d,length", LSE_CASES,
+                         ids=[f"g{g}-d{d}-len{n}" for g, d, n in LSE_CASES])
+def test_decode_plain_lse_matches_numpy(group, d, length):
+    """The plain version's log-sum-exp against NumPy's, and its output
+    unchanged by asking for it."""
+    arrays = _inputs(length + d, 3, 1, 128, KH * group, KH, d)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    out, lse = DA.decode_attention(q, k, v, length, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (3, KH * group)
+    assert torch.equal(out, DA.decode_attention(q, k, v, length))
+    want = _numpy_lse(arrays[0], arrays[1], length, d ** -0.5)
+    np.testing.assert_allclose(lse.numpy(), want, rtol=1e-6, atol=1e-5)
+    for impl in ("einsum", "kernel"):
+        o2, l2 = TA.decode_attention(q, k, v, length, impl=impl,
+                                     return_lse=True)
+        np.testing.assert_allclose(l2.numpy(), want, rtol=1e-6, atol=1e-5)
+        np.testing.assert_allclose(_f32(o2), _f32(out), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("length", [1, 70, 100, 128])
+def test_decode_lse_merge_of_row_shards_equals_whole(length):
+    """Four row shards of one cache (32 rows each, as a model axis of 4
+    splits a sequence-sharded cache), each attended over its own valid
+    rows -- a shard with none gives zeros and ``-inf`` -- merged by their
+    log-sum-exps as ``merge_decode_partials`` merges the ranks' partials,
+    equal to the whole cache's attention and log-sum-exp."""
+    arrays = _inputs(length, 2, 1, 128, 8, KH, 16)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    whole, whole_lse = TA.decode_attention(q, k, v, length,
+                                           return_lse=True)
+    outs, lses = [], []
+    for r in range(4):
+        rows = slice(32 * r, 32 * (r + 1))
+        valid = min(max(length - 32 * r, 0), 32)
+        o, lse = TA.decode_attention(q, k[:, rows].contiguous(),
+                                     v[:, rows].contiguous(), valid,
+                                     impl="kernel", return_lse=True)
+        if valid == 0:
+            assert not o.any() and torch.isneginf(lse).all()
+        outs.append(o.double())
+        lses.append(lse.double())
+    every = torch.stack(lses)
+    top = every.amax(0)
+    merged = sum(torch.exp(l - top)[:, None, :, None] * o
+                 for o, l in zip(outs, lses)) / torch.exp(every - top).sum(0)[
+                     :, None, :, None]
+    merged_lse = top + torch.log(torch.exp(every - top).sum(0))
+    np.testing.assert_allclose(merged.numpy(), whole.double().numpy(),
+                               rtol=0, atol=2e-6)
+    np.testing.assert_allclose(merged_lse.numpy(),
+                               whole_lse.double().numpy(), rtol=0,
+                               atol=2e-5)
+
+
 def test_wrappers_check_inputs():
     q, k, v = (torch.from_numpy(a) for a in _inputs(0, 1, 8, 8, 4, 2, 16))
     with pytest.raises(RuntimeError, match="do not match"):
@@ -248,6 +317,33 @@ def test_cuda_decode_kernel_matches_plain(card, b, s_max, qh, kh, d, length,
     assert DA.decode_attention.launches == before + 1
     err = (got.float() - want.float()).abs().max().item()
     assert err <= TOL[str(dtype).removeprefix("torch.")], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s_max,qh,kh,d,length", CUDA_DECODE,
+                         ids=[f"b{c[0]}-s{c[1]}-h{c[2]}x{c[3]}-d{c[4]}-"
+                              f"len{c[5]}" for c in CUDA_DECODE])
+def test_cuda_decode_lse_matches_plain(card, b, s_max, qh, kh, d, length,
+                                       dtype):
+    """The kernel's log-sum-exp row by row against the plain version's,
+    its output the same bits as without it, one launch counted on both
+    counters."""
+    q, k, v = (torch.from_numpy(a).to(card, dtype)
+               for a in _inputs(length, b, 1, s_max, qh, kh, d))
+    before = (DA.decode_attention.launches,
+              DA.decode_attention.lse_launches)
+    got, lse = DA.decode_attention(q, k, v, length, return_lse=True)
+    plain = DA.decode_attention(q, k, v, length)
+    _, want = DA.decode_attention_plain(q, k, v, length, return_lse=True)
+    torch.cuda.synchronize()
+    assert (DA.decode_attention.launches,
+            DA.decode_attention.lse_launches) == (before[0] + 2,
+                                                   before[1] + 1)
+    assert torch.equal(got, plain)
+    err = ((lse - want).abs() / want.abs().clamp_min(1.0)).max().item()
+    assert err <= 1e-5, err
 
 
 # the tensor-core route at every edge of its 128-row blocks and 64-key

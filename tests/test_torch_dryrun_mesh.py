@@ -1,0 +1,280 @@
+"""The dry-run's ``--mesh``: one device's share of a cell's step, on the
+CPU.
+
+  * Per-device argument bytes (``dryrun.argument_bytes``, the local shapes
+    of the step's arguments on the production meshes ``(16, 16)`` and
+    ``(2, 16, 16)``) equal, for every arch and cell, the sum over the
+    leaves of JAX's own shapes of their local shapes under JAX's
+    ``param_specs`` / ``opt_state_specs`` / ``batch_specs`` /
+    ``cache_specs`` (a cache's ``length``, a device scalar there, is a
+    host int in the port and holds no bytes).  No meta pass.
+  * The collectives a rank's step issues, counted by ``MetaPass`` over a
+    fake ``(2, 4)`` process group (``launch.mesh.fake_mesh``) for reduced
+    cells, equal formulas written here from the configs (layers, the
+    leaves the DP axes split, which heads divide the model axis) -- not
+    from the code's record.
+  * At model axis 1 a step issues no model-axis collective, and a rank's
+    temporaries at model axis 4 are below those at 1.
+
+Every fake group lives behind ``fake_mesh``'s teardown, so none is left in
+the pytest worker.
+"""
+
+import dataclasses
+import functools
+import math
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.configs import ARCHS, SHAPE_CELLS, cells_for  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import ShapeCell  # noqa: E402
+from repro_torch.launch import dryrun as D  # noqa: E402
+from repro_torch.launch import steps as TS  # noqa: E402
+from repro_torch.launch.mesh import fake_mesh  # noqa: E402
+from repro_torch.models import registry as TR  # noqa: E402
+from repro_torch.sharding import partition as TP  # noqa: E402
+
+MESHES = {"single": ((16, 16), ("data", "model")),
+          "multi": ((2, 16, 16), ("pod", "data", "model"))}
+AXES = ("data", "model")
+
+
+@pytest.fixture(scope="module")
+def jx():
+    pytest.importorskip("jax")
+    import jax
+    from jax.sharding import AbstractMesh
+    from repro.configs import get_config as jget
+    from repro.configs.base import SHAPE_CELLS as JCELLS
+    from repro.models import registry as JR
+    from repro.sharding import api as JA
+    from repro.sharding import partition as JP
+    JA.deactivate()
+    return dict(jax=jax, AbstractMesh=AbstractMesh, get_config=jget,
+                CELLS=JCELLS, R=JR, P=JP)
+
+
+@functools.lru_cache(maxsize=None)
+def _port_params(arch):
+    return TR.param_specs(get_config(arch))
+
+
+@pytest.fixture(autouse=True)
+def _cached_params(monkeypatch):
+    """The bundles draw each published arch's meta parameter tree once."""
+    monkeypatch.setattr(TS, "param_specs", lambda cfg: (
+        _port_params(cfg.name) if get_config(cfg.name) == cfg
+        else TR.param_specs(cfg)) if cfg.name in ARCHS
+        else TR.param_specs(cfg))
+
+
+def _jax_local_bytes(jx, structs, specs, mesh, skip_scalars=False) -> int:
+    """The sum over leaves of a JAX tree of structs of their local bytes
+    under a tree of JAX specs on ``mesh``."""
+    jax = jx["jax"]
+    leaves = jax.tree_util.tree_leaves(structs)
+    spec_leaves = jax.tree_util.tree_leaves(
+        specs, is_leaf=lambda x: isinstance(x, jax.sharding.PartitionSpec))
+    assert len(leaves) == len(spec_leaves)
+    total = 0
+    for x, spec in zip(leaves, spec_leaves):
+        if skip_scalars and x.ndim == 0:
+            continue
+        shape = list(x.shape)
+        for d, entry in enumerate(spec):
+            axes = () if entry is None else (
+                (entry,) if isinstance(entry, str) else tuple(entry))
+            shape[d] //= math.prod(mesh.shape[a] for a in axes)
+        total += math.prod(shape) * np.dtype(x.dtype).itemsize
+    return total
+
+
+def _jax_argument_bytes(jx, arch, shape, mesh) -> int:
+    jax, R, P = jx["jax"], jx["R"], jx["P"]
+    cfg = jx["get_config"](arch)
+    cell = jx["CELLS"][shape]
+    model = R.build_model(cfg)
+    params = jax.eval_shape(lambda: model.init_params(
+        jax.random.PRNGKey(0)))
+    total = _jax_local_bytes(jx, params, P.param_specs(params, cfg, mesh),
+                             mesh)
+    specs = R.input_specs(cfg, cell)
+    if cell.kind == "train":
+        from repro.optim.adamw import init_opt_state
+        opt = jax.eval_shape(init_opt_state, params)
+        total += _jax_local_bytes(jx, opt, P.opt_state_specs(params, cfg,
+                                                             mesh), mesh)
+    if cell.kind in ("train", "prefill"):
+        batch = specs["batch"]
+        total += _jax_local_bytes(jx, batch, P.batch_specs(batch, cfg, mesh,
+                                                           cell), mesh)
+    if cell.kind == "prefill":
+        cache = R.cache_spec(cfg, cell.global_batch, cell.seq_len)
+    elif cell.kind == "decode":
+        cache = specs["cache"]
+        tokens = {"tokens": specs["tokens"]}
+        total += _jax_local_bytes(jx, tokens, P.batch_specs(
+            tokens, cfg, mesh, cell), mesh)
+    if cell.kind != "train":
+        total += _jax_local_bytes(jx, cache, P.cache_specs(cache, cfg, mesh,
+                                                           cell), mesh,
+                                  skip_scalars=True)
+    return total
+
+
+@pytest.mark.parametrize("mesh_name", sorted(MESHES))
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_argument_bytes_match_jax_specs(jx, arch, mesh_name):
+    shape, axes = MESHES[mesh_name]
+    jmesh = jx["AbstractMesh"](shape, axes)
+    tmesh = TP.AbstractMesh(shape, axes)
+    for cell in cells_for(arch):
+        got = D.argument_bytes(get_config(arch), SHAPE_CELLS[cell], tmesh)
+        assert got == _jax_argument_bytes(jx, arch, cell, jmesh), cell
+
+
+# -- collectives on a fake (2, 4) mesh -----------------------------------------
+
+DP, M = 2, 4
+CELLS = {"prefill": ShapeCell("prefill", 32, 4, "prefill"),
+         "decode": ShapeCell("decode", 32, 4, "decode"),
+         "train": ShapeCell("train", 32, 4, "train")}
+
+
+def _account(cfg, cell, shape=(DP, M)):
+    with fake_mesh(shape, AXES) as mesh:
+        return D.account_mesh(cfg, cell, mesh)
+
+
+def _counts(rec) -> dict:
+    return {k: v["count"] for k, v in rec["collectives"].items()}
+
+
+def _fsdp_leaves(cfg) -> int:
+    """A layer's leaves the specs split over the DP axes (the ``d_model``
+    dims divide the DP size at the reduced width): the four attention
+    projections and the dense FFN's two or three, or the MoE's router,
+    three expert stacks and the shared experts' three."""
+    if cfg.family == "moe":
+        return 4 + 1 + 3 + (3 if cfg.num_shared_experts else 0)
+    return 4 + (3 if cfg.act == "swiglu" else 2)
+
+
+def _kv_gathers(cfg, m: int) -> int:
+    """K and V gathered over the model axis before prefill attention:
+    none where the KV heads divide it, two where the query heads do, and
+    Q too where they do not."""
+    qh, kh = cfg.num_heads, cfg.num_kv_heads
+    if qh % m:
+        return 3
+    return 0 if kh % m == 0 else 2
+
+
+def _formula(cfg, kind: str, m: int = M) -> dict:
+    """Counts by kind of one rank's step of a reduced attention-family
+    config on ``(DP, m)``, its cache's rows split over the model axis."""
+    n = cfg.num_layers
+    fsdp = _fsdp_leaves(cfg)
+    head = 2      # the embedding's FSDP block, then the head's (tied or not)
+    out = {"all-gather": 0, "all-reduce": 0, "reduce-scatter": 0,
+           "all-to-all": 0, "collective-permute": 0}
+    if kind == "prefill":
+        g = _kv_gathers(cfg, m)
+        out["all-gather"] = head + n * (fsdp + g)
+        out["all-reduce"] = 1 + 2 * n          # the lookup, wo, the FFN
+        out["all-to-all"] = 2 * n if g == 0 else 0   # cache rows, K and V
+    elif kind == "decode":
+        # Q, K, V of every head, and the log-sum-exps
+        out["all-gather"] = head + n * (fsdp + 3 + 1)
+        out["all-reduce"] = 1 + 2 * n
+        out["reduce-scatter"] = n              # the merge, the rank's heads
+    return out
+
+
+def _train_formula(cfg, microbatches: int) -> dict:
+    """One training step under ``remat="full"``: each microbatch's forward
+    issues a layer's collectives twice (the backward's recomputation),
+    but for the FFN's all-reduce: the recomputation stops after the last
+    tensor the backward saves, and nothing saves that sum.  Its backward
+    reduce-scatters every FSDP gather and all-reduces every Megatron
+    ``f`` (the attention's and the FFN's input, qwen3's two qk-norm
+    scales, the head's input).  Then the leaves the DP axes leave whole
+    are summed over the DP group, the loss is averaged and the norm
+    taken."""
+    n, fsdp, g = cfg.num_layers, _fsdp_leaves(cfg), _kv_gathers(cfg, M)
+    f = 2 + (2 if cfg.qk_norm else 0)
+    gathers = 1 + 2 * n * (fsdp + g) + 1
+    scatters = n * (fsdp + g) + 2
+    reduces = (1 + n * (2 + 1) + 3        # lookup, wo twice + FFN, the loss
+               + n * f + 1)                # the f's, the head's input
+    replicated = 3 + (2 if cfg.qk_norm else 0)  # the norms (+ qk scales)
+    return {"all-gather": microbatches * gathers,
+            "reduce-scatter": microbatches * scatters,
+            "all-reduce": microbatches * reduces + replicated + 2,
+            "all-to-all": 0, "collective-permute": 0}
+
+
+FORMULA_ARCHS = ["qwen3-1.7b", "llama3-8b", "moonshot-v1-16b-a3b",
+                 "qwen2-vl-72b"]
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("arch", FORMULA_ARCHS)
+def test_serving_collectives_follow_the_formula(arch, kind):
+    cfg = get_config(arch).reduced()
+    rec = _account(cfg, CELLS[kind])
+    assert rec["model_axis"] == "compute"
+    assert _counts(rec) == _formula(cfg, kind)
+
+
+def test_heads_that_do_not_divide_gather_q_too():
+    cfg = dataclasses.replace(get_config("phi3-medium-14b").reduced(),
+                              num_heads=6, num_kv_heads=3)
+    assert _counts(_account(cfg, CELLS["prefill"])) == _formula(cfg,
+                                                                "prefill")
+    cfg = dataclasses.replace(cfg, num_heads=8, num_kv_heads=4)
+    rec = _account(cfg, CELLS["prefill"])
+    assert rec["collectives"]["all-to-all"]["count"] == 2 * cfg.num_layers
+    assert _counts(rec) == _formula(cfg, "prefill")
+
+
+def test_train_collectives_follow_the_formula():
+    cfg = get_config("qwen3-1.7b").reduced()
+    assert cfg.remat == "full"
+    mb = TS.microbatch_count(cfg, CELLS["train"].global_batch, DP)
+    assert mb == 2
+    assert _counts(_account(cfg, CELLS["train"])) == _train_formula(cfg, mb)
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+def test_model_axis_one_issues_no_model_collective(kind):
+    """At ``(4, 1)`` only the FSDP gathers remain: every all-reduce,
+    reduce-scatter and all-to-all of a serving step is the model axis's."""
+    cfg = get_config("qwen3-1.7b").reduced()
+    got = _counts(_account(cfg, CELLS[kind], (4, 1)))
+    assert got == {"all-gather": 2 + cfg.num_layers * _fsdp_leaves(cfg),
+                   "all-reduce": 0, "reduce-scatter": 0, "all-to-all": 0,
+                   "collective-permute": 0}
+
+
+@pytest.mark.parametrize("kind", ["prefill", "train"])
+def test_temporaries_fall_with_the_model_axis(kind):
+    cfg = get_config("qwen3-1.7b").reduced()
+    cell = dataclasses.replace(CELLS[kind], seq_len=128)
+    at = {m: _account(cfg, cell, (DP, m))["memory"]["temp_bytes"]
+          for m in (1, M)}
+    assert at[M] < at[1], at
+
+
+def test_a_storage_family_is_marked_and_gathers_whole():
+    cfg = get_config("rwkv6-1.6b").reduced()
+    rec = _account(cfg, CELLS["decode"])
+    assert rec["model_axis"] == "storage"
+    assert rec["collectives"]["all-gather"]["count"] > 0
+    with fake_mesh((DP, M), AXES) as mesh:
+        assert rec["memory"]["argument_bytes"] == D.argument_bytes(
+            cfg, CELLS["decode"], TP.mesh_axes(mesh))

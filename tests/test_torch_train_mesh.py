@@ -104,7 +104,8 @@ def _mean_grads(case: dict) -> dict:
         TP.param_specs(TR.param_specs(cfg), cfg, mesh), mesh)
     loss, grads = build_sharded_grads(cfg, mesh)(
         spmd.shard_tree(params, shardings), batch)
-    return {"loss": float(loss), "grads": grads}
+    # the rank's blocks of the mean gradient, gathered whole to compare
+    return {"loss": float(loss), "grads": spmd.full_tree(grads)}
 
 
 def _rank_main(rank: int, root: str) -> None:
