@@ -262,7 +262,15 @@ each, with their wall seconds:
                 relative (and whether bitwise); the (1, 1) steps' measured
                 bytes against the dry-run's ``--mesh`` meta reckoning of
                 the same steps on a fake (1, 1) group (the plain routes
-                within 1%); then the model axis at 2 tried in two
+                within 1%); ``rwkv6-1.6b``, ``seamless-m4t-large-v2``
+                and ``zamba2-7b`` (24 of 81 layers) the same way (every
+                logit and cache tensor within 2^-4 and whether bitwise;
+                the wkv, flash and decode-with-lse launches counted from
+                zero); the flash (full and causal), decode (with the
+                log-sum-exp) and wkv kernels at one (16, 16) rank's
+                shapes of the dry-run cells against their plain
+                versions, with planted faults, timed beside the bound and
+                SDPA; then the model axis at 2 tried in two
                 processes over gloo with the card's tensors (whether gloo
                 carried every collective, and their logits against the
                 meshless serve's).
@@ -310,8 +318,8 @@ two attention kernels and run only the serve_zoo, the serve_families or
 the serve_encdec phase, or build the quantize pair and run only the
 train_families phase, or build the attention and wkv kernels and run
 only the dryrun phase, or build the quantize pair and run only the remat
-or the mesh phase, or build the two attention kernels and run only the
-tp phase.
+or the mesh phase, or build the attention and wkv kernels and run only
+the tp phase.
 """
 
 from __future__ import annotations
@@ -494,8 +502,10 @@ EXAMPLE_100M = ROOT / "examples" / "torch_train_100m.py"
 # -- the dryrun phase ---------------------------------------------------------
 # The dry-run (launch/dryrun.py).  (a) Every runnable (arch x shape) cell of
 # the JAX package's SHAPE_CELLS accounted on the meta device, in a
-# subprocess of DRYRUN_JOBS workers (the card's host has 8 cores) while (b)
-# five cells, cut to one card, are served on it through the kernels:
+# subprocess of DRYRUN_JOBS workers (the card's host has 8 cores: 7 workers
+# and this process; at 5 the meta pass, ~83 s, outlasted the cuts' ~57 s)
+# while (b) five cells, cut to one card, are served on it through the
+# kernels:
 # (arch, shape, batch or None for the cell's, layers or None for all).
 # qwen3's prefill at 2 of 32 sequences (7.6 GB of cache) and decode at 8 of
 # 128 (30.3 GB), rwkv6's prefill at 4 of 32 (at 8 its time-mix's float32
@@ -507,7 +517,7 @@ DRYRUN_CELLS = (("qwen3-1.7b", "prefill_32k", 2, None),
                 ("rwkv6-1.6b", "prefill_32k", 4, None),
                 ("rwkv6-1.6b", "long_500k", None, None),
                 ("zamba2-7b", "long_500k", None, 36))
-DRYRUN_JOBS = 5
+DRYRUN_JOBS = 7
 DRYRUN_META_ARCH = None     # None: every arch (a CPU rehearsal: one)
 DRYRUN_META_TIMEOUT_S = 600
 DRYRUN_REDUCED = False      # the published widths (a CPU rehearsal: True)
@@ -590,6 +600,23 @@ MESH_TRAIN = dict(steps=3, batch=8, seq=128, grad_bits=8, seed=0)
 # meshless steps, and the model axis at 2 tried in two processes over gloo
 TP_ARCH = "qwen3-1.7b"
 TP_BATCH, TP_PROMPT, TP_STEPS, TP_TWO_STEPS = 8, 1024, 8, 2
+# the other families' partitioned serve on the (1, 1) mesh, at the same
+# batch, prompt and steps: (arch, layers or None for all); zamba2 at 24 of
+# its 81 layers (4 shared-block invocations; 6.1 GB of weights)
+TP_FAMILIES = (("rwkv6-1.6b", None), ("seamless-m4t-large-v2", None),
+               ("zamba2-7b", 24))
+# the kernels at one rank's shapes on the production mesh's model axis:
+# the dry-run cells' blocks of a (16, 16) rank -- (kernel's arch, cell,
+# full attention) -- the batch over 16 DP ranks, a prefill's heads over
+# the model axis, a decode step over every head and the last rank's row
+# block of the cache (its rows - DECODE_SLACK valid)
+TP_RANK_M = 16
+TP_RANK_CELLS = (("rwkv6-1.6b", "prefill_32k", False),
+                 ("rwkv6-1.6b", "decode_32k", False),
+                 ("seamless-m4t-large-v2", "prefill_32k", True),
+                 ("zamba2-7b", "prefill_32k", False),
+                 ("seamless-m4t-large-v2", "decode_32k", False),
+                 ("zamba2-7b", "decode_32k", False))
 TP_BYTES_RTOL = 0.01        # measured step bytes against the reckoning
 TP_TWO_TIMEOUT_S = 300
 LSE_RTOL = 1e-5             # |lse - plain| / max(1, |plain|), row by row
@@ -2370,7 +2397,9 @@ class LaunchCheck:
                 ("wkv_state", row_rel_err(out[1][:1, h], st))]
 
 
-def dryrun_kernel_rows(dev, cfg, cell, arch: str) -> list[dict]:
+def dryrun_kernel_rows(dev, cfg, cell, arch: str, *, causal: bool = True,
+                       lse: bool = False, tag: str = "dryrun_kernel"
+                       ) -> list[dict]:
     """The kernels a cut cell's step launches, at its shapes, bfloat16 on
     seeded unit-normal inputs, held to their plain versions by
     ``row_rel_err`` within ``DRYRUN_ROW_RTOL`` and timed behind the spin
@@ -2385,7 +2414,13 @@ def dryrun_kernel_rows(dev, cfg, cell, arch: str) -> list[dict]:
     ``seq_len`` of ``seq_len + DECODE_SLACK`` rows.  The wkv scan from a
     zero state at a prefill (the model's prefill state) and from a random
     one at a decode step, against ``wkv_plain`` at chunk
-    ``plain_chunk(S)``."""
+    ``plain_chunk(S)``.  ``causal=False``: flash's full attention (an
+    encoder's).  ``lse``: decode with its log-sum-exp (a partitioned
+    step's route), the output also the same bits as the launch without
+    it, the log-sum-exps within ``LSE_RTOL`` of the plain version's row
+    by row, and the log-sum-exps shifted by one row read past that limit;
+    the launch timed is the one with it.  The row is printed under
+    ``tag``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import decode_attention as DA
@@ -2460,27 +2495,30 @@ def dryrun_kernel_rows(dev, cfg, cell, arch: str) -> list[dict]:
         q, k, v = normal(b, s, qh, d), normal(b, s, kh, d), \
             normal(b, s, kh, d)
         route = FA.flash_route(bf16, d)
-        got = FA.flash_attention(q, k, v, causal=True)
-        want = TA.gqa_attention(q[:1], k[:1], v[:1], causal=True,
+        got = FA.flash_attention(q, k, v, causal=causal)
+        want = TA.gqa_attention(q[:1], k[:1], v[:1], causal=causal,
                                 impl="chunked")
         planted = faults("flash_attention", FA.flash_attention, want,
-                         (q[:1], k[:1], v[:1]), {"causal": True})
+                         (q[:1], k[:1], v[:1]), {"causal": causal})
         torch.cuda.synchronize()
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-        b_ms, b_by = attn_bound_ms("flash", bf16, b, s, qh, kh, d)
+        b_ms, b_by = attn_bound_ms("flash", bf16, b, s, qh, kh, d,
+                                   causal=causal)
         row = dict(
             kernel="flash_attention", arch=arch, cell=cell.name,
             kernel_route=route,
-            shape=f"B={b} S={s} QH={qh} KH={kh} D={d} causal bfloat16",
+            shape=f"B={b} S={s} QH={qh} KH={kh} D={d} "
+                  f"{'causal' if causal else 'full'} bfloat16",
             max_abs_err=float((got[:1].float() - want.float()).abs().max()),
             max_row_rel_err=row_rel_err(got[:1], want), limit=limit,
             faults=planted,
-            ms=device_only(lambda: FA.flash_attention(q, k, v, causal=True)),
+            ms=device_only(lambda: FA.flash_attention(q, k, v,
+                                                      causal=causal)),
             plain_ms=once_ms(lambda: TA.gqa_attention(
-                q[:1], k[:1], v[:1], causal=True, impl="chunked")),
+                q[:1], k[:1], v[:1], causal=causal, impl="chunked")),
             plain="chunked route, batch row 0",
             library_ms=device_only(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=True, enable_gqa=True)),
+                qt, kt, vt, is_causal=causal, enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by)
         ok = True
         del q, k, v, got, want, qt, kt, vt
@@ -2492,6 +2530,18 @@ def dryrun_kernel_rows(dev, cfg, cell, arch: str) -> list[dict]:
         want = decode_plain(q, kc, vc, s)
         planted = faults("decode_attention", DA.decode_attention, want,
                          (q, kc, vc, s), {})
+        extra = {}
+        if lse:
+            with_lse, got_lse = DA.decode_attention(q, kc, vc, s,
+                                                    return_lse=True)
+            _, want_lse = DA.decode_attention_plain(q, kc, vc, s,
+                                                    return_lse=True)
+            shifted = got_lse.reshape(-1).roll(1).reshape(got_lse.shape)
+            extra = dict(same_output=bool(torch.equal(with_lse, got)),
+                         lse_rel_err=lse_rel_err(got_lse, want_lse),
+                         lse_limit=LSE_RTOL,
+                         fault_shifted_row=lse_rel_err(shifted, want_lse))
+            del with_lse, got_lse, want_lse, shifted
         torch.cuda.synchronize()
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (x[:, :s].transpose(1, 2).contiguous() for x in (kc, vc))
@@ -2499,21 +2549,24 @@ def dryrun_kernel_rows(dev, cfg, cell, arch: str) -> list[dict]:
         row = dict(
             kernel="decode_attention", arch=arch, cell=cell.name,
             shape=f"B={b} S_max={s_max} QH={qh} KH={kh} D={d} "
-                  f"length={s} bfloat16",
+                  f"length={s} bfloat16" + (" lse" if lse else ""),
             max_abs_err=float((got.float() - want.float()).abs().max()),
             max_row_rel_err=row_rel_err(got, want), limit=limit,
-            faults=planted,
-            ms=device_only(lambda: DA.decode_attention(q, kc, vc, s)),
+            faults=planted, **extra,
+            ms=device_only(lambda: DA.decode_attention(
+                q, kc, vc, s, return_lse=lse)),
             plain_ms=once_ms(lambda: DA.decode_attention_plain(q, kc, vc,
                                                                s)),
             plain="decode_attention_plain",
             library_ms=device_only(lambda: F.scaled_dot_product_attention(
                 qt, kt, vt, enable_gqa=True)),
             bound_ms=b_ms, bound_by=b_by)
-        ok = True
+        ok = not lse or (extra["same_output"]
+                         and extra["lse_rel_err"] <= LSE_RTOL
+                         < extra["fault_shifted_row"])
         del q, kc, vc, got, want, qt, kt, vt
     torch.cuda.empty_cache()
-    print(json.dumps({"dryrun_kernel": row}), flush=True)
+    print(json.dumps({tag: row}), flush=True)
     ok = ok and row["max_row_rel_err"] <= limit and all(
         e > limit for e in row["faults"].values())
     if not ok:
@@ -4456,8 +4509,9 @@ def tp_serve(dev, cfg, params, batch, tokens, *, mesh=None,
     pcell, dcell = tp_cells()
     pre = build_prefill_step(cfg, pcell, device=dev, mesh=mesh)
     srv = build_serve_step(cfg, dcell, device=dev, mesh=mesh)
+    kw = {"enc_len": TP_PROMPT} if cfg.family == "audio" else {}
     cache = build_model(cfg).init_cache(TP_BATCH, TP_PROMPT + DECODE_SLACK,
-                                        device=dev)
+                                        device=dev, **kw)
     if mesh is not None:
         coord = tuple(mesh.get_coordinate())
         params = _tp_blocks(params, pre.in_shardings[0], mesh, coord)
@@ -4479,6 +4533,138 @@ def tp_serve(dev, cfg, params, batch, tokens, *, mesh=None,
             out["logits"].append(logits[..., :cfg.vocab_size].clone())
     out["cache"] = cache
     return out
+
+
+def cache_tensors(cache) -> list:
+    """A cache's tensors, nested dataclasses in field order."""
+    import dataclasses
+    import torch
+    out = []
+    for f in dataclasses.fields(cache):
+        x = getattr(cache, f.name)
+        if dataclasses.is_dataclass(x):
+            out += cache_tensors(x)
+        elif isinstance(x, torch.Tensor):
+            out.append(x)
+    return out
+
+
+def tp_family_launches(cfg) -> dict:
+    """The kernel launches of one partitioned serve of the tp cells
+    (a prefill, ``TP_STEPS`` decode steps) of ``cfg``'s family."""
+    n, steps = cfg.num_layers, TP_STEPS
+    if cfg.family == "ssm":
+        return {"wkv_linear_scan": n * (1 + steps)}
+    if cfg.family == "audio":
+        dec = cfg.num_decoder_layers
+        return {"flash_attention": n + 2 * dec,
+                "decode_attention": 2 * dec * steps,
+                "decode_attention_lse": 2 * dec * steps}
+    inv = n // cfg.shared_attn_period
+    return {"flash_attention": inv, "decode_attention": inv * steps,
+            "decode_attention_lse": inv * steps}
+
+
+def tp_family(dev, mesh, arch: str, layers: "int | None") -> dict:
+    """``arch`` (``zoo_config``: the kernel routes, bfloat16) cut to
+    ``layers`` where given, served by the partitioned prefill and decode
+    steps on the one-rank ``mesh`` against the meshless steps on the same
+    parameters and inputs: every step's logits and every cache tensor
+    within ``STEP_RTOL`` (and whether bitwise), the kernel launches of
+    the partitioned serve counted from zero (``tp_family_launches``;
+    every decode launch with the log-sum-exp), prefill and decode p50
+    seconds beside the meshless ones."""
+    import torch
+    from repro_torch.kernels import decode_attention as DA
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import linear_scan as LS
+    from repro_torch.launch.dryrun import STEP_RTOL, rel_rms
+    cfg = zoo_config(arch, layers)
+    params, batch, tokens = tp_inputs(dev, cfg)
+    tp_serve(dev, cfg, params, batch, tokens, steps=1)    # a warm-up
+    meshless = tp_serve(dev, cfg, params, batch, tokens)
+    counters = {"flash_attention": (FA.flash_attention, "launches"),
+                "decode_attention": (DA.decode_attention, "launches"),
+                "decode_attention_lse": (DA.decode_attention,
+                                         "lse_launches"),
+                "wkv_linear_scan": (LS.wkv_linear_scan, "launches")}
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
+    meshed = tp_serve(dev, cfg, params, batch, tokens, mesh=mesh)
+    launches = {k: getattr(fn, attr) for k, (fn, attr) in counters.items()}
+    want = {k: 0 for k in counters}
+    want.update(tp_family_launches(cfg))
+    pairs = [(f"logits_{i}", a, b) for i, (a, b) in enumerate(
+        zip(meshed["logits"], meshless["logits"]))]
+    pairs += [(f"cache_{i}", a, b) for i, (a, b) in enumerate(
+        zip(cache_tensors(meshed["cache"]),
+            cache_tensors(meshless["cache"])))]
+    errs = {k: rel_rms(a, b) for k, a, b in pairs}
+    out = dict(
+        arch=arch, layers=cfg.num_layers, batch=TP_BATCH, prompt=TP_PROMPT,
+        steps=TP_STEPS, dtype=cfg.param_dtype, mesh_shape=[1, 1],
+        launches=launches, max_rel_rms=max(errs.values()), limit=STEP_RTOL,
+        bitwise=all(torch.equal(a, b) for _, a, b in pairs),
+        prefill_s=meshed["seconds"][0],
+        meshless_prefill_s=meshless["seconds"][0],
+        decode_p50_s=statistics.median(meshed["seconds"][1:]),
+        meshless_decode_p50_s=statistics.median(meshless["seconds"][1:]))
+    del meshed, meshless, params, batch, tokens, pairs
+    torch.cuda.empty_cache()
+    print(json.dumps({"tp_family": out}), flush=True)
+    off = {k: e for k, e in errs.items() if not e <= STEP_RTOL}
+    if off or launches != want:
+        raise AssertionError(f"the (1, 1) partitioned serve of {arch}: "
+                             f"{off or launches} (launches wanted {want})")
+    return out
+
+
+def tp_rank_kernels(dev) -> list[dict]:
+    """The flash, decode (with its log-sum-exp) and wkv kernels at one
+    ``(16, 16)`` rank's shapes of the dry-run cells (``TP_RANK_CELLS``),
+    through ``dryrun_kernel_rows``: row by row within 2^-6 of the plain
+    versions (the wkv state within 1e-4, the log-sum-exps within
+    ``LSE_RTOL``), each planted fault past its limit, timed behind the
+    spin kernel beside the bound, the plain version and SDPA."""
+    import dataclasses
+    from repro_torch.configs import SHAPE_CELLS, get_config
+    from repro_torch.models.registry import DECODE_SLACK
+    m, rows = TP_RANK_M, []
+    for arch, shape, full in TP_RANK_CELLS:
+        cfg = get_config(arch)
+        if ZOO_REDUCED:
+            cfg = cfg.reduced()
+        cell = SHAPE_CELLS[shape]
+        if DRYRUN_SEQ:
+            cell = dataclasses.replace(cell, seq_len=DRYRUN_SEQ[shape])
+        cell = dataclasses.replace(cell, global_batch=max(
+            1, cell.global_batch // m))
+        if cell.kind == "prefill" or cfg.family == "ssm":
+            # a prefill's (and the scan's) heads are the rank's
+            cfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
+                                      num_kv_heads=max(
+                                          1, cfg.num_kv_heads // m))
+        elif cell.kind == "decode":
+            # the last rank's row block: (S + slack) / m rows, of which
+            # the last DECODE_SLACK are past the served length
+            cell = dataclasses.replace(cell, seq_len=(
+                cell.seq_len + DECODE_SLACK) // m - DECODE_SLACK)
+        rows += dryrun_kernel_rows(dev, cfg, cell, arch, causal=not full,
+                                   lse=cell.kind == "decode"
+                                   and cfg.family != "ssm",
+                                   tag="tp_rank_kernel")
+    return rows
+
+
+def tp_launches(tp: dict, name: str) -> dict:
+    """``name``'s launches in each family's (1, 1) partitioned serve of
+    the tp phase, by path, where it launched."""
+    return {f"{a} ({f['layers']} layers) tp (1, 1)": f["launches"][name]
+            for a, f in tp["families"].items() if f["launches"][name]}
+
+
+def tp_rank_shapes(tp: dict, name: str) -> list:
+    return [r for r in tp["rank_kernels"] if r["kernel"] == name]
 
 
 def _tp_blocks(tree, specs, mesh, coord):
@@ -4702,8 +4888,10 @@ def phase_tp(dev) -> dict:
     with the log-sum-exp a step counted from zero; the measured step bytes
     of the (1, 1) steps against the ``--mesh`` meta reckoning of the same
     steps (``tp_step_bytes``, within ``TP_BYTES_RTOL`` on the plain
-    routes); then the model axis at 2 tried in two processes over gloo
-    (``tp_two_process``)."""
+    routes); the other families the same way (``tp_family`` over
+    ``TP_FAMILIES``); the three kernels at one ``(16, 16)`` rank's shapes
+    (``tp_rank_kernels``); then the model axis at 2 tried in two
+    processes over gloo (``tp_two_process``)."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -4747,6 +4935,8 @@ def phase_tp(dev) -> dict:
             raise AssertionError(f"the (1, 1) serve launched {launches}, "
                                  f"want {want}")
         out["bytes"] = tp_step_bytes(dev, cfg, mesh, reckoned, params)
+        # rwkv6, enc-dec and zamba2 partitioned the same way
+        families = {a: tp_family(dev, mesh, a, n) for a, n in TP_FAMILIES}
     finally:
         dist.destroy_process_group()
         store.unlink(missing_ok=True)
@@ -4778,6 +4968,8 @@ def phase_tp(dev) -> dict:
            if k.endswith("chunked") and not r["rel_err"] <= TP_BYTES_RTOL}
     if off or far:
         raise AssertionError(f"the (1, 1) partitioned serve: {off or far}")
+    out["families"] = families
+    out["rank_kernels"] = tp_rank_kernels(dev)
     out["two_process"] = tp_two_process(dev, cfg, meshless)
     del meshless, params
     torch.cuda.empty_cache()
@@ -4885,7 +5077,7 @@ def main(argv: list[str]) -> int:
                            "the remat phase")
     only.add_argument("--tp-only", action="store_true",
                       help="run only the build of the attention kernels "
-                           "and the tp phase")
+                           "and the wkv scan, and the tp phase")
     only.add_argument("--mesh-only", action="store_true",
                       help="run only the build of the quantize pair and "
                            "the mesh phase")
@@ -5101,12 +5293,14 @@ def run_mesh(dev) -> None:
 
 
 def run_tp(dev) -> None:
-    """``--tp-only``: build the two attention kernels, then the tp
-    phase."""
+    """``--tp-only``: build the two attention kernels and the wkv scan,
+    then the tp phase."""
     from repro_torch.kernels import decode_attention as DA
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import linear_scan as LS
     build_only("flash_attention", FA._load_lib)
     build_only("decode_attention", DA._load_lib)
+    build_only("wkv_linear_scan", LS._load_lib)
     t0 = time.monotonic()
     tp = phase_tp(dev)
     emit("tp", seconds=time.monotonic() - t0, **tp)
@@ -5394,14 +5588,18 @@ def run(dev) -> None:
                    for a, z in {**zoo_serves, **fam_serves}.items()},
                 ENC_ARCH: enc_timed["launches"][name],
                 "dryrun": dryrun_launches(dry, name),
-                f"{TP_ARCH} tp (1, 1)": tp["serve"]["launches"][name]},
+                f"{TP_ARCH} tp (1, 1)": tp["serve"]["launches"][name],
+                **tp_launches(tp, name)},
             # the decode kernel with its log-sum-exp (the partitioned
             # decode's route) beside the launch without it, bfloat16
             **({"lse_shapes": [r for r in tp["lse"]
                                if r["dtype"] == "bfloat16"],
                 "lse_launches": tp["serve"]["launches"][
-                    "decode_attention_lse"]}
+                    "decode_attention_lse"] + sum(tp_launches(
+                        tp, "decode_attention_lse").values())}
                if name == "decode_attention" else {}),
+            # one (16, 16) rank's shapes of the dry-run cells
+            "tp_rank_shapes": tp_rank_shapes(tp, name),
             "max_abs_err": max(r["max_abs_err"] for r in mine
                                if r["dtype"] == "bfloat16"),
             "max_abs_err_float32": max(r["max_abs_err"] for r in mine
@@ -5472,8 +5670,10 @@ def run(dev) -> None:
         "scenario_path": scen["kernel"]},
         *serve_kernels, dict(wkv_kernel, launches_by_path={
             RWKV_ARCH: wkv_kernel["launches"],
-            "dryrun": dryrun_launches(dry, "wkv_linear_scan")},
-            dryrun_shapes=dryrun_shapes(dry, "wkv_linear_scan")),
+            "dryrun": dryrun_launches(dry, "wkv_linear_scan"),
+            **tp_launches(tp, "wkv_linear_scan")},
+            dryrun_shapes=dryrun_shapes(dry, "wkv_linear_scan"),
+            tp_rank_shapes=tp_rank_shapes(tp, "wkv_linear_scan")),
         *quant_kernel_rows(quant, train_run, {
             **families, f"{REMAT_ARCH} remat=dots": remat["train_step"],
             f"{TRAIN_ARCH} mesh (1, 1)": mesh["train"]}),

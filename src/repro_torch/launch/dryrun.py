@@ -72,10 +72,8 @@ ranks in this process (``launch.mesh.fake_mesh``; rank 0), and
   ``{kind: {"bytes", "count"}}`` for all-gather, all-reduce,
   reduce-scatter, all-to-all and collective-permute (output bytes, as
   ``parse_collectives`` records them; ``MetaPass`` counts them); and
-  model_axis: ``"compute"`` where the model axis partitions the step's
-  products (the dense, MoE and VLM families) or ``"storage"`` where it
-  shards the stored blocks only and the ranks compute on gathered whole
-  tensors (rwkv6, zamba2, enc-dec); fits: argument plus temp bytes within
+  model_axis: ``"compute"``, the model axis partitioning the step's
+  products (every family); fits: argument plus temp bytes within
   ``H100.hbm_bytes``.  All of it is a reckoning on the meta device, not a
   measurement.
 

@@ -32,16 +32,11 @@ On a ``DeviceMesh`` (over an initialised process group; the dry-run's
 fake group of 256 or 512 ranks too) each builder returns one rank's step
 instead: its arguments are the rank's blocks per the specs, plain tensors
 of their local shapes (``arg_specs`` holds meta tensors of those shapes),
-and its outputs are the rank's blocks of the out shardings' specs.  For
-the attention families (dense, MoE, VLM: ``models/transformer.py``) the
-step partitions its compute over the model axis and gathers each layer's
-FSDP blocks over the DP axes where the layer uses them
-(``PARTITIONED_FAMILIES``; the transformer's docstring says how).  The
-other families (rwkv6, zamba2, enc-dec) keep the storage-sharded step:
-each leaf is gathered whole (the cache to the rank's batch rows), the
-model runs on the whole tensors and the rank keeps its blocks of what it
-wrote; their partitioned compute is still to port (ROADMAP Queue 1 item
-4).  ``model_axis(cfg)`` names which of the two a config runs.
+and its outputs are the rank's blocks of the out shardings' specs.  Every
+family's step partitions its compute over the model axis and gathers
+each layer's FSDP blocks over the DP axes where the layer uses them
+(``PARTITIONED_FAMILIES``: the transformer's families, rwkv6, zamba2 and
+enc-dec; each model's docstring says how); ``model_axis(cfg)`` says so.
 """
 
 from __future__ import annotations
@@ -53,7 +48,7 @@ import torch
 
 from repro_torch.configs.base import ATTENTION_IMPLS, ModelConfig, ShapeCell
 from repro_torch.device import resolve_device
-from repro_torch.meta import loop_repeats, repeated, tensors_of
+from repro_torch.meta import loop_repeats, repeated
 from repro_torch.models.registry import (Model, build_model, cache_spec,
                                          input_specs, param_specs)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
@@ -70,14 +65,17 @@ __all__ = ["build_train_step", "build_train_bundle",
 
 STEP_DEVICES = ("cuda", "cpu", "meta")
 # the families whose rank's step partitions its compute over the model axis
-PARTITIONED_FAMILIES = ("dense", "moe", "vlm")
+PARTITIONED_FAMILIES = ("dense", "moe", "vlm", "ssm", "hybrid", "audio")
 
 
 def model_axis(cfg: ModelConfig) -> str:
     """What the model axis does in a rank's step of ``cfg``: ``"compute"``
-    (its products partitioned over it) or ``"storage"`` (it shards the
-    stored blocks; the ranks compute on gathered whole tensors)."""
-    return "compute" if cfg.family in PARTITIONED_FAMILIES else "storage"
+    (its products partitioned over it), for every family the port runs;
+    another raises ``NotImplementedError``."""
+    if cfg.family not in PARTITIONED_FAMILIES:
+        raise NotImplementedError(f"family {cfg.family!r}: no partitioned "
+                                  f"step")
+    return "compute"
 
 
 def _on_groups(mesh) -> bool:
@@ -204,17 +202,13 @@ def _rank_grads(cfg: ModelConfig, mesh, grad_compress: Callable | None):
     ``microbatch_count`` at the mesh's DP size).  The loss is the DP mean;
     the gradients are the rank's blocks of the DP-mean gradient.
 
-    Partitioned (``model_axis(cfg) == "compute"``): the model runs under
-    the rank's ``api.ComputeAxes``, its FSDP gathers' backward passes
-    reduce-scatter the gradients over the DP group -- each block comes
-    back as the DP sum of its gradients, with no whole gradient on any
-    rank -- and ``spmd.dp_mean`` all-reduces the leaves the DP axes leave
-    whole and divides by the DP size.  A reduce-scatter and not an
-    all-reduce and a slice: each rank keeps only its block, so it need not
-    receive the rest.  Storage-sharded: every leaf is gathered whole, the
-    whole gradients are averaged over the DP group by an all-reduce (every
-    rank of a model-axis row computed the same ones) and each rank keeps
-    its blocks.
+    The model runs under the rank's ``api.ComputeAxes``, its FSDP
+    gathers' backward passes reduce-scatter the gradients over the DP
+    group -- each block comes back as the DP sum of its gradients, with
+    no whole gradient on any rank -- and ``spmd.dp_mean`` all-reduces the
+    leaves the DP axes leave whole and divides by the DP size.  A
+    reduce-scatter and not an all-reduce and a slice: each rank keeps
+    only its block, so it need not receive the rest.
 
     ``grad_compress`` (the approximate collective's quantize round trip)
     applies to each whole mean gradient, as JAX applies it to the global
@@ -241,19 +235,11 @@ def _rank_grads(cfg: ModelConfig, mesh, grad_compress: Callable | None):
     def grads_fn(params: dict, rows: dict, global_batch: int
                  ) -> tuple[torch.Tensor, dict]:
         m = microbatch_count(cfg, global_batch, dp)
-        if model_axis(cfg) == "compute":
-            with api.active(mesh, axes):
-                loss, grads = compute_grads(model, params, rows, m)
-            grads = spmd.dp_mean(grads, axes)
-            if grad_compress is not None:
-                grads = blocks(grad_compress(whole(grads)))
-        else:
-            loss, grads = compute_grads(model, whole(params), rows, m)
-            grads = tree_map(lambda g: all_reduce(g, axes.dp_group).div_(dp)
-                             if dp > 1 else g, grads)
-            if grad_compress is not None:
-                grads = grad_compress(grads)
-            grads = blocks(grads)
+        with api.active(mesh, axes):
+            loss, grads = compute_grads(model, params, rows, m)
+        grads = spmd.dp_mean(grads, axes)
+        if grad_compress is not None:
+            grads = blocks(grad_compress(whole(grads)))
         loss = all_reduce(loss.float().clone(), axes.dp_group)
         return (loss.div_(dp) if dp > 1 else loss), grads
 
@@ -294,13 +280,11 @@ def build_sharded_grads(cfg: ModelConfig, mesh,
     It takes the rank's rows of the batch per ``batch_specs`` (over the DP
     axes, so the model-axis ranks of one DP group share rows; over every
     axis under ``zero3``) and runs ``_rank_grads`` on the rank's blocks:
-    for the attention families the partitioned compute, whose gradients
-    come back as the rank's blocks of the DP mean without a whole
-    parameter or gradient on any rank; for the others the
-    storage-sharded step (whole parameters gathered, the whole gradients
-    averaged over the DP group).  Returns the DP-mean loss and the mean
-    gradient as ``DTensor``s of the rank's blocks, placed as the
-    parameters (``full_tensor()`` gathers one whole)."""
+    the partitioned compute, whose gradients come back as the rank's
+    blocks of the DP mean without a whole parameter or gradient on any
+    rank.  Returns the DP-mean loss and the mean gradient as ``DTensor``s
+    of the rank's blocks, placed as the parameters (``full_tensor()``
+    gathers one whole)."""
     from repro_torch.sharding import spmd
     grads_fn = _rank_grads(cfg, mesh, grad_compress)
     coord = spmd.coordinate(mesh)
@@ -329,13 +313,11 @@ def build_sharded_train_step(cfg: ModelConfig, mesh,
     passes the same one).
 
     The step runs ``_rank_train_step`` on the rank's blocks and its batch
-    rows: the DP-mean loss and gradient blocks of ``_rank_grads`` (for the
-    attention families the compute partitioned over the model axis, each
-    rank computing its heads, FFN columns, experts and vocabulary block;
-    for rwkv6, zamba2 and enc-dec whole parameters gathered and computed
-    alike on the model axis's ranks), then AdamW on the blocks, clipped by
-    the norm of the whole mean gradient.  The loss it returns is the DP
-    mean."""
+    rows: the DP-mean loss and gradient blocks of ``_rank_grads`` (the
+    compute partitioned over the model axis, each rank computing its
+    heads, FFN columns, experts and vocabulary block), then AdamW on the
+    blocks, clipped by the norm of the whole mean gradient.  The loss it
+    returns is the DP mean."""
     from repro_torch.sharding import spmd
     step = _rank_train_step(cfg, mesh, opt, grad_compress)
     coord = spmd.coordinate(mesh)
@@ -410,106 +392,16 @@ def _rank_serving(cfg: ModelConfig, mesh, shardings: tuple, whole: tuple,
     """One rank's serving step ``(params, inputs, cache) -> (logits,
     cache)`` over its blocks, ``run(params, inputs, cache)`` being the
     model's prefill or decode step and ``whole`` the meta stand-ins of its
-    whole arguments.  Partitioned: ``run`` under the rank's
-    ``api.ComputeAxes`` (the cache's rows on the model axis where
-    ``cache_specs`` puts them there).  Storage-sharded: the parameters
-    gathered whole and each cache leaf gathered to the rank's batch rows
-    (``_StorageRows``), ``run`` on them, and the rank's blocks of the
-    logits and of what it wrote kept (its cache leaves written in
-    place)."""
+    whole arguments: ``run`` under the rank's ``api.ComputeAxes``, which
+    say which cache fields lie on the model axis (``cache_specs``)."""
     from repro_torch.sharding import api, spmd
-    (pspecs, ispecs, cspecs), (lspec, _) = shardings
-    if model_axis(cfg) == "compute":
-        axes = spmd.compute_axes(mesh, cfg, whole[0],
-                                 kv_split=cspecs.k[2] == "model")
+    (_, _, cspecs), _ = shardings
+    axes = spmd.compute_axes(mesh, cfg, whole[0], cache_specs=cspecs)
 
-        def partitioned(params, inputs, cache):
-            with api.active(mesh, axes):
-                return run(params, inputs, cache)
-        return partitioned
-
-    rows = _StorageRows(mesh, ispecs)
-    n = tensors_of(whole[1])[0].shape[0]
-
-    def bdim(g: torch.Tensor) -> int:
-        # [L, B, ...]; an encoder output [B, S, D] has its rows first
-        return 1 if g.dim() > 1 and g.shape[1] == n else 0
-
-    def storage(params, inputs, cache):
-        wp = tree_map(lambda x, sp: spmd.gather_whole(x, sp, mesh), params,
-                      pspecs)
-        full = _cache_map(lambda x, sp, g: rows.gather(x, sp, bdim(g)),
-                          cache, cspecs, whole[2])
-        logits, new = run(wp, inputs, full)
-        del wp, full
-        _cache_map(lambda x, sp, g, y: x.copy_(rows.block(y, sp, bdim(g))),
-                   cache, cspecs, whole[2], new)
-        out = _cache_map(lambda x, sp: x, cache, cspecs, keep=new)
-        return rows.block(logits, lspec, 0), out
-    return storage
-
-
-class _StorageRows:
-    """A storage-sharded serving step's cache leaves against its inputs'
-    batch rows (split over the DP axes, or whole where the batch does not
-    divide them).  ``gather`` turns the rank's block of a leaf into what
-    the whole model reads: every split gathered but a DP split of the
-    leaf's batch dim, and then the rank's rows of it.  ``block`` cuts what
-    the model wrote (the rank's rows) back to the rank's block, gathering
-    the DP group's rows first where the spec splits another dim over the
-    DP axes (JAX's ``cache_specs`` splits dim 1 of any 3-D leaf so: an
-    encoder output's ``[B, S, D]`` sequence)."""
-
-    def __init__(self, mesh, input_specs):
-        from repro_torch.sharding import spmd
-        first = partition.spec_leaves(input_specs)[0]
-        self.mesh = mesh
-        self.dp = partition._axes_of(first[0]) if len(first) else ()
-        self.dp_group = (spmd._dp_group_cached(mesh, self.dp) if self.dp
-                         else None)
-        self.coord = spmd.coordinate(mesh)
-
-    def _rows_split(self, spec, b: int) -> bool:
-        return bool(self.dp) and len(spec) > b and \
-            partition._axes_of(spec[b]) == self.dp
-
-    def gather(self, x: torch.Tensor, spec, b: int) -> torch.Tensor:
-        from repro_torch.sharding import spmd
-        from repro_torch.sharding.collectives import rank
-        if self._rows_split(spec, b):
-            return spmd.gather_whole(x, spec, self.mesh, skip=(b,))
-        x = spmd.gather_whole(x, spec, self.mesh)
-        if self.dp:
-            n = x.shape[b] // self.dp_group.size()
-            x = x.narrow(b, rank(self.dp_group) * n, n)
-        return x
-
-    def block(self, y: torch.Tensor, spec, b: int) -> torch.Tensor:
-        from repro_torch.sharding.collectives import all_gather
-        if self._rows_split(spec, b):
-            spec = partition.PartitionSpec(*[None if d == b else e
-                                             for d, e in enumerate(spec)])
-        elif self.dp:
-            y = all_gather(y, b, self.dp_group)
-        return partition.NamedSharding(self.mesh, spec).local_block(
-            y, self.coord)
-
-
-def _cache_map(fn: Callable, cache, specs, *rest, keep=None):
-    """``fn(leaf, spec, *rest_leaves)`` over a cache's tensors (nested
-    dataclasses), its int fields kept -- from ``keep`` where given (a
-    step's returned cache, whose ``length`` moved)."""
-    def walk(node, spec, others, kept):
-        if dataclasses.is_dataclass(node) and not isinstance(node, type):
-            return dataclasses.replace(node, **{
-                f.name: walk(getattr(node, f.name), getattr(spec, f.name),
-                             [getattr(o, f.name) for o in others],
-                             None if kept is None else getattr(kept, f.name))
-                for f in dataclasses.fields(node)})
-        if not isinstance(node, torch.Tensor):
-            return node if kept is None else kept
-        return fn(node, spec, *others)
-    return walk(cache, specs, list(rest), keep)
+    def partitioned(params, inputs, cache):
+        with api.active(mesh, axes):
+            return run(params, inputs, cache)
+    return partitioned
 
 
 def _io_shardings(cfg: ModelConfig, cell: ShapeCell, mesh, specs: tuple,

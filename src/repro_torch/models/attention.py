@@ -21,6 +21,13 @@ give each head's log-sum-exp over the rows they read, and
 some rows of a cache whose sequence axis lies on a mesh's model axis (the
 flash-decode merge of the kernel's splits, across ranks).
 
+``attention_tp`` is one rank's attention in a partitioned step (every
+family's: the transformer's, enc-dec's self- and cross-attention,
+zamba2's shared block), from the rank's column blocks of q, k and v to
+the rank's columns of the output that its row-parallel ``wo`` block
+reads; ``fill_cache`` / ``write_new_rows`` write a prefill's and a decode
+step's rows into the rank's block of a cache.
+
 GQA is computed grouped (q reshaped to ``[B, S, KH, G, D]``) in the einsum
 paths, so KV is never repeated there.  Where the JAX package takes bf16
 operands with ``preferred_element_type=float32``, the port upcasts the
@@ -35,10 +42,11 @@ import torch
 from repro_torch.kernels import decode_attention as _decode_kernel
 from repro_torch.kernels import flash_attention as _flash_kernel
 from repro_torch.meta import loop_repeats, repeated
-from repro_torch.models.layers import NEG_INF
+from repro_torch.models.layers import NEG_INF, apply_rope, rms_norm
 from repro_torch.sharding import collectives
 
-__all__ = ["gqa_attention", "decode_attention", "merge_decode_partials"]
+__all__ = ["gqa_attention", "decode_attention", "merge_decode_partials",
+           "attention_tp", "fill_cache", "write_new_rows"]
 
 
 def _group_q(q: torch.Tensor, kh: int) -> torch.Tensor:
@@ -206,3 +214,147 @@ def merge_decode_partials(out: torch.Tensor, lse: torch.Tensor, group, *,
     else:
         part = collectives.all_reduce(part, group)
     return part.to(out.dtype)
+
+
+# -----------------------------------------------------------------------------
+# a rank's attention in a partitioned step
+# -----------------------------------------------------------------------------
+
+
+def _write_rows(cache_l: torch.Tensor, rows: torch.Tensor, first: int
+                ) -> None:
+    """Write ``rows`` ``[B, n, KH, HD]`` into one layer's cache of the
+    rank from its row ``first``."""
+    n = rows.shape[1]
+    cache_l[:, first:first + n] = rows.to(cache_l.dtype)
+
+
+def write_new_rows(tp, cache, k, v, *, split: bool) -> int:
+    """A decode step's cache write in a partitioned step: the new rows
+    (every KV head) at ``length``, on the rank whose rows they are (every
+    rank where the cache's rows are not ``split`` over the model axis);
+    returns how many of the rank's rows are valid after it (0: the rank
+    holds none yet).  ``k = v = None`` writes nothing: a cache read at
+    ``length`` rows (enc-dec's cross cache)."""
+    k_cache, v_cache, length = cache
+    rows = k_cache.shape[1]
+    s = 0 if k is None else k.shape[1]
+    first = tp.model_rank * rows if split else 0
+    if s and first <= length < first + rows:
+        _write_rows(k_cache, k, length - first)
+        _write_rows(v_cache, v, length - first)
+    return min(max(length + s - first, 0), rows)
+
+
+def fill_cache(tp, fill, k, v, *, whole: bool, split: bool) -> None:
+    """A prefill's cache write: the ``S`` prompt rows of ``k`` / ``v``
+    (every KV head where ``whole``, else the rank's KV heads) into the
+    rank's cache rows -- all of them without a ``split`` cache, else rows
+    ``r*R .. (r+1)*R`` of the prompt, sent to their rank by an all-to-all
+    where the rank holds only its own heads."""
+    k_cache, v_cache = fill
+    rows, s = k_cache.shape[1], k.shape[1]
+    if not split:
+        if not whole:
+            k = collectives.all_gather(k, 2, tp.model_group)
+            v = collectives.all_gather(v, 2, tp.model_group)
+        _write_rows(k_cache, k, 0)
+        _write_rows(v_cache, v, 0)
+        return
+    m, r = tp.model_size, tp.model_rank
+    if whole or m == 1:
+        lo, hi = r * rows, min((r + 1) * rows, s)
+        if hi > lo:
+            _write_rows(k_cache, k[:, lo:hi], 0)
+            _write_rows(v_cache, v[:, lo:hi], 0)
+        return
+    pad = (0, 0, 0, 0, 0, m * rows - s)
+    for t, cache_l in ((k, k_cache), (v, v_cache)):
+        t = torch.nn.functional.pad(t, pad)       # [B, m*R, KH/m, HD]
+        _write_rows(cache_l, collectives.all_to_all(t, 1, 2, tp.model_group),
+                    0)
+
+
+def attention_tp(q: torch.Tensor, k: "torch.Tensor | None",
+                 v: "torch.Tensor | None", tp, *, heads: tuple,
+                 causal: bool, impl: str, chunk: int, rope=None,
+                 scales: tuple = (None, None), cache=None, fill=None,
+                 split: bool = False) -> torch.Tensor:
+    """One rank's attention in a partitioned step, from the rank's column
+    blocks of the projections -- q ``[B, Sq, QH*HD/m]``, k / v ``[B, Sk,
+    KH*HD/m]`` (``heads = (QH, KH, HD)``, the whole counts) -- to the
+    rank's columns ``[B, Sq, QH*HD/m]`` of the attention output, what its
+    row-parallel ``wo`` block reads.  ``rope = (cos, sin)`` rotates q and k
+    (none for cross-attention); ``scales`` are qk-norm's per-head scales;
+    ``causal`` and ``impl`` / ``chunk`` as ``gqa_attention`` takes them.
+
+    Prefill (``cache`` None): over the rank's own query heads where the
+    heads divide the model axis (its K/V heads gathered over the axis
+    where the KV heads do not), else over every head with Q, K and V
+    gathered, keeping the rank's columns.  ``fill = (k_cache, v_cache)``
+    writes the keys and values into the rank's cache block
+    (``fill_cache``; ``split``: its rows lie on the model axis).
+
+    Decode (``cache = (k_cache, v_cache, length)``): every head of the
+    new token, its rows written on the rank that owns them
+    (``write_new_rows``; ``k = v = None`` reads a cache of ``length``
+    rows and writes nothing), attention over the rank's rows with the
+    decode kernel's log-sum-exp and, for a ``split`` cache, the ranks'
+    partials merged into the rank's columns
+    (``merge_decode_partials``)."""
+    b, sq = q.shape[:2]
+    qh, kh, hd = heads
+    group, m, r = tp.model_group, tp.model_size, tp.model_rank
+    c = qh * hd // m
+
+    def shaped(t, n, scale):
+        t = t.reshape(b, t.shape[1], n, hd)
+        return t if scale is None else rms_norm(t, scale)
+
+    def rot(t):
+        return t if rope is None else apply_rope(t, *rope)
+
+    if cache is not None:
+        q = rot(shaped(collectives.gather_summed(q, -1, group), qh,
+                       scales[0]))
+        if k is not None:
+            k = rot(shaped(collectives.gather_summed(k, -1, group), kh,
+                           scales[1]))
+            v = shaped(collectives.gather_summed(v, -1, group), kh, None)
+        valid = write_new_rows(tp, cache, k, v, split=split)
+        dimpl = "kernel" if impl == "kernel" else "einsum"
+        out, lse = decode_attention(q, cache[0], cache[1], valid,
+                                    impl=dimpl, return_lse=True)
+        if split:
+            return merge_decode_partials(out, lse, group, own_columns=True)
+        return out.reshape(b, sq, -1).narrow(-1, r * c, c)
+
+    if qh % m == 0 and (kh % m == 0 or m % kh == 0):
+        # the rank's query heads, and the KV heads they read
+        nq = qh // m
+        q = rot(shaped(q, nq, scales[0]))
+        if kh % m == 0:
+            k = rot(shaped(k, kh // m, scales[1]))
+            v = shaped(v, kh // m, None)
+            if fill is not None:
+                fill_cache(tp, fill, k, v, whole=m == 1, split=split)
+            kq, vq = k, v
+        else:
+            k = rot(shaped(collectives.gather_summed(k, -1, group), kh,
+                           scales[1]))
+            v = shaped(collectives.gather_summed(v, -1, group), kh, None)
+            if fill is not None:
+                fill_cache(tp, fill, k, v, whole=True, split=split)
+            j = (r * nq) // (qh // kh)
+            kq, vq = k[:, :, j:j + 1], v[:, :, j:j + 1]
+        out = gqa_attention(q, kq, vq, causal=causal, impl=impl,
+                            chunk=chunk)
+        return out.reshape(b, sq, -1)
+    # every head on every rank, the rank's columns of the output
+    q = rot(shaped(collectives.gather_summed(q, -1, group), qh, scales[0]))
+    k = rot(shaped(collectives.gather_summed(k, -1, group), kh, scales[1]))
+    v = shaped(collectives.gather_summed(v, -1, group), kh, None)
+    if fill is not None:
+        fill_cache(tp, fill, k, v, whole=True, split=split)
+    out = gqa_attention(q, k, v, causal=causal, impl=impl, chunk=chunk)
+    return out.reshape(b, sq, -1).narrow(-1, r * c, c)

@@ -22,6 +22,13 @@ and recomputes the rest (``checkpoint_dots_with_no_batch_dims`` there)
 where the JAX block takes that policy -- the transformer's -- and as
 ``"full"`` where it takes plain ``jax.checkpoint`` (rwkv6, zamba2 and
 enc-dec check ``cfg.remat in ("full", "dots")``).
+
+The tensor-parallel pieces every family's partitioned step shares: the
+norms over a last axis split across the model axis (``group=``: their
+moments summed by ``group_sum``), a leaf's whole (``gather_model``,
+``model_whole``) or the rank's part (``model_slice``), and the
+vocabulary-parallel embedding, head and loss (``embed_tokens``,
+``vocab_logits``, ``next_token_loss``).
 """
 
 from __future__ import annotations
@@ -32,13 +39,17 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.sharding import collectives
+from repro_torch.configs.base import dtype_of
+from repro_torch.sharding import collectives, spmd
+from repro_torch.sharding.api import compute_axes
 from repro_torch.tree import tree_leaves
 
-__all__ = ["rms_norm", "layer_norm", "init_norm", "init_linear", "swiglu",
-           "gelu_mlp", "rope", "apply_rope", "mrope_frequencies",
-           "mask_padded_vocab", "unbind_layers", "remat_checkpoints",
-           "remat_block", "dots_policy", "NEG_INF", "DRAW_BLOCK"]
+__all__ = ["rms_norm", "layer_norm", "group_sum", "init_norm",
+           "init_linear", "swiglu", "gelu_mlp", "rope", "apply_rope",
+           "mrope_frequencies", "mask_padded_vocab", "unbind_layers",
+           "remat_checkpoints", "remat_block", "dots_policy", "model_split",
+           "gather_model", "model_whole", "model_slice", "embed_tokens",
+           "vocab_logits", "next_token_loss", "NEG_INF", "DRAW_BLOCK"]
 
 NEG_INF = -2.3819763e38  # large finite negative, bf16-safe (the JAX value)
 DRAW_BLOCK = 1 << 24     # float32 elements ``init_linear`` draws at a time
@@ -49,22 +60,48 @@ DRAW_BLOCK = 1 << 24     # float32 elements ``init_linear`` draws at a time
 # -----------------------------------------------------------------------------
 
 
+def group_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the model-axis ``group``, its gradient summed
+    over the group too (each rank's part of the loss reads the sum): a
+    norm's moments over a last axis split across the group."""
+    return collectives.copy_to(collectives.reduce_from(x, group), group)
+
+
+def _split_norm(group) -> bool:
+    return group is not None and collectives.size(group) > 1
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, *,
-             eps: float = 1e-6) -> torch.Tensor:
-    """RMS norm over the last axis in float32, cast back to ``x``'s dtype."""
+             eps: float = 1e-6, group=None) -> torch.Tensor:
+    """RMS norm over the last axis in float32, cast back to ``x``'s dtype.
+    With a model-axis ``group`` (of more than one rank) the last axis is
+    the rank's block of one split over the group (``scale`` its block
+    too): the sum of squares is summed over the group."""
     x32 = x.float()
-    var = x32.square().mean(-1, keepdim=True)
+    if _split_norm(group):
+        n = x.shape[-1] * collectives.size(group)
+        var = group_sum(x32.square().sum(-1, keepdim=True), group) / n
+    else:
+        var = x32.square().mean(-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, group=None) -> torch.Tensor:
     """Layer norm over the last axis in float32 (biased variance, as
-    ``jnp.var``), cast back to ``x``'s dtype."""
+    ``jnp.var``), cast back to ``x``'s dtype.  ``group`` as in
+    ``rms_norm``: the mean, then the centred sum of squares, summed over
+    the group."""
     x32 = x.float()
-    mu = x32.mean(-1, keepdim=True)
-    var = (x32 - mu).square().mean(-1, keepdim=True)
+    if _split_norm(group):
+        n = x.shape[-1] * collectives.size(group)
+        mu = group_sum(x32.sum(-1, keepdim=True), group) / n
+        var = group_sum((x32 - mu).square().sum(-1, keepdim=True),
+                        group) / n
+    else:
+        mu = x32.mean(-1, keepdim=True)
+        var = (x32 - mu).square().mean(-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
 
@@ -238,6 +275,158 @@ def mask_padded_vocab(logits: torch.Tensor, real_vocab: int, *,
     col = torch.arange(offset, offset + v, device=logits.device)
     neg = torch.tensor(NEG_INF, dtype=logits.dtype, device=logits.device)
     return torch.where(col < real_vocab, logits, neg)
+
+
+# -----------------------------------------------------------------------------
+# Tensor-parallel pieces: what every family's layers read of a rank's
+# ``sharding.api.ComputeAxes`` in a partitioned step
+# -----------------------------------------------------------------------------
+
+
+def model_split(tp, path: tuple) -> bool:
+    """Whether the parameter leaf at ``path`` is split over the model
+    axis."""
+    plan = tp.plan(path)
+    return plan is not None and plan.model_dim is not None
+
+
+def gather_model(p: dict, tp, names: tuple, prefix: tuple = ("layers",)
+                 ) -> dict:
+    """A layer's ``p`` (its leaves under ``prefix``) with the leaves
+    ``names`` gathered whole over the model axis where the specs split
+    them (used alike on every rank: the gradient of a block is its
+    slice)."""
+    p = dict(p)
+    for n in names:
+        plan = tp.plan(tuple(prefix) + (n,))
+        if plan is not None and plan.model_dim is not None:
+            p[n] = collectives.gather_from(p[n], plan.model_dim,
+                                           tp.model_group)
+    return p
+
+
+def model_whole(w: torch.Tensor, tp, path: tuple) -> torch.Tensor:
+    """The leaf ``w`` at ``path`` gathered whole over the model axis where
+    the specs split it, for a computation every rank repeats whose
+    outputs feed the rank's own part (rwkv6's LoRAs, zamba2's ``in_proj``
+    re-laid to the rank's heads): each rank's gradient of it is a partial
+    sum, reduce-scattered back to the blocks in the backward pass."""
+    plan = tp.plan(tuple(path))
+    if plan is None or plan.model_dim is None:
+        return w
+    return collectives.gather_summed(w, plan.model_dim, tp.model_group)
+
+
+def model_slice(x: torch.Tensor, dim: int, tp) -> torch.Tensor:
+    """The rank's block along ``dim`` of a leaf (or value) the model axis
+    leaves whole, used in the rank's part of the work: its gradient summed
+    over the group (each rank's reaches its block only)."""
+    if tp.model_size == 1:
+        return x
+    x = collectives.copy_to(x, tp.model_group)
+    n = x.shape[dim] // tp.model_size
+    return x.narrow(dim, tp.model_rank * n, n)
+
+
+def embed_tokens(params: dict, tokens: torch.Tensor, cfg, *,
+                 name: str = "embed") -> torch.Tensor:
+    """The token embeddings ``params[name][tokens]`` in the compute dtype.
+    In a partitioned step the table's FSDP block is gathered and, where
+    the model axis splits the vocabulary, each rank looks up the tokens in
+    its rows (zero for the others') and an all-reduce sums the ranks'
+    lookups."""
+    compute = dtype_of(cfg.compute_dtype)
+    tp = compute_axes()
+    if tp is None:
+        return params[name][tokens.long()].to(compute)
+    table = spmd.fsdp_gather({name: params[name]}, tp)[name]
+    if not model_split(tp, (name,)) or tp.model_size == 1:
+        return table[tokens.long()].to(compute)
+    n = table.shape[0]
+    local = tokens.long() - tp.model_rank * n
+    mine = (local >= 0) & (local < n)
+    rows = table[local.clamp(0, n - 1)].to(compute)
+    rows = rows * mine[..., None].to(compute)
+    return collectives.reduce_from(rows, tp.model_group)
+
+
+def _head(params: dict, name: str, tied: bool, tp
+          ) -> "tuple[torch.Tensor, int]":
+    """The output head ``[D, V]`` as this rank computes with it, and the
+    vocabulary index of its first column: the rank's columns where the
+    model axis splits the vocabulary, else all of them."""
+    w = params[name]
+    if tp is not None:
+        w = spmd.fsdp_gather({name: w}, tp)[name]
+    head = w.T if tied else w
+    split = tp is not None and model_split(tp, (name,))
+    return head, tp.model_rank * head.shape[1] if split else 0
+
+
+def vocab_logits(params: dict, h: torch.Tensor, cfg, *,
+                 name: str = "lm_head", tied: bool = False) -> torch.Tensor:
+    """The logits ``h @ params[name]`` (``params[name].T`` where ``tied``:
+    the embedding) ``[B, S, V]``, padded columns masked -- in a
+    partitioned step the rank's block of the vocabulary where the model
+    axis splits it, ``[B, S, V/m]`` (``partition.logits_spec``)."""
+    tp = compute_axes()
+    head, first = _head(params, name, tied, tp)
+    if head.shape[1] < cfg.padded_vocab:        # the rank's columns
+        h = collectives.copy_to(h, tp.model_group)
+    return mask_padded_vocab(h @ head.to(h.dtype), cfg.vocab_size,
+                             offset=first)
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    """The negative log-likelihood of ``labels`` under logits whose
+    vocabulary is split over the model axis: each rank holds ``[N, V/m]``
+    float32 columns from ``first``.  The max, the sum of exponents and the
+    label's logit are each reduced over the group; the backward pass is
+    the rank's columns of ``softmax - onehot``."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, first, group):
+        C = collectives
+        n = logits.shape[1]
+        top = C.all_reduce(logits.amax(-1), group, "max")
+        z = logits - top[:, None]
+        e = torch.exp(z)
+        total = C.all_reduce(e.sum(-1), group)
+        local = labels - first
+        mine = (local >= 0) & (local < n)
+        idx = local.clamp(0, n - 1)
+        picked = C.all_reduce(z.gather(-1, idx[:, None])[:, 0]
+                              * mine.to(z.dtype), group)
+        ctx.save_for_backward(e.div_(total[:, None]), idx, mine)
+        return torch.log(total) - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, mine = ctx.saved_tensors
+        grad = p.scatter_add(-1, idx[:, None], -mine.to(p.dtype)[:, None])
+        return grad * g[:, None], None, None, None
+
+
+def next_token_loss(logits: torch.Tensor, labels: torch.Tensor, cfg
+                    ) -> torch.Tensor:
+    """The JAX ``loss_fn``'s cross-entropy: float32 ``logits`` ``[B, S,
+    V]`` (a caller casts them, so the compute-dtype logits are freed
+    first), log-softmax, the negative log-likelihood of ``labels`` ``[B,
+    S]`` averaged over the positions with ``labels >= 0``.  Logits of the
+    rank's vocabulary block (a partitioned step) take the
+    vocabulary-parallel cross-entropy."""
+    labels = labels.long()
+    tp = compute_axes()
+    if tp is not None and logits.shape[-1] < cfg.padded_vocab:
+        first = tp.model_rank * logits.shape[-1]
+        nll = _VocabParallelNLL.apply(
+            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1), first,
+            tp.model_group).reshape(labels.shape)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
 
 
 # -----------------------------------------------------------------------------

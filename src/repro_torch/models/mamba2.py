@@ -22,6 +22,18 @@ d_out]`` projections; ``A_log``, ``D``, ``dt_bias`` and ``norm_scale`` in
 float32).  The SSD's chunks run under ``torch.utils.checkpoint`` where
 ``cfg.remat`` recomputes blocks (``"full"`` or ``"dots"``); the JAX body
 checkpoints them under every policy.
+
+Tensor-parallel compute.  In a rank's partitioned step
+(``sharding.api.compute_axes()``) the layer runs the rank's heads (``H /
+m``; ``out_proj``'s row block and the SSM state's block are theirs).
+``in_proj``'s and ``conv_w``'s contiguous blocks cross the ``z | x | B |
+C | dt`` sections, so each is gathered over the model axis and re-laid to
+the rank's runs (``_rank_layout``: its ``z`` and ``x`` columns, all of
+``B`` and ``C``, its ``dt``) -- ``in_proj``'s product rather than the
+weight where the tokens are fewer than ``d_model`` (``_in_proj``) --, the
+conv tail read from and written back to the rank's block of the cache's;
+the gated RMS norm over ``d_inner`` sums its squares over the model axis,
+and ``out_proj``'s partial products are summed by one all-reduce.
 """
 
 from __future__ import annotations
@@ -34,8 +46,11 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.meta import checkpoint_repeated, loop_repeats, repeated
-from repro_torch.models.layers import (init_linear, remat_checkpoints,
+from repro_torch.models.layers import (init_linear, model_slice,
+                                       model_whole, remat_checkpoints,
                                        rms_norm)
+from repro_torch.sharding import collectives
+from repro_torch.sharding.api import compute_axes
 
 __all__ = ["Mamba2State", "mamba2_shapes", "init_mamba2", "ssd_chunked",
            "mamba2_forward", "mamba2_decode_step"]
@@ -189,54 +204,180 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, B: torch.Tensor,
     return y.to(x.dtype), hcur
 
 
-def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
-    d_inner, _, _, n = _dims(cfg)
+def _split_proj(zxbcdt: torch.Tensor, d_inner: int, n: int):
     z = zxbcdt[..., :d_inner]
     xbc = zxbcdt[..., d_inner:2 * d_inner + 2 * n]
     dt = zxbcdt[..., 2 * d_inner + 2 * n:]
     return z, xbc, dt
 
 
+def _runs(parts, dim: int, t: torch.Tensor) -> torch.Tensor:
+    """The ``(start, length)`` runs of ``t`` along ``dim``, in order."""
+    return torch.cat([t.narrow(dim, a, n) for a, n in parts], dim)
+
+
+def _rank_layout(cfg: ModelConfig, tp) -> tuple:
+    """The rank's runs of ``in_proj``'s columns (its ``z`` and ``x``
+    columns, all of ``B`` and ``C``, its ``dt``) and of the conv's
+    channels (its ``x`` channels, ``B`` and ``C``): its heads' share of
+    the layer, which ``param_specs``' contiguous blocks of both leaves
+    cross."""
+    d_inner, nheads, _, n = _dims(cfg)
+    m, r = tp.model_size, tp.model_rank
+    dl, hl = d_inner // m, nheads // m
+    cols = ((r * dl, dl), (d_inner + r * dl, dl), (2 * d_inner, 2 * n),
+            (2 * d_inner + 2 * n + r * hl, hl))
+    chans = ((r * dl, dl), (d_inner, 2 * n))
+    return cols, chans
+
+
+def _rank_params(params: dict, cfg: ModelConfig):
+    """The layer's leaves as this rank computes with them, and its axes
+    (``None`` outside a partitioned step or at a model axis of one rank,
+    where the leaves are the whole layer's).  In a partitioned step the
+    rank runs its heads (``H / m``): ``conv_w`` is gathered whole over the
+    model axis and re-laid to the rank's runs (``_rank_layout``; the
+    backward pass reduce-scatters its partial gradients), ``conv_b`` and
+    the per-head leaves cut to them; ``in_proj`` stays the rank's block
+    (``_in_proj`` re-lays it or its product); ``out_proj``'s row block is
+    the rank's heads already."""
+    tp = compute_axes()
+    if tp is None or tp.model_size == 1:
+        return params, None
+    d_inner, nheads, _, _ = _dims(cfg)
+    if nheads % tp.model_size:
+        raise NotImplementedError(
+            f"mamba2: {nheads} heads do not divide the model axis "
+            f"({tp.model_size}); the partitioned layer runs whole heads")
+    _, chans = _rank_layout(cfg, tp)
+    out = dict(params)
+    out["conv_w"] = _runs(chans, -1, model_whole(params["conv_w"], tp,
+                                                 ("mamba", "conv_w")))
+    out["conv_b"] = _runs(chans, -1, collectives.copy_to(
+        params["conv_b"], tp.model_group))
+    for name in ("A_log", "D", "dt_bias", "norm_scale"):
+        out[name] = model_slice(params[name], -1, tp)
+    return out, tp
+
+
+def _rank_conv(conv: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """The rank's channels (``_rank_layout``) of the conv tail from its
+    block of the cache's (all the channels where the spec leaves them
+    whole)."""
+    if tp.cache_split("ssm/conv"):
+        conv = collectives.all_gather(conv, -1, tp.model_group)
+    return _runs(_rank_layout(cfg, tp)[1], -1, conv)
+
+
+def _conv_block(tail: torch.Tensor, cfg: ModelConfig, tp) -> torch.Tensor:
+    """The rank's block of the cache's new conv tail from the tail of its
+    own channels: the ranks' ``x`` channels gathered beside ``B`` and
+    ``C``, then its block where the spec splits the channels."""
+    d_inner, _, _, _ = _dims(cfg)
+    dl = d_inner // tp.model_size
+    xs = collectives.all_gather(tail[..., :dl], -1, tp.model_group)
+    whole = torch.cat([xs, tail[..., dl:]], -1)
+    if not tp.cache_split("ssm/conv"):
+        return whole
+    n = whole.shape[-1] // tp.model_size
+    return whole.narrow(-1, tp.model_rank * n, n)
+
+
+def _in_proj(h: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, tp
+             ) -> torch.Tensor:
+    """``h @ in_proj`` at the rank's runs (``_rank_layout``) from its block
+    ``w`` of ``in_proj``'s columns: with fewer tokens than ``d_model``
+    rows (a decode step) the ranks' products are gathered and re-laid --
+    ``tokens x cols`` moved where the weight is ``d_model x cols`` --,
+    else the weight is gathered whole and re-laid.  Either gather's
+    backward pass reduce-scatters the partial gradients (the ``B`` / ``C``
+    columns feed every rank's heads)."""
+    cols, _ = _rank_layout(cfg, tp)
+    plan = tp.plan(("mamba", "in_proj"))
+    if plan is not None and plan.model_dim is not None \
+            and h[..., 0].numel() < w.shape[0]:
+        return _runs(cols, -1, collectives.gather_summed(
+            h @ w, -1, tp.model_group))
+    return h @ _runs(cols, -1, model_whole(w, tp, ("mamba", "in_proj")))
+
+
+def _project(params: dict, h: torch.Tensor, cfg: ModelConfig,
+             state: "Mamba2State | None"):
+    """in_proj and the causal conv: ``(z, x, B, C, dt_raw, conv tail,
+    params, tp)`` for the rank's heads (every head outside a partitioned
+    step); ``h`` enters as Megatron's ``f`` in one."""
+    params, tp = _rank_params(params, cfg)
+    _, _, _, n = _dims(cfg)
+    d_inner = params["norm_scale"].shape[-1]
+    prev = None if state is None else state.conv
+    if tp is None:
+        zxbcdt = h @ params["in_proj"]
+    else:
+        h = collectives.copy_to(h, tp.model_group)
+        zxbcdt = _in_proj(h, params["in_proj"], cfg, tp)
+        if prev is not None:
+            prev = _rank_conv(prev, cfg, tp)
+    z, xbc, dt_raw = _split_proj(zxbcdt, d_inner, n)
+    xbc, conv_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"],
+                                  prev)
+    return (z, xbc[..., :d_inner], xbc[..., d_inner:d_inner + n],
+            xbc[..., d_inner + n:], dt_raw, conv_tail, params, tp)
+
+
+def _output(y: torch.Tensor, z: torch.Tensor, params: dict, tp
+            ) -> torch.Tensor:
+    """The gated RMS norm over ``d_inner`` (its sum of squares summed over
+    the model axis in a partitioned step) and the row-parallel
+    ``out_proj``."""
+    group = None if tp is None else tp.model_group
+    y = rms_norm(y * F.silu(z), params["norm_scale"], group=group)
+    out = y @ params["out_proj"]
+    return out if tp is None else collectives.reduce_from(out, group)
+
+
 def mamba2_forward(params: dict, h: torch.Tensor, cfg: ModelConfig, *,
                    state: Mamba2State | None = None, chunk: int = 128
                    ) -> tuple[torch.Tensor, Mamba2State]:
     """Full-sequence mixer.  h ``[B, S, D]`` -> (out ``[B, S, D]``, the
-    final state), from ``state`` (zeros when None)."""
+    final state), from ``state`` (zeros when None).  In a partitioned step
+    the state is the rank's block of the cache's (its heads' SSM state,
+    its block of the conv tail)."""
     b, s, _ = h.shape
-    d_inner, nheads, p_dim, n = _dims(cfg)
-    z, xbc, dt_raw = _split_proj(h @ params["in_proj"], cfg)
-    xbc, conv_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"],
-                                  state.conv if state is not None else None)
-    x = xbc[..., :d_inner].reshape(b, s, nheads, p_dim)
-    B = xbc[..., d_inner:d_inner + n]
-    C = xbc[..., d_inner + n:]
+    _, _, p_dim, _ = _dims(cfg)
+    z, x, B, C, dt_raw, conv_tail, params, tp = _project(params, h, cfg,
+                                                          state)
+    d_inner = x.shape[-1]
+    x = x.reshape(b, s, d_inner // p_dim, p_dim)
     dt = F.softplus(dt_raw.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"])
     y, hfinal = ssd_chunked(x, dt, B, C, A, params["D"], chunk=min(chunk, s),
                             h0=state.ssm if state is not None else None,
                             remat=remat_checkpoints(cfg.remat))
-    y = rms_norm(y.reshape(b, s, d_inner) * F.silu(z), params["norm_scale"])
-    return y @ params["out_proj"], Mamba2State(ssm=hfinal, conv=conv_tail)
+    out = _output(y.reshape(b, s, d_inner), z, params, tp)
+    if tp is not None and state is not None:
+        conv_tail = _conv_block(conv_tail, cfg, tp)
+    return out, Mamba2State(ssm=hfinal, conv=conv_tail)
 
 
 def mamba2_decode_step(params: dict, h: torch.Tensor, cfg: ModelConfig,
                        state: Mamba2State) -> tuple[torch.Tensor, Mamba2State]:
     """Single-token step.  h ``[B, 1, D]`` -> (out ``[B, 1, D]``, the state
-    one step on)."""
+    one step on); the state as in ``mamba2_forward``."""
     b, s, _ = h.shape
     assert s == 1, s
-    d_inner, nheads, p_dim, n = _dims(cfg)
-    z, xbc, dt_raw = _split_proj(h @ params["in_proj"], cfg)
-    xbc, conv_tail = _causal_conv(xbc, params["conv_w"], params["conv_b"],
-                                  state.conv)
-    x32 = xbc[..., :d_inner].reshape(b, nheads, p_dim).float()
-    B = xbc[:, 0, d_inner:d_inner + n].float()
-    C = xbc[:, 0, d_inner + n:].float()
+    _, _, p_dim, _ = _dims(cfg)
+    z, x, B, C, dt_raw, conv_tail, params, tp = _project(params, h, cfg,
+                                                          state)
+    d_inner = x.shape[-1]
+    x32 = x.reshape(b, d_inner // p_dim, p_dim).float()
+    B, C = B[:, 0].float(), C[:, 0].float()
     dt = F.softplus(dt_raw[:, 0].float() + params["dt_bias"])   # [B, H]
     decay = torch.exp(dt * -torch.exp(params["A_log"]))
     hnew = (decay[:, :, None, None] * state.ssm
             + (dt[..., None, None] * x32[..., None]) * B[:, None, None, :])
     y = torch.einsum("bn,bhpn->bhp", C, hnew) + params["D"][:, None] * x32
     y = y.reshape(b, 1, d_inner).to(h.dtype)
-    y = rms_norm(y * F.silu(z), params["norm_scale"])
-    return y @ params["out_proj"], Mamba2State(ssm=hnew, conv=conv_tail)
+    out = _output(y, z, params, tp)
+    if tp is not None:
+        conv_tail = _conv_block(conv_tail, cfg, tp)
+    return out, Mamba2State(ssm=hnew, conv=conv_tail)

@@ -38,6 +38,26 @@ stream to float32 and the mix runs in float32 before its cast to the
 compute dtype; the states a call returns are the last token in the compute
 dtype, so every later decode step mixes in the compute dtype.
 
+Tensor-parallel compute.  In a rank's partitioned step
+(``sharding.api.compute_axes()``, ``launch/steps.py``) each layer gathers
+its FSDP blocks over the DP group and computes its wkv heads (``H / m``,
+the state's block on the model axis): ``wr`` / ``wk`` / ``wv`` / ``wg``
+are column blocks of the rank's heads, so ``wkv`` (the scan kernel on the
+card) runs on them; ``w0``, ``u`` and ``ln_x`` are cut to the rank's
+columns; ``ln_x``'s mean and centred sum of squares over all ``H * K``
+channels are summed over the model axis (``layers.layer_norm(group=)``);
+``wo`` is row-parallel (one all-reduce).  The LoRAs' blocks cross the
+mixes and the heads (``mix_down``'s 160 columns split 10 a rank against
+five groups of 32; ``w_down``'s ``D`` split), so ``mix_down``,
+``mix_up`` and ``w_down`` are gathered whole and run alike on every rank
+(their backward pass reduce-scatters the partial gradients).  The channel
+mix: ``cm_wk`` column- and ``cm_wv`` row-parallel, the partial sum
+reduce-scattered to the rank's ``D`` columns, which ``cm_wr``'s column
+block gates, and the gated columns gathered.  The token-shift states and
+every ``[B, S, D]`` stream stay whole on the model axis; the embedding,
+head and loss are vocabulary-parallel (``layers.embed_tokens`` /
+``vocab_logits`` / ``next_token_loss``).
+
 Parameter dict (the JAX tree's names and layouts, so
 ``repro_torch.convert.model_params_from_numpy`` copies it as it is):
 
@@ -62,9 +82,13 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.kernels.linear_scan import wkv
-from repro_torch.models.layers import (init_linear, layer_norm,
-                                       mask_padded_vocab, remat_block,
-                                       unbind_layers)
+from repro_torch.models.layers import (embed_tokens, init_linear, layer_norm,
+                                       model_slice, model_whole,
+                                       next_token_loss, remat_block,
+                                       unbind_layers, vocab_logits)
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import spmd
+from repro_torch.sharding.api import compute_axes
 
 __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "RWKVState", "check_supported"]
@@ -176,42 +200,78 @@ def _time_mix(p: dict, x: torch.Tensor, cfg: ModelConfig,
               state: torch.Tensor | None, shift_last: torch.Tensor | None
               ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     b, s, _ = x.shape
-    h, hd = cfg.num_heads, cfg.head_dim
+    hd = cfg.head_dim
+    tp = compute_axes()
+    group = None if tp is None else tp.model_group
+    mix_base, w0, u, ln_x = p["mix_base"], p["w0"], p["u"], p["ln_x"]
+    mix_down, mix_up, w_down = p["mix_down"], p["mix_up"], p["w_down"]
+    if tp is not None:
+        # the LoRAs whole on every rank (their blocks cross the mixes and
+        # the heads), the per-channel leaves cut to the rank's heads
+        x = C.copy_to(x, group)
+        mix_base = C.copy_to(mix_base, group)
+        mix_down = model_whole(mix_down, tp, ("layers", "mix_down"))
+        mix_up = model_whole(mix_up, tp, ("layers", "mix_up"))
+        w_down = model_whole(w_down, tp, ("layers", "w_down"))
+        w0, u = model_slice(w0, -1, tp), model_slice(u, 0, tp)
+        ln_x = {k: model_slice(t, -1, tp) for k, t in ln_x.items()}
     delta = _token_shift(x, shift_last) - x
     # data-dependent mix coefficients (lora)
-    low = torch.tanh(x @ p["mix_down"]).reshape(b, s, len(_MIX_NAMES), -1)
-    corr = torch.einsum("bsnr,nrd->bsnd", low, p["mix_up"])
+    low = torch.tanh(x @ mix_down).reshape(b, s, len(_MIX_NAMES), -1)
+    corr = torch.einsum("bsnr,nrd->bsnd", low, mix_up)
     mixed = x[:, :, None] + delta[:, :, None] * (
-        p["mix_base"][None, None].to(x.dtype) + corr)     # [B,S,5,D]
+        mix_base[None, None].to(x.dtype) + corr)     # [B,S,5,D]
     xr, xk, xv, xg, xw = mixed.to(x.dtype).unbind(2)
 
+    h = p["wr"].shape[-1] // hd     # the rank's heads in a partitioned step
     r = (xr @ p["wr"]).reshape(b, s, h, hd)
     k = (xk @ p["wk"]).reshape(b, s, h, hd)
     v = (xv @ p["wv"]).reshape(b, s, h, hd)
     g = xg @ p["wg"]
-    logw = -torch.exp(p["w0"][None, None].float()
-                      + (torch.tanh(xw @ p["w_down"]) @ p["w_up"]).float())
-    y, new_state = wkv(r, k, v, logw.reshape(b, s, h, hd), p["u"],
+    logw = -torch.exp(w0[None, None].float()
+                      + (torch.tanh(xw @ w_down) @ p["w_up"]).float())
+    y, new_state = wkv(r, k, v, logw.reshape(b, s, h, hd), u,
                        state0=state, chunk=cfg.attention_chunk,
                        impl=cfg.attention_impl)
-    y = layer_norm(y.reshape(b, s, h * hd), p["ln_x"]["scale"],
-                   p["ln_x"]["bias"])
+    # ln_x normalises all H*K channels: its moments summed over the group
+    y = layer_norm(y.reshape(b, s, h * hd), ln_x["scale"], ln_x["bias"],
+                   group=group)
     y = y * F.silu(g)
-    return y @ p["wo"], new_state, x[:, -1]
+    out = y @ p["wo"]
+    if tp is not None:
+        out = C.reduce_from(out, group)
+    return out, new_state, x[:, -1]
 
 
 def _channel_mix(p: dict, x: torch.Tensor, shift_last: torch.Tensor | None
                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    tp = compute_axes()
+    mix_k, mix_r = p["cm_mix_k"], p["cm_mix_r"]
+    if tp is not None:
+        x = C.copy_to(x, tp.model_group)
+        mix_k = C.copy_to(mix_k, tp.model_group)
+        mix_r = C.copy_to(mix_r, tp.model_group)
     delta = _token_shift(x, shift_last) - x
-    xk = (x + delta * p["cm_mix_k"][None, None].to(x.dtype)).to(x.dtype)
-    xr = (x + delta * p["cm_mix_r"][None, None].to(x.dtype)).to(x.dtype)
+    xk = (x + delta * mix_k[None, None].to(x.dtype)).to(x.dtype)
+    xr = (x + delta * mix_r[None, None].to(x.dtype)).to(x.dtype)
     hidden = torch.square(torch.relu(xk @ p["cm_wk"]))
-    out = torch.sigmoid(xr @ p["cm_wr"]) * (hidden @ p["cm_wv"])
+    value = hidden @ p["cm_wv"]
+    if tp is not None:
+        # ``cm_wv`` is row-parallel and ``cm_wr`` column-parallel: the
+        # partial sums reduce-scattered to the rank's D columns, gated
+        # there, and the gated columns gathered
+        value = C.scatter_from(value, -1, tp.model_group)
+        out = torch.sigmoid(xr @ p["cm_wr"]) * value
+        return C.gather_from(out, -1, tp.model_group), x[:, -1]
+    out = torch.sigmoid(xr @ p["cm_wr"]) * value
     return out, x[:, -1]
 
 
 def _block(p: dict, x: torch.Tensor, cfg: ModelConfig, wkv_state, tm_last,
            cm_last):
+    tp = compute_axes()
+    if tp is not None:
+        p = spmd.fsdp_gather(p, tp, ("layers",))
     h = layer_norm(x, p["ln1"]["scale"], p["ln1"]["bias"])
     tm_out, wkv_state, tm_last = _time_mix(p, h, cfg, wkv_state, tm_last)
     x = x + tm_out
@@ -258,7 +318,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
            ) -> torch.Tensor:
-    h = params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    h = embed_tokens(params, tokens, cfg)
     return layer_norm(h, params["ln_in"]["scale"], params["ln_in"]["bias"])
 
 
@@ -291,17 +351,19 @@ def _run(params: dict, h: torch.Tensor, cfg: ModelConfig, cache: RWKVState,
 def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = layer_norm(h, params["final_norm"]["scale"],
                    params["final_norm"]["bias"])
-    return mask_padded_vocab(h @ params["lm_head"].to(h.dtype),
-                             cfg.vocab_size)
+    return vocab_logits(params, h, cfg)
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """-> logits ``[B, S, V]`` from a zero state (the JAX ``forward``'s
     first output; the SSM family has no auxiliary loss)."""
     h = _embed(params, batch["tokens"], cfg)
-    h, _ = _run(params, h, cfg, init_cache(cfg, h.shape[0], 0,
-                                           device=h.device),
-                keep_state=False)
+    state = init_cache(cfg, h.shape[0], 0, device=h.device)
+    tp = compute_axes()
+    if tp is not None:      # the rank's heads
+        state.wkv = state.wkv[:, :, :cfg.num_heads
+                              // tp.model_size].contiguous()
+    h, _ = _run(params, h, cfg, state, keep_state=False)
     return _logits(params, h, cfg)
 
 
@@ -309,12 +371,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Next-token cross-entropy (the JAX ``loss_fn``): ``forward``'s logits
     cast to float32, log-softmax, the negative log-likelihood of
     ``labels`` averaged over the positions with ``labels >= 0``."""
-    logits = forward(params, batch, cfg).float()
-    labels = batch["labels"].long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return next_token_loss(forward(params, batch, cfg).float(),
+                           batch["labels"], cfg)
 
 
 def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: RWKVState

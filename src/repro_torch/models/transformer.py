@@ -79,12 +79,16 @@ import torch
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.attention import (decode_attention, gqa_attention,
-                                          merge_decode_partials)
-from repro_torch.models.layers import (apply_rope, gelu_mlp, init_linear,
-                                       layer_norm, mask_padded_vocab,
-                                       mrope_frequencies, remat_block,
-                                       rms_norm, rope, swiglu, unbind_layers)
+from repro_torch.models.attention import (attention_tp, decode_attention,
+                                          fill_cache, gqa_attention,
+                                          merge_decode_partials,
+                                          write_new_rows)
+from repro_torch.models.layers import (apply_rope, embed_tokens, gather_model,
+                                       gelu_mlp, init_linear, layer_norm,
+                                       model_split, mrope_frequencies,
+                                       next_token_loss, remat_block,
+                                       rms_norm, rope, swiglu, unbind_layers,
+                                       vocab_logits)
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding import spmd
 from repro_torch.sharding.api import compute_axes
@@ -202,146 +206,24 @@ def _qkv(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _split(tp, path: tuple) -> bool:
-    """Whether the leaf at ``path`` is split over the model axis."""
-    return tp.plan(path).model_dim is not None
-
-
-def _whole(p: dict, tp, names: tuple) -> dict:
-    """A layer's ``p`` with the leaves ``names`` gathered whole over the
-    model axis (used alike on every rank: the gradient of a block is its
-    slice)."""
-    p = dict(p)
-    for n in names:
-        plan = tp.plan(("layers", n))
-        if plan is not None and plan.model_dim is not None:
-            p[n] = C.gather_from(p[n], plan.model_dim, tp.model_group)
-    return p
-
-
-def _write_rows(cache_l: torch.Tensor, rows: torch.Tensor, first: int
-                ) -> None:
-    """Write ``rows`` ``[B, n, KH, HD]`` into one layer's cache of the
-    rank from its row ``first``."""
-    n = rows.shape[1]
-    cache_l[:, first:first + n] = rows.to(cache_l.dtype)
-
-
-def _write_new_rows(tp, cache, k, v) -> int:
-    """A decode step's cache write in a partitioned step: the new rows
-    (every KV head) at ``length``, on the rank whose rows they are (every
-    rank without a split cache); returns how many of the rank's rows are
-    valid after it (0: the rank holds none yet)."""
-    k_cache, v_cache, length = cache
-    rows, s = k_cache.shape[1], k.shape[1]
-    first = tp.model_rank * rows if tp.kv_split else 0
-    if first <= length < first + rows:
-        _write_rows(k_cache, k, length - first)
-        _write_rows(v_cache, v, length - first)
-    return min(max(length + s - first, 0), rows)
-
-
-def _fill_cache(tp, fill, s: int, k, v, *, whole: bool) -> None:
-    """A prefill's cache write: the ``s`` prompt rows of ``k`` / ``v``
-    (every KV head where ``whole``, else the rank's KV heads) into the
-    rank's cache rows -- all of them without a split cache, else rows
-    ``r*R .. (r+1)*R`` of the prompt, sent to their rank by an all-to-all
-    where the rank holds only its own heads."""
-    k_cache, v_cache = fill
-    rows = k_cache.shape[1]
-    if not tp.kv_split:
-        if not whole:
-            k = C.all_gather(k, 2, tp.model_group)
-            v = C.all_gather(v, 2, tp.model_group)
-        _write_rows(k_cache, k, 0)
-        _write_rows(v_cache, v, 0)
-        return
-    m, r = tp.model_size, tp.model_rank
-    if whole or m == 1:
-        lo, hi = r * rows, min((r + 1) * rows, s)
-        if hi > lo:
-            _write_rows(k_cache, k[:, lo:hi], 0)
-            _write_rows(v_cache, v[:, lo:hi], 0)
-        return
-    pad = (0, 0, 0, 0, 0, m * rows - s)
-    for t, cache_l in ((k, k_cache), (v, v_cache)):
-        t = torch.nn.functional.pad(t, pad)       # [B, m*R, KH/m, HD]
-        _write_rows(cache_l, C.all_to_all(t, 1, 2, tp.model_group), 0)
-
-
 def _attention_tp(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin,
                   tp, *, cache=None, fill=None) -> torch.Tensor:
     """One rank's attention sub-block (see the module docstring), its
     weights the rank's model-axis blocks: ``wq`` ``[D, QH*HD/m]``, ``wk``
-    / ``wv`` ``[D, KH*HD/m]``, ``wo`` ``[QH*HD/m, D]``."""
-    b, s, _ = h.shape
-    qh, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    group, m, r = tp.model_group, tp.model_size, tp.model_rank
+    / ``wv`` ``[D, KH*HD/m]``, ``wo`` ``[QH*HD/m, D]``; the attention
+    itself is ``attention.attention_tp``."""
+    group = tp.model_group
     x = C.copy_to(h, group)
-    q, k, v = x @ p["wq"], x @ p["wk"], x @ p["wv"]
-    q_scale = k_scale = None
+    scales = (None, None)
     if cfg.qk_norm:
-        q_scale = C.copy_to(p["q_scale"], group)
-        k_scale = C.copy_to(p["k_scale"], group)
-
-    def heads(t, n, scale):
-        t = t.reshape(b, s, n, hd)
-        if scale is not None:
-            t = rms_norm(t, scale)
-        return t
-
-    if cache is not None:
-        # decode: every head of the new token, for the rank's cache rows
-        q = heads(C.gather_summed(q, -1, group), qh, q_scale)
-        k = heads(C.gather_summed(k, -1, group), kh, k_scale)
-        v = heads(C.gather_summed(v, -1, group), kh, None)
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-        valid = _write_new_rows(tp, cache, k, v)
-        impl = "kernel" if cfg.attention_impl == "kernel" else "einsum"
-        out, lse = decode_attention(q, cache[0], cache[1], valid, impl=impl,
-                                    return_lse=True)
-        if tp.kv_split:
-            out = merge_decode_partials(out, lse, group, own_columns=True)
-        else:
-            out = out.reshape(b, s, -1).narrow(-1, r * (qh * hd // m),
-                                               qh * hd // m)
-        return C.reduce_from(out @ p["wo"], group)
-
-    own = qh % m == 0 and (kh % m == 0 or m % kh == 0)
-    if own:
-        # the rank's query heads, and the KV heads they read
-        nq = qh // m
-        q = apply_rope(heads(q, nq, q_scale), cos, sin)
-        if kh % m == 0:
-            k = apply_rope(heads(k, kh // m, k_scale), cos, sin)
-            v = heads(v, kh // m, None)
-            if fill is not None:
-                _fill_cache(tp, fill, s, k, v, whole=m == 1)
-            kq, vq = k, v
-        else:
-            k = apply_rope(heads(C.gather_summed(k, -1, group), kh,
-                                 k_scale), cos, sin)
-            v = heads(C.gather_summed(v, -1, group), kh, None)
-            if fill is not None:
-                _fill_cache(tp, fill, s, k, v, whole=True)
-            j = (r * nq) // (qh // kh)
-            kq, vq = k[:, :, j:j + 1], v[:, :, j:j + 1]
-        out = gqa_attention(q, kq, vq, causal=True, impl=cfg.attention_impl,
-                            chunk=cfg.attention_chunk)
-        out = out.reshape(b, s, -1)
-    else:
-        # every head on every rank, the rank's columns of the output
-        q = apply_rope(heads(C.gather_summed(q, -1, group), qh, q_scale),
-                       cos, sin)
-        k = apply_rope(heads(C.gather_summed(k, -1, group), kh, k_scale),
-                       cos, sin)
-        v = heads(C.gather_summed(v, -1, group), kh, None)
-        if fill is not None:
-            _fill_cache(tp, fill, s, k, v, whole=True)
-        out = gqa_attention(q, k, v, causal=True, impl=cfg.attention_impl,
-                            chunk=cfg.attention_chunk)
-        c = qh * hd // m
-        out = out.reshape(b, s, -1).narrow(-1, r * c, c)
+        scales = (C.copy_to(p["q_scale"], group),
+                  C.copy_to(p["k_scale"], group))
+    out = attention_tp(x @ p["wq"], x @ p["wk"], x @ p["wv"], tp,
+                       heads=(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+                       causal=True, impl=cfg.attention_impl,
+                       chunk=cfg.attention_chunk, rope=(cos, sin),
+                       scales=scales, cache=cache, fill=fill,
+                       split=tp.cache_split("k"))
     return C.reduce_from(out @ p["wo"], group)
 
 
@@ -367,16 +249,17 @@ def attention_block(p: dict, h: torch.Tensor, cfg: ModelConfig,
     to the decode kernel too.  Both compute the same function."""
     tp = compute_axes()
     if tp is not None:
-        if all(_split(tp, ("layers", n)) for n in _ATTN):
+        if all(model_split(tp, ("layers", n)) for n in _ATTN):
             return _attention_tp(p, h, cfg, cos, sin, tp, cache=cache,
                                  fill=fill)
-        p = _whole(p, tp, _ATTN)
+        p = gather_model(p, tp, _ATTN)
     b, s, _ = h.shape
     q, k, v = _qkv(p, h, cfg, cos, sin)
     if cache is None:
         if fill is not None:
             if tp is not None:
-                _fill_cache(tp, fill, s, k, v, whole=True)
+                fill_cache(tp, fill, k, v, whole=True,
+                           split=tp.cache_split("k"))
             else:
                 fill[0][:, :s] = k.to(fill[0].dtype)
                 fill[1][:, :s] = v.to(fill[1].dtype)
@@ -391,10 +274,11 @@ def attention_block(p: dict, h: torch.Tensor, cfg: ModelConfig,
             out = decode_attention(q, k_cache, v_cache, length + s,
                                    impl=impl)
         else:
-            valid = _write_new_rows(tp, cache, k, v)
+            valid = write_new_rows(tp, cache, k, v,
+                                   split=tp.cache_split("k"))
             out, lse = decode_attention(q, k_cache, v_cache, valid,
                                         impl=impl, return_lse=True)
-            if tp.kv_split:
+            if tp.cache_split("k"):
                 return merge_decode_partials(
                     out, lse, tp.model_group, own_columns=False) @ p["wo"]
     return out.reshape(b, s, -1) @ p["wo"]
@@ -416,10 +300,10 @@ def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig
     group = None
     if tp is not None:
         names = _FFN if cfg.act == "swiglu" else _FFN[1:]
-        if all(_split(tp, ("layers", n)) for n in names):
+        if all(model_split(tp, ("layers", n)) for n in names):
             group = tp.model_group
         else:
-            p = _whole(p, tp, names)
+            p = gather_model(p, tp, names)
     if cfg.act == "swiglu":
         return swiglu(h, p["w_gate"], p["w_up"], p["w_down"],
                       group=group), 0.0
@@ -483,77 +367,18 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
 
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
            ) -> torch.Tensor:
-    """The token embeddings in the compute dtype.  In a partitioned step
-    the table's FSDP block is gathered and, where the model axis splits
-    the vocabulary, each rank looks up the tokens in its rows (zero for
-    the others') and an all-reduce sums the ranks' lookups."""
-    compute = dtype_of(cfg.compute_dtype)
-    tp = compute_axes()
-    if tp is None:
-        return params["embed"][tokens.long()].to(compute)
-    table = spmd.fsdp_gather({"embed": params["embed"]}, tp)["embed"]
-    if not _split(tp, ("embed",)) or tp.model_size == 1:
-        return table[tokens.long()].to(compute)
-    n = table.shape[0]
-    local = tokens.long() - tp.model_rank * n
-    mine = (local >= 0) & (local < n)
-    rows = table[local.clamp(0, n - 1)].to(compute)
-    rows = rows * mine[..., None].to(compute)
-    return C.reduce_from(rows, tp.model_group)
-
-
-def _head(params: dict, cfg: ModelConfig, tp) -> "tuple[torch.Tensor, int]":
-    """The output head ``[D, V]`` as this rank computes with it, and the
-    vocabulary index of its first column: the rank's columns where the
-    model axis splits the vocabulary, else all of them."""
-    name = "embed" if cfg.tie_embeddings else "lm_head"
-    w = params[name]
-    if tp is not None:
-        w = spmd.fsdp_gather({name: w}, tp)[name]
-    head = w.T if cfg.tie_embeddings else w
-    split = tp is not None and _split(tp, (name,))
-    return head, tp.model_rank * head.shape[1] if split else 0
+    """The token embeddings in the compute dtype (vocabulary-parallel in a
+    partitioned step: ``layers.embed_tokens``)."""
+    return embed_tokens(params, tokens, cfg)
 
 
 def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The logits ``[B, S, V]`` -- in a partitioned step the rank's block
     of the vocabulary where the model axis splits it, ``[B, S, V/m]``."""
     h = _norm(h, params["final_norm"], cfg)
-    tp = compute_axes()
-    head, first = _head(params, cfg, tp)
-    if head.shape[1] < cfg.padded_vocab:        # the rank's columns
-        h = C.copy_to(h, tp.model_group)
-    return mask_padded_vocab(h @ head.to(h.dtype), cfg.vocab_size,
-                             offset=first)
-
-
-class _VocabParallelNLL(torch.autograd.Function):
-    """The negative log-likelihood of ``labels`` under logits whose
-    vocabulary is split over the model axis: each rank holds ``[N, V/m]``
-    float32 columns from ``first``.  The max, the sum of exponents and the
-    label's logit are each reduced over the group; the backward pass is
-    the rank's columns of ``softmax - onehot``."""
-
-    @staticmethod
-    def forward(ctx, logits, labels, first, group):
-        n = logits.shape[1]
-        top = C.all_reduce(logits.amax(-1), group, "max")
-        z = logits - top[:, None]
-        e = torch.exp(z)
-        total = C.all_reduce(e.sum(-1), group)
-        local = labels - first
-        mine = (local >= 0) & (local < n)
-        idx = local.clamp(0, n - 1)
-        picked = C.all_reduce(z.gather(-1, idx[:, None])[:, 0]
-                              * mine.to(z.dtype), group)
-        ctx.save_for_backward(e.div_(total[:, None]), idx, mine)
-        return torch.log(total) - picked
-
-    @staticmethod
-    def backward(ctx, g):
-        p, idx, mine = ctx.saved_tensors
-        grad = p.scatter_add(-1, idx[:, None], -mine.to(p.dtype)[:, None])
-        return grad * g[:, None], None, None, None
+    tied = cfg.tie_embeddings
+    return vocab_logits(params, h, cfg, name="embed" if tied else "lm_head",
+                        tied=tied)
 
 
 # -----------------------------------------------------------------------------
@@ -597,19 +422,9 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     ``labels.shape[1]`` positions (the text tail, after a VLM's patch
     embeddings).  The dense family's auxiliary loss is zero."""
     logits, aux = _forward(params, batch, cfg)
-    labels = batch["labels"].long()
+    labels = batch["labels"]
     logits = logits[:, -labels.shape[1]:].float()
-    tp = compute_axes()
-    if tp is not None and logits.shape[-1] < cfg.padded_vocab:
-        first = tp.model_rank * logits.shape[-1]
-        nll = _VocabParallelNLL.apply(
-            logits.reshape(-1, logits.shape[-1]), labels.reshape(-1), first,
-            tp.model_group).reshape(labels.shape)
-    else:
-        logp = torch.log_softmax(logits, dim=-1)
-        nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    loss = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    loss = next_token_loss(logits, labels, cfg)
     return loss + cfg.router_aux_coef * aux
 
 
@@ -670,7 +485,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     b, s, _ = h.shape
     tp = compute_axes()
     s_max = cache.k.shape[2] * (tp.model_size if tp is not None
-                                and tp.kv_split else 1)
+                                and tp.cache_split("k") else 1)
     if cache.length + s > s_max:
         raise RuntimeError(f"KV cache full: length {cache.length} + {s} > "
                            f"{s_max}")

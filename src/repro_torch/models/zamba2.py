@@ -36,6 +36,16 @@ Parameter dict (the JAX tree's names and layouts, so
 
 The cache holds each layer's Mamba2 state and each invocation's keys and
 values; the port writes them in place and keeps ``length`` on the host.
+
+Tensor-parallel compute.  In a rank's partitioned step
+(``sharding.api.compute_axes()``) each Mamba2 layer runs the rank's heads
+(``models/mamba2.py``) and each shared-block invocation its part
+(``_shared_attn_tp``): ``in_proj``'s column block gathered before the
+norm, q / k / v column-parallel (the shared projections' and the LoRA
+``*b`` blocks; the ``*a`` matrices whole), the rank's rows of the
+invocation's cache (the sequence on the model axis, a decode step merged
+by the log-sum-exps at head dim 112), a row-parallel ``wo`` and the
+SwiGLU pair.  The tied embedding and head are vocabulary-parallel.
 """
 
 from __future__ import annotations
@@ -47,10 +57,15 @@ import torch
 from repro_torch.configs.base import ModelConfig, dtype_of
 from repro_torch.device import resolve_device
 from repro_torch.models import mamba2 as m2
-from repro_torch.models.attention import decode_attention, gqa_attention
-from repro_torch.models.layers import (apply_rope, init_linear,
-                                       mask_padded_vocab, remat_block,
-                                       rms_norm, rope, swiglu, unbind_layers)
+from repro_torch.models.attention import (attention_tp, decode_attention,
+                                          gqa_attention)
+from repro_torch.models.layers import (apply_rope, embed_tokens, init_linear,
+                                       model_split, next_token_loss,
+                                       remat_block, rms_norm, rope, swiglu,
+                                       unbind_layers, vocab_logits)
+from repro_torch.sharding import collectives as C
+from repro_torch.sharding import spmd
+from repro_torch.sharding.api import compute_axes
 
 __all__ = ["init_params", "param_shapes", "forward", "loss_fn", "init_cache",
            "prefill", "decode_step", "ZambaCache", "check_supported"]
@@ -146,7 +161,12 @@ def _shared_attn(shared: dict, lora: dict, h: torch.Tensor,
                  sin: torch.Tensor, cache=None) -> torch.Tensor:
     """One invocation with its LoRA slice ``lora``.  ``cache = (k_cache,
     v_cache, length)`` (the invocation's ``[B, S_max, KH, HD]`` tensors):
-    the new keys and values are written at ``length`` in place."""
+    the new keys and values are written at ``length`` in place.  In a
+    partitioned step the rank's part (``_shared_attn_tp``)."""
+    tp = compute_axes()
+    if tp is not None:
+        return _shared_attn_tp(shared, lora, h, emb0, cfg, cos, sin, tp,
+                               cache)
     b, s, _ = h.shape
     qh, kh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     x = torch.cat([h, emb0], dim=-1) @ shared["in_proj"]
@@ -172,6 +192,49 @@ def _shared_attn(shared: dict, lora: dict, h: torch.Tensor,
     mlp_in = rms_norm(h, shared["mlp_norm"]["scale"])
     return h + swiglu(mlp_in, shared["w_gate"], shared["w_up"],
                       shared["w_down"])
+
+
+_SPLIT = (("shared", "in_proj"), ("shared", "wq"), ("shared", "wk"),
+          ("shared", "wv"), ("shared", "wo"), ("shared", "w_gate"),
+          ("shared", "w_up"), ("shared", "w_down"), ("lora", "qb"),
+          ("lora", "kb"), ("lora", "vb"))
+
+
+def _shared_attn_tp(shared: dict, lora: dict, h, emb0, cfg: ModelConfig,
+                    cos, sin, tp, cache) -> torch.Tensor:
+    """One rank's invocation of the shared block: ``in_proj``'s column
+    block (of ``D``) gathered before the norm, q / k / v column-parallel
+    (the rank's heads of the shared projections and of the LoRA's ``*b``
+    blocks; the ``*a`` matrices whole) into ``attention.attention_tp``
+    (the rank's rows of the invocation's cache, split over the model
+    axis), a row-parallel ``wo`` and Megatron's SwiGLU pair."""
+    whole = [n for n in _SPLIT if not model_split(tp, n)]
+    if whole:
+        raise NotImplementedError(
+            f"zamba2: {['/'.join(n) for n in whole]} whole on the model "
+            f"axis; the partitioned shared block takes split weights")
+    group = tp.model_group
+    xin = C.copy_to(torch.cat([h, emb0], dim=-1), group)
+    x = C.gather_from(xin @ shared["in_proj"], -1, group)
+    x = C.copy_to(rms_norm(x, shared["attn_norm"]["scale"]), group)
+
+    def proj(w, a, b):
+        return x @ shared[w] + (x @ C.copy_to(lora[a], group)) @ lora[b]
+
+    q, k, v = proj("wq", "qa", "qb"), proj("wk", "ka", "kb"), \
+        proj("wv", "va", "vb")
+    decode = cache is not None and h.shape[1] == 1
+    out = attention_tp(q, k, v, tp,
+                       heads=(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim),
+                       causal=True, impl=cfg.attention_impl,
+                       chunk=cfg.attention_chunk, rope=(cos, sin),
+                       cache=cache if decode else None,
+                       fill=None if cache is None or decode else cache[:2],
+                       split=tp.cache_split("attn_k"))
+    h = h + C.reduce_from(out @ shared["wo"], group)
+    mlp_in = rms_norm(h, shared["mlp_norm"]["scale"])
+    return h + swiglu(mlp_in, shared["w_gate"], shared["w_up"],
+                      shared["w_down"], group=group)
 
 
 # -----------------------------------------------------------------------------
@@ -201,6 +264,7 @@ def _run(params: dict, h: torch.Tensor, cfg: ModelConfig,
     decode = cache is not None and s == 1
 
     def mamba_layer(p, norm_scale, hcur, i):
+        p = _gathered(p, "mamba")
         x = rms_norm(hcur, norm_scale)
         if cache is None:
             out, _ = m2.mamba2_forward(p, x, cfg)
@@ -217,7 +281,8 @@ def _run(params: dict, h: torch.Tensor, cfg: ModelConfig,
     def attn(lora, hcur, j):
         kv = None if cache is None else (cache.attn_k[j], cache.attn_v[j],
                                          cache.length)
-        return _shared_attn(params["shared"], lora, hcur, emb0, cfg, cos,
+        return _shared_attn(_gathered(params["shared"], "shared"),
+                            _gathered(lora, "lora"), hcur, emb0, cfg, cos,
                             sin, cache=kv)
 
     layers = unbind_layers({"layers": params["mamba"]})
@@ -231,14 +296,20 @@ def _run(params: dict, h: torch.Tensor, cfg: ModelConfig,
     return h
 
 
+def _gathered(p: dict, prefix: str) -> dict:
+    """Leaves under ``prefix`` as a layer computes with them: in a
+    partitioned step their FSDP blocks gathered over the DP group."""
+    tp = compute_axes()
+    return p if tp is None else spmd.fsdp_gather(p, tp, (prefix,))
+
+
 def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig):
-    return params["embed"][tokens.long()].to(dtype_of(cfg.compute_dtype))
+    return embed_tokens(params, tokens, cfg)
 
 
 def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     h = rms_norm(h, params["final_norm"]["scale"])
-    return mask_padded_vocab(h @ params["embed"].T.to(h.dtype),
-                             cfg.vocab_size)
+    return vocab_logits(params, h, cfg, name="embed", tied=True)
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -252,12 +323,8 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     """Next-token cross-entropy (the JAX ``loss_fn``): logits cast to
     float32, log-softmax, the negative log-likelihood of ``labels``
     averaged over the positions with ``labels >= 0``."""
-    logits = forward(params, batch, cfg).float()
-    labels = batch["labels"].long()
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
-    mask = (labels >= 0).float()
-    return (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return next_token_loss(forward(params, batch, cfg).float(),
+                           batch["labels"], cfg)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -300,9 +367,12 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: ZambaCache
             f"rows; the JAX model attends over the new chunk alone there, "
             f"not over the cache, and the port refuses it (prefill an empty "
             f"cache, then decode one token a step)")
-    if cache.length + s > cache.attn_k.shape[2]:
+    tp = compute_axes()
+    rows = cache.attn_k.shape[2] * (
+        tp.model_size if tp is not None and tp.cache_split("attn_k") else 1)
+    if cache.length + s > rows:
         raise RuntimeError(f"KV cache full: length {cache.length} + {s} > "
-                           f"{cache.attn_k.shape[2]}")
+                           f"{rows}")
     h = _run(params, h, cfg, cache)
     logits = _logits(params, h[:, -1:], cfg)
     return logits, dataclasses.replace(cache, length=cache.length + s)

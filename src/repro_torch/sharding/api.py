@@ -9,8 +9,8 @@ from this module: ``compute_axes()`` gives, while a partitioned step runs
 (``launch/steps.py`` enters ``active(...)`` around it), the model axis,
 its process group, size and this rank's index on it, the DP axes
 (``("pod", "data")`` flattened, all three under ``zero3``) and their
-group and size, each parameter leaf's ``partition.LeafPlan`` and whether
-the KV cache's sequence axis lies on the model axis.  Without an active
+group and size, each parameter leaf's ``partition.LeafPlan`` and which
+cache fields lie on the model axis.  Without an active
 mesh (or on an ``AbstractMesh``, which has no groups) it is ``None`` and
 every layer runs unpartitioned, as before.
 
@@ -47,8 +47,10 @@ class ComputeAxes:
     axis takes no part in compute (absent, or folded into DP under
     ``zero3``); ``plans`` maps a parameter's path (a layer's leaves by
     their path inside the layer, the ``[L]`` axis dropped) to its
-    ``partition.LeafPlan``; ``kv_split`` says a KV cache's rows lie on
-    the model axis (``partition.cache_specs``)."""
+    ``partition.LeafPlan``; ``cache_dims`` maps a cache field (its
+    dataclass field names, nested ones joined by ``/``: ``"k"``,
+    ``"cross_k"``, ``"ssm/conv"``) to the dim ``partition.cache_specs``
+    puts on the model axis, for the fields it splits there."""
     model_group: object
     model_size: int
     model_rank: int
@@ -56,10 +58,15 @@ class ComputeAxes:
     dp_group: object
     dp_size: int
     plans: dict
-    kv_split: bool = False
+    cache_dims: dict = dataclasses.field(default_factory=dict)
 
     def plan(self, path: tuple):
         return self.plans.get(tuple(path))
+
+    def cache_split(self, field: str) -> bool:
+        """Whether the cache field ``field`` is split over the model
+        axis."""
+        return field in self.cache_dims
 
 
 def activate(mesh, *, zero3: bool = False, compute: "ComputeAxes | None"

@@ -36,6 +36,10 @@ With autograd (the model axis's pairs, and FSDP's gather):
                            all-gather forward, reduce-scatter backward (the
                            gathered value is used in parts: each rank's
                            gradient of it is a partial sum; FSDP's weights)
+  scatter_from(x, dim, group)
+                           reduce-scatter forward, all-gather backward (the
+                           partial sums of a row-parallel product, each
+                           rank keeping its block of the sum)
 """
 
 from __future__ import annotations
@@ -44,7 +48,7 @@ import torch
 
 __all__ = ["size", "rank", "all_reduce", "all_gather", "reduce_scatter",
            "all_to_all", "copy_to", "reduce_from", "gather_from",
-           "gather_summed", "KINDS", "OP_KINDS"]
+           "gather_summed", "scatter_from", "KINDS", "OP_KINDS"]
 
 # JAX's collective kinds (``parse_collectives``), and the functional ops
 # that issue each here
@@ -194,6 +198,17 @@ class _GatherSummed(torch.autograd.Function):
         return reduce_scatter(g, ctx.dim, ctx.group), None, None
 
 
+class _ScatterFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return reduce_scatter(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.dim, ctx.group), None, None
+
+
 def _differentiable(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
 
@@ -236,3 +251,14 @@ def gather_summed(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if not _differentiable(x):
         return all_gather(x, dim, group)
     return _GatherSummed.apply(x, dim, group)
+
+
+def scatter_from(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's block along ``dim`` of the sum of the group's partial
+    ``x``; the gradient of ``x`` is the group's blocks of the gradient
+    gathered (every rank's partial ``x`` reaches every block)."""
+    if size(group) == 1:
+        return x
+    if not _differentiable(x):
+        return reduce_scatter(x, dim, group)
+    return _ScatterFrom.apply(x, dim, group)

@@ -323,6 +323,10 @@ def param_specs(params_shape: Any, cfg, mesh):
     return _map_with_path(spec, params_shape)
 
 
+# the top-level keys whose leaves stack layers on a leading axis
+STACKED = ("layers", "encoder", "decoder", "mamba", "mamba_norm", "lora")
+
+
 @dataclasses.dataclass(frozen=True)
 class LeafPlan:
     """How a parameter leaf is split, for a rank that computes on its
@@ -337,15 +341,18 @@ class LeafPlan:
 
 def leaf_plans(params_shape: Any, cfg, mesh) -> dict:
     """``{path: LeafPlan}`` of every parameter leaf by ``param_specs`` on
-    ``mesh``: a path is the leaf's dict keys, and a leaf under ``layers``
-    is planned for one layer (its dims one lower)."""
+    ``mesh``: a path is the leaf's dict keys, and a leaf of a stack of
+    layers (under one of ``STACKED``: the transformer's and rwkv6's
+    ``layers``, enc-dec's ``encoder`` / ``decoder``, zamba2's ``mamba``,
+    ``mamba_norm`` and per-invocation ``lora``) is planned for one layer
+    (its dims one lower)."""
     mesh = mesh_axes(mesh)
     dp = set(_dp(mesh, cfg))
     plans = {}
 
     def plan(path, spec):
         names = _path_names(path)
-        lead = 1 if names and names[0] == "layers" else 0
+        lead = 1 if names and names[0] in STACKED else 0
         dp_dim = model_dim = None
         for d, entry in enumerate(spec):
             axes = set(_axes_of(entry))

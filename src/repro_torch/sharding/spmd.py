@@ -16,14 +16,15 @@ its recomputation and the gathered copy is freed after the layer) and
 keeps its model-axis block.  The backward pass of that gather is a
 reduce-scatter over the DP group, so a leaf's gradient comes back as the
 rank's block of the DP sum; a leaf the DP axes leave whole gets its sum
-by an all-reduce (``dp_mean``, which also divides by the DP size).  The
-families whose layers do not partition their compute yet (rwkv6, zamba2,
-enc-dec) gather every leaf whole instead (``gather_whole``) and compute
-on it, the model axis sharding their storage only.
+by an all-reduce (``dp_mean``, which also divides by the DP size).
+Every family partitions its compute so; ``gather_whole`` gathers a whole
+tensor from its blocks only for the approximate collective's quantize
+round trip, which JAX applies to the whole mean gradient.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 import weakref
 
@@ -130,11 +131,32 @@ def _dp_group_cached(mesh, axes: tuple):
     return cache[axes]
 
 
-def compute_axes(mesh, cfg, params_shape, *, kv_split: bool = False):
+def _cache_dims(specs, prefix: str = "") -> dict:
+    """``{field: dim}`` of a cache's spec tree (nested dataclasses): each
+    field whose spec puts a dim on the model axis."""
+    out = {}
+    if specs is None:
+        return out
+    for f in dataclasses.fields(specs):
+        spec = getattr(specs, f.name)
+        name = prefix + f.name
+        if dataclasses.is_dataclass(spec):
+            out.update(_cache_dims(spec, name + "/"))
+        elif isinstance(spec, tuple):
+            dims = [d for d, e in enumerate(spec)
+                    if "model" in partition._axes_of(e)]
+            if dims:
+                out[name] = dims[0]
+    return out
+
+
+def compute_axes(mesh, cfg, params_shape, *, cache_specs=None):
     """This rank's ``api.ComputeAxes`` on ``mesh`` (a ``DeviceMesh``) for
     ``cfg``'s parameter tree ``params_shape``: the model axis's group
-    (``None`` under ``zero3``, which folds it into DP), the DP axes' group
-    and every leaf's ``LeafPlan``."""
+    (``None`` under ``zero3``, which folds it into DP), the DP axes' group,
+    every leaf's ``LeafPlan`` and, for a serving step, which fields of its
+    cache (``cache_specs``, the cache's spec tree) the model axis
+    splits."""
     from repro_torch.sharding.api import ComputeAxes
     from repro_torch.sharding.collectives import rank, size
     names = tuple(mesh.mesh_dim_names)
@@ -147,7 +169,7 @@ def compute_axes(mesh, cfg, params_shape, *, kv_split: bool = False):
                        model_rank=rank(model), dp=dp, dp_group=dpg,
                        dp_size=size(dpg),
                        plans=partition.leaf_plans(params_shape, cfg, mesh),
-                       kv_split=kv_split)
+                       cache_dims=_cache_dims(cache_specs))
 
 
 def fsdp_gather(tree, axes, prefix: tuple = ()):
@@ -167,14 +189,14 @@ def fsdp_gather(tree, axes, prefix: tuple = ()):
     return walk(tree, tuple(prefix))
 
 
-def gather_whole(x: torch.Tensor, spec, mesh, *, skip: tuple = ()):
+def gather_whole(x: torch.Tensor, spec, mesh):
     """The whole tensor of the block ``x`` holds per ``spec`` on ``mesh``:
     one all-gather a split dimension, over the group of the axes that
-    split it (the dims in ``skip`` stay split)."""
+    split it."""
     from repro_torch.sharding.collectives import all_gather
     for d, entry in enumerate(spec):
         axes = partition._axes_of(entry)
-        if not axes or d in skip:
+        if not axes:
             continue
         group = (mesh.get_group(axes[0]) if len(axes) == 1
                  else _dp_group_cached(mesh, tuple(axes)))

@@ -14,7 +14,10 @@ CPU.
     leaves the DP axes split, which heads divide the model axis) -- not
     from the code's record.
   * At model axis 1 a step issues no model-axis collective, and a rank's
-    temporaries at model axis 4 are below those at 1.
+    temporaries at model axis 4 are below those at 1 (qwen3, rwkv6,
+    enc-dec and zamba2).
+  * Every family's record is marked ``"compute"``, and its rank's step on
+    the fake ``(2, 4)`` group takes the argument bytes of JAX's specs.
 
 Every fake group lives behind ``fake_mesh``'s teardown, so none is left in
 the pytest worker.
@@ -261,20 +264,69 @@ def test_model_axis_one_issues_no_model_collective(kind):
                    "collective-permute": 0}
 
 
-@pytest.mark.parametrize("kind", ["prefill", "train"])
-def test_temporaries_fall_with_the_model_axis(kind):
-    cfg = get_config("qwen3-1.7b").reduced()
+# (arch, kind): qwen3's cases keep their ids from before the other
+# families partitioned their compute
+TEMP_CASES = [pytest.param("qwen3-1.7b", k, id=k) for k in ("prefill",
+                                                            "train")] + [
+    pytest.param(a, k, id=f"{a}-{k}")
+    for a in ("rwkv6-1.6b", "seamless-m4t-large-v2", "zamba2-7b")
+    for k in ("prefill", "train")]
+
+
+@pytest.mark.parametrize("arch,kind", TEMP_CASES)
+def test_temporaries_fall_with_the_model_axis(arch, kind):
+    cfg = get_config(arch).reduced()
     cell = dataclasses.replace(CELLS[kind], seq_len=128)
     at = {m: _account(cfg, cell, (DP, m))["memory"]["temp_bytes"]
           for m in (1, M)}
     assert at[M] < at[1], at
 
 
-def test_a_storage_family_is_marked_and_gathers_whole():
-    cfg = get_config("rwkv6-1.6b").reduced()
-    rec = _account(cfg, CELLS["decode"])
-    assert rec["model_axis"] == "storage"
-    assert rec["collectives"]["all-gather"]["count"] > 0
-    with fake_mesh((DP, M), AXES) as mesh:
-        assert rec["memory"]["argument_bytes"] == D.argument_bytes(
-            cfg, CELLS["decode"], TP.mesh_axes(mesh))
+def _jax_reduced_argument_bytes(jx, arch: str, cell, mesh) -> int:
+    """JAX's local argument bytes of a reduced arch's ``cell`` (the port's
+    ``ShapeCell``, carried over) on the JAX mesh ``mesh``."""
+    from repro.configs.base import ShapeCell as JCell
+    jax, R, P = jx["jax"], jx["R"], jx["P"]
+    cfg = jx["get_config"](arch).reduced()
+    jcell = JCell(cell.name, cell.seq_len, cell.global_batch, cell.kind)
+    params = jax.eval_shape(lambda: R.build_model(cfg).init_params(
+        jax.random.PRNGKey(0)))
+    total = _jax_local_bytes(jx, params, P.param_specs(params, cfg, mesh),
+                             mesh)
+    specs = R.input_specs(cfg, jcell)
+    if cell.kind == "train":
+        from repro.optim.adamw import init_opt_state
+        opt = jax.eval_shape(init_opt_state, params)
+        total += _jax_local_bytes(jx, opt, P.opt_state_specs(params, cfg,
+                                                             mesh), mesh)
+    if cell.kind in ("train", "prefill"):
+        batch = specs["batch"]
+        total += _jax_local_bytes(jx, batch, P.batch_specs(batch, cfg, mesh,
+                                                           jcell), mesh)
+    if cell.kind == "prefill":
+        cache = R.cache_spec(cfg, cell.global_batch, cell.seq_len)
+    elif cell.kind == "decode":
+        cache = specs["cache"]
+        tokens = {"tokens": specs["tokens"]}
+        total += _jax_local_bytes(jx, tokens, P.batch_specs(
+            tokens, cfg, mesh, jcell), mesh)
+    if cell.kind != "train":
+        total += _jax_local_bytes(jx, cache, P.cache_specs(cache, cfg, mesh,
+                                                           jcell), mesh,
+                                  skip_scalars=True)
+    return total
+
+
+@pytest.mark.parametrize("kind", sorted(CELLS))
+@pytest.mark.parametrize("arch", ["qwen3-1.7b", "rwkv6-1.6b",
+                                  "seamless-m4t-large-v2", "zamba2-7b"])
+def test_each_family_computes_on_its_blocks(jx, arch, kind):
+    """Every family's record is marked ``"compute"`` (the model axis
+    partitions its products), and the rank's step takes the argument
+    bytes of JAX's specs on the fake ``(2, 4)`` mesh."""
+    cfg = get_config(arch).reduced()
+    rec = _account(cfg, CELLS[kind])
+    assert rec["model_axis"] == "compute"
+    want = _jax_reduced_argument_bytes(jx, arch, CELLS[kind],
+                                       jx["AbstractMesh"]((DP, M), AXES))
+    assert rec["memory"]["argument_bytes"] == want
