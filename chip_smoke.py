@@ -597,9 +597,12 @@ MESH_CAMS, MESH_SPLIT, MESH_STEPS = 13, 8, 36
 MESH_TRAIN = dict(steps=3, batch=8, seq=128, grad_bits=8, seed=0)
 # the tp phase: qwen3-1.7b's serve (prefill B=8 S=1024, then decode steps)
 # through the partitioned steps on a one-rank (1, 1) NCCL mesh against the
-# meshless steps, and the model axis at 2 tried in two processes over gloo
+# meshless steps, and the model axis at 2 in two processes over gloo
 TP_ARCH = "qwen3-1.7b"
-TP_BATCH, TP_PROMPT, TP_STEPS, TP_TWO_STEPS = 8, 1024, 8, 2
+TP_BATCH, TP_PROMPT, TP_STEPS, TP_TWO_STEPS = 8, 1024, 8, 3
+# the two-process run's training step under the sequence_parallel hint
+# and without it: batch x sequence
+TP_TRAIN_BATCH, TP_TRAIN_SEQ = 2, 2048
 # the other families' partitioned serve on the (1, 1) mesh, at the same
 # batch, prompt and steps: (arch, layers or None for all); zamba2 at 24 of
 # its 81 layers (4 shared-block invocations; 6.1 GB of weights)
@@ -4738,19 +4741,80 @@ def tp_step_bytes(dev, cfg, mesh, reckoned: dict, params) -> dict:
     return out
 
 
-TP_PROBES = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all")
+def tp_two_cells():
+    """The two-process run's training cell: ``TP_TRAIN_BATCH`` x
+    ``TP_TRAIN_SEQ``."""
+    from repro_torch.configs.base import ShapeCell
+    return ShapeCell("tp_train", TP_TRAIN_SEQ, TP_TRAIN_BATCH, "train")
 
 
-def tp_two_rank(rank: int, root: str, dev_type: str, cfg, settings: dict,
-                probes: tuple) -> None:
+def tp_train_config(cfg, hint: bool):
+    """``cfg`` as the two-process run trains it: the chunked attention
+    (the flash kernel has no backward), ``remat="full"``, the hint on or
+    off."""
+    import dataclasses
+    return dataclasses.replace(cfg, attention_impl="chunked", remat="full",
+                               sequence_parallel=hint)
+
+
+def tp_two_train(dev, cfg, mesh, params, hint: bool) -> dict:
+    """One training step of the rank on ``mesh`` (``build_train_bundle``
+    of ``tp_two_cells()``, AdamW state from zero), its batch drawn from a
+    generator seeded with 1: the loss, the step's seconds (synchronised),
+    the allocated bytes before it, ``torch.cuda.max_memory_allocated``
+    over it and its step bytes (the arguments plus the peak over what was
+    allocated before: ``tp_step_bytes``'s measure)."""
+    import torch
+    from repro_torch.launch.steps import build_train_bundle
+    from repro_torch.meta import distinct_bytes
+    from repro_torch.models.registry import make_batch
+    from repro_torch.optim.adamw import init_opt_state
+    from repro_torch.tree import tree_map
+    cfg = tp_train_config(cfg, hint)
+    cell = tp_two_cells()
+    bundle = build_train_bundle(cfg, cell, mesh=mesh, device=dev)
+    coord = tuple(mesh.get_coordinate())
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    batch = make_batch(cfg, cell.global_batch, cell.seq_len, generator=g,
+                       device=dev, train=True)
+    # copies: AdamW writes the blocks in place, and a block that is the
+    # whole leaf is a view of ``params``, which the next step starts from
+    blocks = tree_map(lambda x: x.clone(), _tp_blocks(
+        params, bundle.in_shardings[0], mesh, coord))
+    state = init_opt_state(blocks, device=dev)
+    rows = _tp_blocks(batch, bundle.in_shardings[2], mesh, coord)
+    args = (blocks, state, rows)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    _, _, metrics = bundle.fn(*args)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(hint=hint, loss=float(metrics["loss"]), seconds=seconds,
+               allocated_before=base, max_memory_allocated=peak,
+               step_bytes=distinct_bytes(args) + peak - base)
+    del bundle, blocks, state, rows, args, batch, metrics
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_two_rank(rank: int, root: str, dev_type: str, cfg,
+                settings: dict) -> None:
     """One of the two processes of the model axis at 2 on one card, in a
-    gloo group with the card's tensors: with ``probes``, each of those
-    kinds of collective once on a small tensor, in order (``{kind}{rank}``
-    written after each: a process that dies leaves the kind it died in
-    unmarked); else the tp prefill and ``TP_TWO_STEPS`` decode steps of
-    ``cfg`` on a ``(1, 2)`` mesh (the parent's ``TP_*`` sizes in
-    ``settings``), its logits blocks written under ``root``.  An
-    exception's text is written instead."""
+    gloo group (the collectives carry host copies of the card's tensors:
+    ``collectives.host_staged``): the tp prefill and ``TP_TWO_STEPS``
+    decode steps of ``cfg`` under the ``sequence_parallel`` hint on a
+    ``(1, 2)`` mesh, the kernels' launches counted from zero; then one
+    training step with the hint off and one with it on
+    (``tp_two_train``).  Its logits blocks, its cache's valid rows, the
+    launches and the training records are saved under ``root`` (the
+    parent's ``TP_*`` sizes in ``settings``); an exception's text is
+    written instead."""
+    import dataclasses
     import os
     import traceback
     import torch
@@ -4763,29 +4827,34 @@ def tp_two_rank(rank: int, root: str, dev_type: str, cfg, settings: dict,
     dist.init_process_group("gloo", store=dist.FileStore(
         os.path.join(root, "store"), 2), rank=rank, world_size=2)
     try:
+        from repro_torch.kernels import decode_attention as DA
+        from repro_torch.kernels import flash_attention as FA
         from repro_torch.launch.mesh import make_mesh
-        from repro_torch.sharding import collectives as C
         mesh = make_mesh((1, 2), ("data", "model"), device_type=dev.type)
-        if probes:
-            group = mesh.get_group("model")
-            x = torch.arange(8, dtype=torch.float32,
-                             device=dev).reshape(2, 4)
-            run = {"all-reduce": lambda: C.all_reduce(x, group),
-                   "all-gather": lambda: C.all_gather(x, 1, group),
-                   "reduce-scatter": lambda: C.reduce_scatter(x, 1, group),
-                   "all-to-all": lambda: C.all_to_all(x, 1, 0, group)}
-            for kind in probes:
-                run[kind]()
-                if dev.type == "cuda":
-                    torch.cuda.synchronize()
-                open(os.path.join(root, f"{kind}{rank}"), "w").close()
-            return
-        params, batch, tokens = tp_inputs(dev, cfg)
-        got = tp_serve(dev, cfg, params, batch, tokens, mesh=mesh,
+        sp = dataclasses.replace(cfg, sequence_parallel=True)
+        params, batch, tokens = tp_inputs(dev, sp)
+        FA.flash_attention.launches = 0
+        DA.decode_attention.launches = DA.decode_attention.lse_launches = 0
+        got = tp_serve(dev, sp, params, batch, tokens, mesh=mesh,
                        steps=TP_TWO_STEPS)
+        launches = {"flash_attention": FA.flash_attention.launches,
+                    "decode_attention": DA.decode_attention.launches,
+                    "decode_attention_lse":
+                        DA.decode_attention.lse_launches}
+        rows = got["cache"].k.shape[2]
+        first = tuple(mesh.get_coordinate())[1] * rows
+        valid = max(0, min(rows, TP_PROMPT + TP_TWO_STEPS - first))
         torch.save({"logits": [t.cpu() for t in got["logits"]],
+                    "seconds": got["seconds"], "launches": launches,
+                    "first_row": first,
+                    "cache": [getattr(got["cache"], n)[:, :, :valid].cpu()
+                              for n in ("k", "v")],
                     "coord": tuple(mesh.get_coordinate())},
                    os.path.join(root, f"rank{rank}.pt"))
+        del got, batch, tokens
+        train = [tp_two_train(dev, cfg, mesh, params, hint)
+                 for hint in (False, True)]
+        torch.save(train, os.path.join(root, f"train{rank}.pt"))
     except Exception:  # noqa: BLE001 - the outcome is the finding
         with open(os.path.join(root, f"error{rank}.txt"), "w") as fh:
             fh.write(traceback.format_exc()[-3000:])
@@ -4793,7 +4862,7 @@ def tp_two_rank(rank: int, root: str, dev_type: str, cfg, settings: dict,
         dist.destroy_process_group()
 
 
-def tp_two_spawn(dev, cfg, probes: tuple = ()) -> tuple:
+def tp_two_spawn(dev, cfg) -> tuple:
     """Two ``tp_two_rank`` processes in a fresh directory: (the
     directory, the crash or error they ended with, or ``None``)."""
     import shutil
@@ -4801,10 +4870,11 @@ def tp_two_spawn(dev, cfg, probes: tuple = ()) -> tuple:
     root = ROOT / "build" / "chip_smoke_tp_two"
     shutil.rmtree(root, ignore_errors=True)
     root.mkdir(parents=True)
-    settings = {k: globals()[k] for k in ("TP_BATCH", "TP_PROMPT",
-                                          "TP_STEPS", "TP_TWO_STEPS")}
+    settings = {k: globals()[k] for k in (
+        "TP_BATCH", "TP_PROMPT", "TP_STEPS", "TP_TWO_STEPS",
+        "TP_TRAIN_BATCH", "TP_TRAIN_SEQ")}
     ctx = mp.start_processes(tp_two_rank, args=(str(root), dev.type, cfg,
-                                                settings, probes),
+                                                settings),
                              nprocs=2, join=False, start_method="spawn")
     t0, died = time.monotonic(), None
     try:
@@ -4812,7 +4882,7 @@ def tp_two_spawn(dev, cfg, probes: tuple = ()) -> tuple:
             if time.monotonic() - t0 > TP_TWO_TIMEOUT_S:
                 died = f"did not end in {TP_TWO_TIMEOUT_S} s"
                 break
-    except mp.ProcessExitedException as e:   # a crash is the finding
+    except mp.ProcessExitedException as e:
         died = str(e)
     finally:
         for p in ctx.processes:
@@ -4823,46 +4893,64 @@ def tp_two_spawn(dev, cfg, probes: tuple = ()) -> tuple:
     return root, died or (errors[0].read_text()[-1500:] if errors else None)
 
 
+def tp_two_reckoning(cfg) -> dict:
+    """The ``--mesh`` reckoning of the two-process training step: one
+    rank's argument plus temporary bytes of ``tp_two_cells()`` on a fake
+    ``(1, 2)`` group, the hint off and on (``launch.dryrun.account_mesh``
+    on meta)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import fake_mesh
+    out = {}
+    for hint in (False, True):
+        with fake_mesh((1, 2), ("data", "model")) as fmesh:
+            rec = dryrun.account_mesh(tp_train_config(cfg, hint),
+                                      tp_two_cells(), fmesh)
+        out[hint] = dict(bytes=rec["memory"]["argument_bytes"]
+                         + rec["memory"]["temp_bytes"],
+                         temp_bytes=rec["memory"]["temp_bytes"],
+                         collectives={k: v["count"] for k, v in
+                                      rec["collectives"].items()})
+    return out
+
+
 def tp_two_process(dev, cfg, meshless: dict) -> dict:
     """The model axis at 2 on the one card: two processes over gloo
-    (NCCL refuses two ranks on one device) with the card's tensors.  Each
-    kind of collective the step issues is first tried once, in order, in
-    one pair of processes; a pair that crashes marks the kind it died in
-    and a new pair takes the kinds after it (``carried``: kind -> ``True``
-    or the crash or error).  Where gloo carries all four, the tp prefill
-    and decode steps run at ``(1, 2)`` and each rank's logits blocks (its
-    half of the vocabulary) are held against the meshless serve's within
-    ``STEP_RTOL``."""
+    (NCCL refuses two ranks on one device), the collectives carrying host
+    copies of the card's tensors (``collectives.host_staged``).  Under
+    the ``sequence_parallel`` hint: each rank's logits blocks (its half
+    of the vocabulary) and its cache rows held against the meshless
+    serve's within ``STEP_RTOL``, the flash (at a rank's 8 of 16 query
+    heads over the gathered 1024 rows) and decode launches counted; then
+    the training step with the hint off and on, each process's
+    ``torch.cuda.max_memory_allocated`` and step bytes beside the
+    ``--mesh`` reckoning (``tp_two_reckoning``).  The step times measure
+    the staging through the host, not NCCL.  Any failure fails the
+    phase."""
     import shutil
     import torch
     from repro_torch.launch.dryrun import STEP_RTOL, rel_rms
     from repro_torch.sharding import partition
     t0 = time.monotonic()
-    out = {"backend": "gloo", "mesh_shape": [1, 2], "carried": {}}
-    left = list(TP_PROBES)
-    while left:
-        root, failed = tp_two_spawn(dev, cfg, tuple(left))
-        while left and all((root / f"{left[0]}{r}").exists()
-                           for r in range(2)):
-            out["carried"][left.pop(0)] = True
-        if left:        # the kind the pair stopped in
-            out["carried"][left.pop(0)] = failed or "no result"
-        shutil.rmtree(root, ignore_errors=True)
-    if any(v is not True for v in out["carried"].values()):
-        out.update(step="not run: gloo did not carry every kind",
-                   seconds=time.monotonic() - t0)
-        return out
+    out = {"backend": "gloo (host-staged)", "mesh_shape": [1, 2],
+           "hint": True, "steps": TP_TWO_STEPS,
+           "reckoned": tp_two_reckoning(cfg)}
     root, failed = tp_two_spawn(dev, cfg)
     if failed:
         shutil.rmtree(root, ignore_errors=True)
-        out.update(step=f"failed: {failed}", seconds=time.monotonic() - t0)
-        return out
+        raise AssertionError(f"the two-process run: {failed}")
     mesh = partition.AbstractMesh((1, 2), ("data", "model"))
     sh = partition.NamedSharding(mesh, partition.logits_spec(
         (TP_BATCH, 1, cfg.padded_vocab), cfg, mesh))
-    errs = []
+    errs, cache_errs, ranks, bad = [], [], [], []
     for rank in range(2):
         got = torch.load(root / f"rank{rank}.pt", weights_only=False)
+        # a decode step launches on a rank holding a valid row (rank 1's
+        # rows start at 640 of the 1280 at full size)
+        steps = sum(got["first_row"] <= TP_PROMPT + t
+                    for t in range(TP_TWO_STEPS))
+        launches = {"flash_attention": cfg.num_layers,
+                    "decode_attention": cfg.num_layers * steps,
+                    "decode_attention_lse": cfg.num_layers * steps}
         for a, b in zip(got["logits"], meshless["logits"]):
             want = torch.nn.functional.pad(
                 b, (0, cfg.padded_vocab - cfg.vocab_size)).cpu()
@@ -4870,11 +4958,31 @@ def tp_two_process(dev, cfg, meshless: dict) -> dict:
             n = min(a.shape[-1], cfg.vocab_size - got["coord"][1]
                     * block.shape[-1])
             errs.append(rel_rms(a[..., :n], block[..., :n]))
+        first = got["first_row"]
+        for name, rows in zip(("k", "v"), got["cache"]):
+            whole = getattr(meshless["cache"], name)
+            cache_errs.append(rel_rms(rows, whole[
+                :, :, first:first + rows.shape[2]].cpu()))
+        train = torch.load(root / f"train{rank}.pt", weights_only=False)
+        if got["launches"] != launches or not \
+                train[1]["max_memory_allocated"] \
+                < train[0]["max_memory_allocated"]:
+            bad.append(dict(rank=rank, launches_wanted=launches))
+        ranks.append(dict(rank=rank, launches=got["launches"],
+                          prefill_s=got["seconds"][0],
+                          decode_p50_s=statistics.median(
+                              got["seconds"][1:]),
+                          cache_rows=[first, first + got["cache"][0]
+                                      .shape[2]],
+                          train=train))
+        del got
     shutil.rmtree(root, ignore_errors=True)
-    out.update(step="ran", steps=TP_TWO_STEPS, logits_rel_rms=max(errs),
-               limit=STEP_RTOL, seconds=time.monotonic() - t0)
-    if not max(errs) <= STEP_RTOL:
-        raise AssertionError(f"the two-process run's logits: {out}")
+    out.update(logits_rel_rms=max(errs), cache_rel_rms=max(cache_errs),
+               limit=STEP_RTOL, ranks=ranks,
+               seconds=time.monotonic() - t0)
+    if not (max(errs) <= STEP_RTOL and max(cache_errs) <= STEP_RTOL) \
+            or bad:
+        raise AssertionError(f"the two-process run: {bad} {out}")
     return out
 
 
@@ -4890,8 +4998,10 @@ def phase_tp(dev) -> dict:
     steps (``tp_step_bytes``, within ``TP_BYTES_RTOL`` on the plain
     routes); the other families the same way (``tp_family`` over
     ``TP_FAMILIES``); the three kernels at one ``(16, 16)`` rank's shapes
-    (``tp_rank_kernels``); then the model axis at 2 tried in two
-    processes over gloo (``tp_two_process``)."""
+    (``tp_rank_kernels``); the ``(1, 1)`` serve under the
+    ``sequence_parallel`` hint bitwise the meshless one; then the model
+    axis at 2 in two processes over gloo under the hint, serve and
+    training step (``tp_two_process``)."""
     import dataclasses
     import torch
     import torch.distributed as dist
@@ -4934,6 +5044,18 @@ def phase_tp(dev) -> dict:
         if launches != want:
             raise AssertionError(f"the (1, 1) serve launched {launches}, "
                                  f"want {want}")
+        # the sequence_parallel hint at model axis 1: nothing splits
+        hinted = tp_serve(dev, dataclasses.replace(
+            cfg, sequence_parallel=True), params, batch, tokens, mesh=mesh)
+        hint_bitwise = all(torch.equal(a, b) for a, b in zip(
+            hinted["logits"], meshless["logits"])) and all(
+            torch.equal(getattr(hinted["cache"], n), getattr(
+                meshless["cache"], n)) for n in ("k", "v"))
+        del hinted
+        if not hint_bitwise:
+            raise AssertionError("the (1, 1) serve under the "
+                                 "sequence_parallel hint is not bitwise "
+                                 "the meshless one")
         out["bytes"] = tp_step_bytes(dev, cfg, mesh, reckoned, params)
         # rwkv6, enc-dec and zamba2 partitioned the same way
         families = {a: tp_family(dev, mesh, a, n) for a, n in TP_FAMILIES}
@@ -4957,6 +5079,7 @@ def phase_tp(dev) -> dict:
         backend="nccl" if dev.type == "cuda" else "gloo",
         launches=launches, max_rel_rms=max(errs.values()),
         limit=dryrun.STEP_RTOL, bitwise=bitwise,
+        hint_bitwise=hint_bitwise,
         prefill_s=meshed["seconds"][0],
         meshless_prefill_s=meshless["seconds"][0],
         decode_p50_s=statistics.median(meshed["seconds"][1:]),

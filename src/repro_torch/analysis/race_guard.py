@@ -20,10 +20,15 @@ duration); pre-existing objects can be passed to ``instrument()``.
 
 Violations raise ``RaceGuardError`` on exit (collected, not thrown
 mid-flight, so the offending interleaving is reported in full).
+
+``from_env()`` gives one guard where ``MEZLINT_RACE_GUARD=1`` (a soak
+job's switch), else ``None``: a caller enters it around a test or a run
+when it is given one.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 
 
@@ -227,3 +232,10 @@ class race_guard:
                 "race_guard recorded violation(s):\n  "
                 + "\n  ".join(self.shared.violations))
 
+
+def from_env() -> "race_guard | None":
+    """One guard when ``MEZLINT_RACE_GUARD=1`` (a soak job's switch), else
+    ``None``."""
+    if os.environ.get("MEZLINT_RACE_GUARD") == "1":
+        return race_guard()
+    return None

@@ -37,6 +37,11 @@ family's step partitions its compute over the model axis and gathers
 each layer's FSDP blocks over the DP axes where the layer uses them
 (``PARTITIONED_FAMILIES``: the transformer's families, rwkv6, zamba2 and
 enc-dec; each model's docstring says how); ``model_axis(cfg)`` says so.
+Under the ``sequence_parallel`` hint the transformer families' steps
+split the residual stream's sequence over the model axis as well (under
+``zero3`` too); a train or prefill step whose batch rows take the model
+axis there raises ``ValueError`` when built, as JAX's constraint does
+(``check_sequence_axis``).
 """
 
 from __future__ import annotations
@@ -61,7 +66,8 @@ __all__ = ["build_train_step", "build_train_bundle",
            "build_prefill_step",
            "build_serve_step", "StepBundle", "microbatch_count",
            "compute_grads", "model_axis", "local_specs",
-           "PARTITIONED_FAMILIES"]
+           "check_sequence_axis", "PARTITIONED_FAMILIES",
+           "SEQUENCE_FAMILIES"]
 
 STEP_DEVICES = ("cuda", "cpu", "meta")
 # the families whose rank's step partitions its compute over the model axis
@@ -76,6 +82,32 @@ def model_axis(cfg: ModelConfig) -> str:
         raise NotImplementedError(f"family {cfg.family!r}: no partitioned "
                                   f"step")
     return "compute"
+
+
+# the families whose residual stream JAX constrains under the
+# ``sequence_parallel`` hint (the others never read it)
+SEQUENCE_FAMILIES = ("dense", "moe", "vlm")
+
+
+def check_sequence_axis(cfg: ModelConfig, mesh, batch: dict,
+                        rows: int) -> None:
+    """Raise ``ValueError`` where the ``sequence_parallel`` hint puts the
+    sequence of ``batch`` (a train or prefill batch, or its meta stand-in)
+    on the model axis while ``rows`` batch rows (a microbatch's) take it
+    too: ``zero3``'s DP axes end in the model axis
+    (``partition.sequence_axis``, JAX's ``DuplicateSpecError``)."""
+    if cfg.family not in SEQUENCE_FAMILIES:
+        return
+    s = batch["tokens"].shape[1]
+    if "patch_embeds" in batch:
+        s += batch["patch_embeds"].shape[1]
+    partition.sequence_axis(cfg, mesh, rows, s)
+
+
+def _microbatch_rows(cfg: ModelConfig, mesh, global_batch: int) -> int:
+    """A microbatch's rows of the train step's ``global_batch``."""
+    dp = partition.dp_size(mesh, cfg)
+    return global_batch // microbatch_count(cfg, global_batch, dp)
 
 
 def _on_groups(mesh) -> bool:
@@ -234,6 +266,8 @@ def _rank_grads(cfg: ModelConfig, mesh, grad_compress: Callable | None):
 
     def grads_fn(params: dict, rows: dict, global_batch: int
                  ) -> tuple[torch.Tensor, dict]:
+        check_sequence_axis(cfg, mesh, rows,
+                            _microbatch_rows(cfg, mesh, global_batch))
         m = microbatch_count(cfg, global_batch, dp)
         with api.active(mesh, axes):
             loss, grads = compute_grads(model, params, rows, m)
@@ -371,6 +405,8 @@ def build_train_bundle(cfg: ModelConfig, cell: ShapeCell, *, mesh=None,
     in_sh = out_sh = None
     fn = None
     if mesh is not None:
+        check_sequence_axis(cfg, mesh, batch, _microbatch_rows(
+            cfg, mesh, cell.global_batch))
         p = partition.param_specs(params, cfg, mesh)
         o = {"m": p, "v": p, "count": P()}
         in_sh = (p, o, partition.batch_specs(batch, cfg, mesh, cell))
@@ -393,12 +429,26 @@ def _rank_serving(cfg: ModelConfig, mesh, shardings: tuple, whole: tuple,
     cache)`` over its blocks, ``run(params, inputs, cache)`` being the
     model's prefill or decode step and ``whole`` the meta stand-ins of its
     whole arguments: ``run`` under the rank's ``api.ComputeAxes``, which
-    say which cache fields lie on the model axis (``cache_specs``)."""
+    say which cache fields lie on the model axis (``cache_specs``), on
+    the whole batch where the logits hold it whole."""
     from repro_torch.sharding import api, spmd
-    (_, _, cspecs), _ = shardings
+    (_, ispecs, cspecs), (lspec, _) = shardings
     axes = spmd.compute_axes(mesh, cfg, whole[0], cache_specs=cspecs)
+    # the cache and the logits take the batch over every DP axis or none
+    # (``cache_specs``, ``logits_spec``), the inputs over the longest
+    # prefix of them that divides it (``batch_specs``): where the outputs
+    # hold the batch whole, a rank gathers the rows the inputs split
+    whole_batch = not partition._axes_of(lspec[0])
+
+    def rows_whole(inputs):
+        if not isinstance(inputs, dict):
+            return spmd.gather_whole(inputs, ispecs, mesh)
+        return {k: spmd.gather_whole(x, ispecs[k], mesh) if k in ispecs
+                else x for k, x in inputs.items()}
 
     def partitioned(params, inputs, cache):
+        if whole_batch:
+            inputs = rows_whole(inputs)
         with api.active(mesh, axes):
             return run(params, inputs, cache)
     return partitioned
@@ -453,6 +503,8 @@ def build_prefill_step(cfg: ModelConfig, cell: ShapeCell, *,
 
     specs = (param_specs(cfg), input_specs(cfg, cell)["batch"],
              cache_spec(cfg, cell.global_batch, cell.seq_len))
+    if mesh is not None:
+        check_sequence_axis(cfg, mesh, specs[1], cell.global_batch)
     in_sh, out_sh = (None, None) if mesh is None else _io_shardings(
         cfg, cell, mesh, specs, specs[1])
     fn = prefill_step

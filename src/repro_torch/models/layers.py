@@ -28,7 +28,11 @@ norms over a last axis split across the model axis (``group=``: their
 moments summed by ``group_sum``), a leaf's whole (``gather_model``,
 ``model_whole``) or the rank's part (``model_slice``), and the
 vocabulary-parallel embedding, head and loss (``embed_tokens``,
-``vocab_logits``, ``next_token_loss``).
+``vocab_logits``, ``next_token_loss``).  Under the ``sequence_parallel``
+hint the FFNs take ``seq_dim`` (the rank's rows gathered on entry, the
+sums reduce-scattered back), the embedding and head ``seq``, and
+``seq_rows`` / ``seq_weight`` give a whole value's rows and a leaf used
+on them their gradients' sums.
 """
 
 from __future__ import annotations
@@ -48,7 +52,8 @@ __all__ = ["rms_norm", "layer_norm", "group_sum", "init_norm",
            "init_linear", "swiglu", "gelu_mlp", "rope", "apply_rope",
            "mrope_frequencies", "mask_padded_vocab", "unbind_layers",
            "remat_checkpoints", "remat_block", "dots_policy", "model_split",
-           "gather_model", "model_whole", "model_slice", "embed_tokens",
+           "gather_model", "model_whole", "model_slice", "seq_rows",
+           "seq_weight", "embed_tokens",
            "vocab_logits", "next_token_loss", "NEG_INF", "DRAW_BLOCK"]
 
 NEG_INF = -2.3819763e38  # large finite negative, bf16-safe (the JAX value)
@@ -145,9 +150,33 @@ def init_linear(generator: torch.Generator, d_in: int, d_out: int, *,
     return out
 
 
+def _ffn_entry(x: torch.Tensor, group, seq_dim) -> torch.Tensor:
+    """A column-parallel block's input over the model-axis ``group``:
+    Megatron's ``f`` (``copy_to``) for a replicated ``x``, or with
+    ``seq_dim`` the rank's rows of a split sequence gathered
+    (``gather_summed``, whose reduce-scatter in the backward pass sums the
+    ranks' partial gradients: it takes ``copy_to``'s place, never stands
+    beside it)."""
+    if group is None:
+        return x
+    if seq_dim is None:
+        return collectives.copy_to(x, group)
+    return collectives.gather_summed(x, seq_dim, group)
+
+
+def _ffn_exit(y: torch.Tensor, group, seq_dim) -> torch.Tensor:
+    """A row-parallel block's partial sums over ``group``: all-reduced,
+    or with ``seq_dim`` reduce-scattered to the rank's rows."""
+    if group is None:
+        return y
+    if seq_dim is None:
+        return collectives.reduce_from(y, group)
+    return collectives.scatter_from(y, seq_dim, group)
+
+
 def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-           w_down: torch.Tensor, *, group=None,
-           reduce: bool = True) -> torch.Tensor:
+           w_down: torch.Tensor, *, group=None, reduce: bool = True,
+           seq_dim: "int | None" = None) -> torch.Tensor:
     """SwiGLU FFN: ``(silu(x W_g) * (x W_u)) W_d``.
 
     With a model-axis ``group`` the weights are the rank's blocks of a
@@ -155,29 +184,27 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
     ``W_d`` (``[f/m, d]``): ``x`` enters as Megatron's ``f`` (its gradient
     summed over the group) and the partial products are summed by one
     all-reduce over the group (``reduce=False`` leaves the partial sum to a
-    caller that adds it to another before reducing)."""
-    if group is not None:
-        x = collectives.copy_to(x, group)
+    caller that adds it to another before reducing).  With ``seq_dim``
+    (sequence parallelism) ``x`` is the rank's rows along that dim of a
+    sequence split over the group: gathered on entry, and the sum
+    reduce-scattered back to the rank's rows."""
+    x = _ffn_entry(x, group, seq_dim)
     y = (F.silu(x @ w_gate) * (x @ w_up)) @ w_down
-    return collectives.reduce_from(y, group) if group is not None \
-        and reduce else y
+    return _ffn_exit(y, group, seq_dim) if reduce else y
 
 
 def gelu_mlp(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
              b_up: torch.Tensor | None = None,
              b_down: torch.Tensor | None = None, *,
-             group=None) -> torch.Tensor:
+             group=None, seq_dim: "int | None" = None) -> torch.Tensor:
     """GELU FFN with the tanh approximation (``jax.nn.gelu``'s default);
-    ``group`` as in ``swiglu`` (the up bias is the rank's block of it, the
-    down bias is added once, after the reduction)."""
-    if group is not None:
-        x = collectives.copy_to(x, group)
+    ``group`` and ``seq_dim`` as in ``swiglu`` (the up bias is the rank's
+    block of it, the down bias is added once, after the reduction)."""
+    x = _ffn_entry(x, group, seq_dim)
     h = x @ w_up
     if b_up is not None:
         h = h + b_up
-    h = F.gelu(h, approximate="tanh") @ w_down
-    if group is not None:
-        h = collectives.reduce_from(h, group)
+    h = _ffn_exit(F.gelu(h, approximate="tanh") @ w_down, group, seq_dim)
     if b_down is not None:
         h = h + b_down
     return h
@@ -328,25 +355,69 @@ def model_slice(x: torch.Tensor, dim: int, tp) -> torch.Tensor:
     return x.narrow(dim, tp.model_rank * n, n)
 
 
+# -- sequence parallelism (the ``sequence_parallel`` hint) ---------------------
+#
+# Between sub-blocks a rank holds its ``S/m`` rows of the residual stream
+# (``ComputeAxes.seq_split``).  Where the model axis computes, a rank's
+# gradient of its rows is the whole one: a value every rank holds whole
+# and slices (``seq_rows``) sums its gradient over the group, and a leaf
+# used on the rank's rows alone (``seq_weight``) has its partial gradient
+# summed.  Under ``zero3`` (no model-axis compute, the sequence over the
+# model axis all the same) every rank's gradient is a part, summed with
+# the rest by the DP reduction over every axis, and neither sums.
+
+
+def seq_rows(x: torch.Tensor, tp, dim: int = 1) -> torch.Tensor:
+    """The rank's rows along ``dim`` of a value every rank holds whole:
+    ``model_slice`` where the model axis computes, the slice alone under
+    ``zero3``."""
+    if tp.model_group is not None:
+        return model_slice(x, dim, tp)
+    first, n = tp.own_rows(x.shape[dim])
+    return x.narrow(dim, first, n)
+
+
+def seq_weight(w: torch.Tensor, tp, path: "tuple | None" = None
+               ) -> torch.Tensor:
+    """A leaf (at ``path``, or unsplit) as the rank's rows of a split
+    sequence use it, whole: its gradient, a part from those rows, summed
+    over the model axis -- gathered by ``gather_summed`` where the specs
+    split it, else through ``copy_to``.  Under ``zero3``, as it is."""
+    if tp.model_group is None:
+        return w
+    if path is not None and model_split(tp, path):
+        return model_whole(w, tp, path)
+    return collectives.copy_to(w, tp.model_group)
+
+
 def embed_tokens(params: dict, tokens: torch.Tensor, cfg, *,
-                 name: str = "embed") -> torch.Tensor:
+                 name: str = "embed", seq: bool = False) -> torch.Tensor:
     """The token embeddings ``params[name][tokens]`` in the compute dtype.
     In a partitioned step the table's FSDP block is gathered and, where
     the model axis splits the vocabulary, each rank looks up the tokens in
     its rows (zero for the others') and an all-reduce sums the ranks'
-    lookups."""
+    lookups.  With ``seq`` (the sequence split, ``ComputeAxes.seq_split``)
+    the rank's rows of the embeddings: the ranks' lookups
+    reduce-scattered along the sequence where the vocabulary is split,
+    else the rank's rows of the whole lookup (``seq_rows``)."""
     compute = dtype_of(cfg.compute_dtype)
     tp = compute_axes()
     if tp is None:
         return params[name][tokens.long()].to(compute)
     table = spmd.fsdp_gather({name: params[name]}, tp)[name]
     if not model_split(tp, (name,)) or tp.model_size == 1:
-        return table[tokens.long()].to(compute)
+        if seq and tp.model_group is None:       # zero3: the rows alone
+            tokens = seq_rows(tokens, tp)
+        rows = table[tokens.long()].to(compute)
+        return seq_rows(rows, tp) if seq and tp.model_group is not None \
+            else rows
     n = table.shape[0]
     local = tokens.long() - tp.model_rank * n
     mine = (local >= 0) & (local < n)
     rows = table[local.clamp(0, n - 1)].to(compute)
     rows = rows * mine[..., None].to(compute)
+    if seq:
+        return collectives.scatter_from(rows, 1, tp.model_group)
     return collectives.reduce_from(rows, tp.model_group)
 
 
@@ -364,14 +435,27 @@ def _head(params: dict, name: str, tied: bool, tp
 
 
 def vocab_logits(params: dict, h: torch.Tensor, cfg, *,
-                 name: str = "lm_head", tied: bool = False) -> torch.Tensor:
+                 name: str = "lm_head", tied: bool = False,
+                 seq: bool = False) -> torch.Tensor:
     """The logits ``h @ params[name]`` (``params[name].T`` where ``tied``:
     the embedding) ``[B, S, V]``, padded columns masked -- in a
     partitioned step the rank's block of the vocabulary where the model
-    axis splits it, ``[B, S, V/m]`` (``partition.logits_spec``)."""
+    axis splits it, ``[B, S, V/m]`` (``partition.logits_spec``).  With
+    ``seq``, ``h`` holds the rank's rows of a split sequence, gathered
+    first (the logits keep the sequence whole, as JAX's): by
+    ``gather_summed`` where each rank's gradient of them is a part (its
+    vocabulary columns'; under ``zero3`` every rank's whole loss, summed
+    with the others' as the DP reduction sums), by ``gather_from`` where
+    a whole head gives every rank the whole gradient."""
     tp = compute_axes()
     head, first = _head(params, name, tied, tp)
-    if head.shape[1] < cfg.padded_vocab:        # the rank's columns
+    split = head.shape[1] < cfg.padded_vocab         # the rank's columns
+    if seq:
+        alike = tp.model_group is not None and not split
+        gather = collectives.gather_from if alike else \
+            collectives.gather_summed
+        h = gather(h, 1, tp.seq_group)
+    elif split:
         h = collectives.copy_to(h, tp.model_group)
     return mask_padded_vocab(h @ head.to(h.dtype), cfg.vocab_size,
                              offset=first)

@@ -35,6 +35,16 @@ into row-parallel.  The combine's partial sums, the shared experts'
 added, are summed over the model axis by one all-reduce.  The tokens and
 the gates enter that part as Megatron's ``f`` (their gradients summed
 over the axis).
+
+Under the ``sequence_parallel`` hint a rank holds its rows of the
+sequence.  The experts' part gathers them (``gather_summed`` in the
+tokens' ``copy_to``'s place) and reduce-scatters the partial sums back
+to the rank's rows in the all-reduce's place; the router, the capacity
+and the auxiliary loss see every row, as without the hint.  The router's
+input gradient, whole and alike on every rank, joins the gather's
+backward sum once (``collectives.counted_once``).  Experts that the
+specs leave whole run alike over the gathered rows on every rank, and
+the rank keeps its rows.
 """
 
 from __future__ import annotations
@@ -43,7 +53,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import init_linear, swiglu
+from repro_torch.models.layers import (init_linear, seq_rows, seq_weight,
+                                       swiglu)
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding.api import compute_axes
 
@@ -155,20 +166,51 @@ def route(params: dict, x: torch.Tensor, cfg: ModelConfig
     return probs, gates / gates.sum(-1, keepdim=True).clamp_min(1e-9), experts
 
 
-def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig
-            ) -> tuple[torch.Tensor, torch.Tensor]:
+def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig, *,
+            seq: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """``x [B, S, d] -> (y [B, S, d], aux)``: the routed experts' output
-    (plus the shared experts') and the float32 Switch auxiliary loss."""
+    (plus the shared experts') and the float32 Switch auxiliary loss.
+    With ``seq`` (the ``sequence_parallel`` hint) ``x`` and ``y`` are the
+    rank's rows of a split sequence: the router, the dispatch's capacity
+    and the auxiliary loss still see every row (see the module
+    docstring)."""
+    tp = compute_axes()
+    split, shared_group = None, None
+    if tp is not None:
+        params, split, shared_group = _partition(params, cfg, tp,
+                                                 seq=seq)
+    if seq and split is None:
+        # every rank runs the whole FFN alike over the gathered rows
+        alike = tp.model_group is not None
+        gather = C.gather_from if alike else C.gather_summed
+        y, aux = _moe(params, gather(x, 1, tp.seq_group), cfg, tp, None,
+                      shared_group)
+        return seq_rows(y, tp), aux
+    return _moe(params, x, cfg, tp, split, shared_group, seq=seq)
+
+
+def _moe(params: dict, x: torch.Tensor, cfg: ModelConfig, tp, split,
+         shared_group, *, seq: bool = False
+         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``moe_ffn`` on leaves ``_partition`` has placed: over the rank's
+    experts (``split``) and the model axis's group, or unpartitioned.
+    With ``seq`` (``split`` given) ``x`` holds the rank's rows: gathered
+    (``gather_summed``, in the place of the experts' ``copy_to``), the
+    router's input counted once in that gather's backward sum
+    (``counted_once``: every rank routes alike), the shared experts
+    column-parallel on the gathered rows (or, whole, on the rank's own),
+    and the partial sums reduce-scattered back to the rank's rows."""
+    group = tp.model_group if split else None
+    own = x
+    xr = x
+    if seq:
+        x = C.gather_summed(x, 1, group)
+        xr = C.counted_once(x, group)
     b, s, d = x.shape
     e, k = cfg.num_experts, cfg.num_experts_per_token
     cap = capacity(s, cfg)
-    tp = compute_axes()
-    group, split, shared_group = None, None, None
-    if tp is not None:
-        params, split, shared_group = _partition(params, cfg, tp)
-        group = tp.model_group if split else None
 
-    probs, gates, experts = route(params, x, cfg)
+    probs, gates, experts = route(params, xr, cfg)
 
     frac = F.one_hot(experts, e).float().mean((1, 2))           # [B, E]
     aux = e * (frac * probs.mean(1)).sum(-1).mean()
@@ -178,7 +220,9 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig
     sorted_g = gates.reshape(b, s * k).gather(-1, order)
     xe = x
     if group is not None:
-        xe, sorted_g = C.copy_to(x, group), C.copy_to(sorted_g, group)
+        sorted_g = C.copy_to(sorted_g, group)
+        if not seq:
+            xe = C.copy_to(x, group)
     if split == "ep":
         # the rank's experts: its slots, the others' to the sentinel
         el = params["w_gate"].shape[0]
@@ -200,17 +244,22 @@ def moe_ffn(params: dict, x: torch.Tensor, cfg: ModelConfig
     yk = yg.gather(1, inv[..., None].expand(b, s * k, d)).reshape(b, s, k, d)
     y = yk.sum(2)
 
+    ys = None
     if cfg.num_shared_experts:
         sh = params["shared"]
-        ys = swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"],
-                    group=shared_group, reduce=group is None)
-        if group is not None and shared_group is None:
-            y = C.reduce_from(y, group) + ys
-            group = None
+        if seq and shared_group is not None:     # its partial sums join y's
+            y = y + swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"])
+        elif seq:                                # whole: on the rank's rows
+            ys = swiglu(own, sh["w_gate"], sh["w_up"], sh["w_down"])
         else:
-            y = y + ys
+            ys = swiglu(x, sh["w_gate"], sh["w_up"], sh["w_down"],
+                        group=shared_group, reduce=group is None)
+            if group is None or shared_group is not None:
+                y, ys = y + ys, None
     if group is not None:
-        y = C.reduce_from(y, group)
+        y = C.scatter_from(y, 1, group) if seq else C.reduce_from(y, group)
+    if ys is not None:
+        y = y + ys
     return y, aux.float()
 
 
@@ -220,12 +269,15 @@ _SPLIT_DIM = {"ep": {"w_gate": 0, "w_up": 0, "w_down": 0},
               "tp": {"w_gate": 2, "w_up": 2, "w_down": 1}}
 
 
-def _partition(params: dict, cfg: ModelConfig, tp) -> tuple:
+def _partition(params: dict, cfg: ModelConfig, tp, *, seq: bool = False
+               ) -> tuple:
     """A rank's MoE leaves (their FSDP blocks already gathered by the
     layer) as it computes on them: the mode whose split the specs give the
     experts (``"ep"`` / ``"tp"``), else ``None`` with the experts gathered
     whole over the model axis; the shared experts' model group where the
-    specs split them, else ``None`` with them gathered whole."""
+    specs split them, else ``None`` with them gathered whole -- under
+    ``seq`` with the experts split, whole through ``layers.seq_weight``
+    (they then run on the rank's rows alone)."""
     pre = ("layers", "moe")
 
     def whole(tree, prefix, names):
@@ -247,6 +299,10 @@ def _partition(params: dict, cfg: ModelConfig, tp) -> tuple:
         sp = pre + ("shared",)
         if all(tp.plan(sp + (n,)).model_dim is not None for n in _EXPERTS):
             shared = tp.model_group
+        elif seq and split is not None:
+            params = dict(params, shared={
+                n: seq_weight(w, tp, sp + (n,))
+                for n, w in params["shared"].items()})
         else:
             params = dict(params, shared=whole(params["shared"], sp,
                                                _EXPERTS))

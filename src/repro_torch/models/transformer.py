@@ -51,6 +51,27 @@ is gathered over the axis and that part runs on every rank alike.  At a
 model axis of one rank nothing is issued and every product is the
 unpartitioned one.
 
+Sequence parallelism.  Under ``cfg.sequence_parallel``, where JAX pins
+the residual stream to ``shard(h, "dp", "model", None)`` at the
+embedding and after every block, a train or prefill step whose sequence
+divides the model axis (``ComputeAxes.seq_split``; decode steps never)
+keeps the rank's ``S/m`` rows between sub-blocks: norms and residual
+adds run on them.  Each column-parallel entry gathers the rows
+(``gather_summed``, in ``copy_to``'s place: its backward reduce-scatters
+the ranks' partial gradients, so the two never stand together) and each
+row-parallel exit reduce-scatters its sums to the rank's rows
+(``scatter_from``, in the all-reduce's place): attention, the FFN, the
+MoE's experts, and the vocabulary-split embedding.  Attention weights the
+specs leave whole (the heads do not divide the axis) compute every head
+over the gathered rows and keep the rank's rows before ``wo``; the
+rank's part of such a leaf's gradient, and of the norms' scales, is
+summed over the axis (``layers.seq_weight``).  The head gathers the rows
+first (the logits keep the sequence whole, as JAX's); a prefill's last
+row reaches every rank by an all-gather of each rank's last row; the
+VLM's lookup is summed before its patch rows join it, then sliced.  Under
+``zero3`` the sequence splits over the model axis all the same while the
+weights stay gathered whole over every axis.
+
 Parameter dict (the JAX tree's names and layouts, so
 ``repro_torch.convert.model_params_from_numpy`` copies it as it is):
 
@@ -87,8 +108,8 @@ from repro_torch.models.layers import (apply_rope, embed_tokens, gather_model,
                                        gelu_mlp, init_linear, layer_norm,
                                        model_split, mrope_frequencies,
                                        next_token_loss, remat_block,
-                                       rms_norm, rope, swiglu, unbind_layers,
-                                       vocab_logits)
+                                       rms_norm, rope, seq_rows, seq_weight,
+                                       swiglu, unbind_layers, vocab_logits)
 from repro_torch.sharding import collectives as C
 from repro_torch.sharding import spmd
 from repro_torch.sharding.api import compute_axes
@@ -188,7 +209,11 @@ def init_params(generator: torch.Generator, cfg: ModelConfig, *,
 # -----------------------------------------------------------------------------
 
 
-def _norm(x, p, cfg):
+def _norm(x, p, cfg, seq: bool = False):
+    """The block's norm; with ``seq`` on the rank's rows of a split
+    sequence, its scale (and bias) through ``layers.seq_weight``."""
+    if seq:
+        p = {k: seq_weight(v, compute_axes()) for k, v in p.items()}
     if cfg.norm_type == "layer":
         return layer_norm(x, p["scale"], p["bias"])
     return rms_norm(x, p["scale"])
@@ -207,13 +232,17 @@ def _qkv(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin):
 
 
 def _attention_tp(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin,
-                  tp, *, cache=None, fill=None) -> torch.Tensor:
+                  tp, *, cache=None, fill=None, seq: bool = False
+                  ) -> torch.Tensor:
     """One rank's attention sub-block (see the module docstring), its
     weights the rank's model-axis blocks: ``wq`` ``[D, QH*HD/m]``, ``wk``
     / ``wv`` ``[D, KH*HD/m]``, ``wo`` ``[QH*HD/m, D]``; the attention
-    itself is ``attention.attention_tp``."""
+    itself is ``attention.attention_tp``.  With ``seq`` ``h`` holds the
+    rank's rows of a split sequence: gathered on entry
+    (``gather_summed``, in ``copy_to``'s place) and the ``wo`` sums
+    reduce-scattered back to the rank's rows."""
     group = tp.model_group
-    x = C.copy_to(h, group)
+    x = C.gather_summed(h, 1, group) if seq else C.copy_to(h, group)
     scales = (None, None)
     if cfg.qk_norm:
         scales = (C.copy_to(p["q_scale"], group),
@@ -224,7 +253,31 @@ def _attention_tp(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin,
                        chunk=cfg.attention_chunk, rope=(cos, sin),
                        scales=scales, cache=cache, fill=fill,
                        split=tp.cache_split("k"))
+    if seq:
+        return C.scatter_from(out @ p["wo"], 1, group)
     return C.reduce_from(out @ p["wo"], group)
+
+
+def _attention_rows(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin,
+                    tp, *, fill=None) -> torch.Tensor:
+    """A rank's attention sub-block over the rank's rows ``h`` of a split
+    sequence, its weights whole on every rank (the heads do not divide
+    the model axis, whose specs then leave them whole; or ``zero3``):
+    the rows gathered (``gather_summed``), every head over every row as
+    without a mesh, the rank's rows of the output kept before ``wo``.
+    Nothing is reduced after ``wo``; the weights' gradients, parts from
+    the rank's rows, are summed (``layers.seq_weight``)."""
+    names = _ATTN + (("q_scale", "k_scale") if cfg.qk_norm else ())
+    p = dict(p, **{n: seq_weight(p[n], tp, ("layers", n)) for n in names})
+    x = C.gather_summed(h, 1, tp.seq_group)
+    b, s, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, cos, sin)
+    if fill is not None:
+        fill_cache(tp, fill, k, v, whole=True, split=tp.cache_split("k"))
+    out = gqa_attention(q, k, v, causal=True, impl=cfg.attention_impl,
+                        chunk=cfg.attention_chunk)
+    first, n = tp.own_rows(s)
+    return out.reshape(b, s, -1).narrow(1, first, n) @ p["wo"]
 
 
 _ATTN = ("wq", "wk", "wv", "wo")
@@ -234,14 +287,15 @@ def attention_block(p: dict, h: torch.Tensor, cfg: ModelConfig,
                     cos: torch.Tensor, sin: torch.Tensor, *,
                     cache: "tuple[torch.Tensor, torch.Tensor, int] | None"
                     = None,
-                    fill: "tuple[torch.Tensor, torch.Tensor] | None" = None
-                    ) -> torch.Tensor:
+                    fill: "tuple[torch.Tensor, torch.Tensor] | None" = None,
+                    seq: bool = False) -> torch.Tensor:
     """The attention sub-block.  ``cache = (k_cache, v_cache, length)``
     (one layer's ``[B, S_max, KH, HD]`` tensors) for decode: the new keys
     and values are written at ``length`` in place.  ``fill = (k_cache,
     v_cache)`` for a prefill: the prompt's keys and values are written into
     the cache's first rows.  In a partitioned step (``compute_axes()``)
-    the rank's part, as the module docstring says.
+    the rank's part, as the module docstring says; with ``seq``, ``h``
+    holds the rank's rows of a split sequence and so does the output.
 
     One deliberate difference in routing: the JAX package's decode path
     calls ``decode_attention`` without ``impl``, so it never reaches its
@@ -251,7 +305,9 @@ def attention_block(p: dict, h: torch.Tensor, cfg: ModelConfig,
     if tp is not None:
         if all(model_split(tp, ("layers", n)) for n in _ATTN):
             return _attention_tp(p, h, cfg, cos, sin, tp, cache=cache,
-                                 fill=fill)
+                                 fill=fill, seq=seq)
+        if seq:
+            return _attention_rows(p, h, cfg, cos, sin, tp, fill=fill)
         p = gather_model(p, tp, _ATTN)
     b, s, _ = h.shape
     q, k, v = _qkv(p, h, cfg, cos, sin)
@@ -287,27 +343,35 @@ def attention_block(p: dict, h: torch.Tensor, cfg: ModelConfig,
 _FFN = ("w_gate", "w_up", "w_down")
 
 
-def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig
+def _ffn(p: dict, h: torch.Tensor, cfg: ModelConfig, seq: bool = False
          ) -> tuple[torch.Tensor, torch.Tensor | float]:
     """The FFN's output and its auxiliary loss: the MoE router's float32
     scalar, or a Python ``0.0`` for the dense family (no device tensor is
     made where nothing reads it).  In a partitioned step the dense FFN
     runs column- into row-parallel where the specs split its weights over
-    the model axis (else gathered whole, alike on every rank)."""
+    the model axis (else gathered whole, alike on every rank).  With
+    ``seq`` (``h`` the rank's rows of a split sequence) the split FFN
+    gathers the rows and reduce-scatters its sums back to them; whole
+    weights compute on the rank's rows (``layers.seq_weight``)."""
     if cfg.family == "moe":
-        return moe_mod.moe_ffn(p["moe"], h, cfg)
+        return moe_mod.moe_ffn(p["moe"], h, cfg, seq=seq)
     tp = compute_axes()
     group = None
     if tp is not None:
         names = _FFN if cfg.act == "swiglu" else _FFN[1:]
         if all(model_split(tp, ("layers", n)) for n in names):
             group = tp.model_group
+        elif seq:
+            p = dict(p, **{n: seq_weight(p[n], tp, ("layers", n))
+                           for n in names})
         else:
             p = gather_model(p, tp, names)
+    seq_dim = 1 if seq and group is not None else None
     if cfg.act == "swiglu":
         return swiglu(h, p["w_gate"], p["w_up"], p["w_down"],
-                      group=group), 0.0
-    return gelu_mlp(h, p["w_up"], p["w_down"], group=group), 0.0
+                      group=group, seq_dim=seq_dim), 0.0
+    return gelu_mlp(h, p["w_up"], p["w_down"], group=group,
+                    seq_dim=seq_dim), 0.0
 
 
 def _layer(p: dict) -> dict:
@@ -317,30 +381,53 @@ def _layer(p: dict) -> dict:
     return p if tp is None else spmd.fsdp_gather(p, tp, ("layers",))
 
 
-def _block(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin, *,
-           cache=None) -> tuple[torch.Tensor, torch.Tensor | float]:
+def _block(p: dict, h: torch.Tensor, cfg: ModelConfig, cos, sin,
+           seq: bool = False, *, cache=None
+           ) -> tuple[torch.Tensor, torch.Tensor | float]:
     p = _layer(p)
-    h = h + attention_block(p, _norm(h, p["attn_norm"], cfg), cfg, cos, sin,
-                            cache=cache)
-    ffn_out, aux = _ffn(p, _norm(h, p["mlp_norm"], cfg), cfg)
+    h = h + attention_block(p, _norm(h, p["attn_norm"], cfg, seq), cfg, cos,
+                            sin, cache=cache, seq=seq)
+    ffn_out, aux = _ffn(p, _norm(h, p["mlp_norm"], cfg, seq), cfg, seq)
     return h + ffn_out, aux
 
 
 _INPUTS = {"tokens", "positions", "labels", "patch_embeds"}
 
 
-def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig):
+def _seq_len(batch: dict) -> int:
+    """The input sequence's length: the VLM's patches and the tokens."""
+    s = batch["tokens"].shape[1]
+    return s + (batch["patch_embeds"].shape[1] if "patch_embeds" in batch
+                else 0)
+
+
+def _seq_split(batch: dict) -> bool:
+    """Whether the step's sequence lies split over the sequence group
+    (``ComputeAxes.seq_split``: the ``sequence_parallel`` hint, at a
+    length that divides the group)."""
+    tp = compute_axes()
+    return tp is not None and tp.seq_split(_seq_len(batch))
+
+
+def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig,
+                  seq: bool = False):
     """The input sequence in the compute dtype: the VLM's stub patch
-    embeddings, then the token embeddings."""
+    embeddings, then the token embeddings -- with ``seq`` the rank's rows
+    of it.  The VLM's patch rows are whole on every rank, so the token
+    lookup is summed first (as without ``seq``) and the rank keeps its
+    rows of the concatenation (``layers.seq_rows``)."""
     if set(batch) - _INPUTS:
         raise ValueError(
             f"inputs {sorted(set(batch) - _INPUTS)} are not the "
             f"{cfg.family} family's (models.encdec reads the audio "
             f"family's embeds)")
-    h = _embed(params, batch["tokens"], cfg)
-    if "patch_embeds" in batch:
+    patches = "patch_embeds" in batch
+    h = embed_tokens(params, batch["tokens"], cfg, seq=seq and not patches)
+    if patches:
         compute = dtype_of(cfg.compute_dtype)
         h = torch.cat([batch["patch_embeds"].to(compute), h], dim=1)
+        if seq:
+            h = seq_rows(h, compute_axes())
     return h
 
 
@@ -365,20 +452,16 @@ def _rope_tables(cfg: ModelConfig, positions: torch.Tensor):
     return rope(positions, cfg.head_dim, theta=cfg.rope_theta)
 
 
-def _embed(params: dict, tokens: torch.Tensor, cfg: ModelConfig
-           ) -> torch.Tensor:
-    """The token embeddings in the compute dtype (vocabulary-parallel in a
-    partitioned step: ``layers.embed_tokens``)."""
-    return embed_tokens(params, tokens, cfg)
-
-
-def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _logits(params: dict, h: torch.Tensor, cfg: ModelConfig,
+            seq: bool = False) -> torch.Tensor:
     """The logits ``[B, S, V]`` -- in a partitioned step the rank's block
-    of the vocabulary where the model axis splits it, ``[B, S, V/m]``."""
-    h = _norm(h, params["final_norm"], cfg)
+    of the vocabulary where the model axis splits it, ``[B, S, V/m]``;
+    with ``seq`` from the rank's rows, normed and then gathered
+    (``layers.vocab_logits``)."""
+    h = _norm(h, params["final_norm"], cfg, seq)
     tied = cfg.tie_embeddings
     return vocab_logits(params, h, cfg, name="embed" if tied else "lm_head",
-                        tied=tied)
+                        tied=tied, seq=seq)
 
 
 # -----------------------------------------------------------------------------
@@ -397,15 +480,16 @@ def _forward(params: dict, batch: dict, cfg: ModelConfig
     batch dimensions -- the q, k, v, ``wo`` and FFN projections, the MoE
     router and shared experts, not the attention's or the experts'
     batched products -- as JAX's ``checkpoint_dots_with_no_batch_dims``."""
-    h = _embed_inputs(params, batch, cfg)
-    b, s, _ = h.shape
+    seq = _seq_split(batch)
+    h = _embed_inputs(params, batch, cfg, seq)
+    b, s = h.shape[0], _seq_len(batch)
     cos, sin = _rope_tables(cfg, _positions(batch, cfg, s, b, h.device))
     aux = 0.0
     for p in unbind_layers(params):
-        h, a = remat_block(cfg.remat, _block, p, h, cfg, cos, sin,
+        h, a = remat_block(cfg.remat, _block, p, h, cfg, cos, sin, seq,
                            save_products=True)
         aux = aux + a
-    return _logits(params, h, cfg), aux
+    return _logits(params, h, cfg, seq), aux
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -457,16 +541,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 def prefill(params: dict, batch: dict, cfg: ModelConfig, cache: KVCache
             ) -> tuple[torch.Tensor, KVCache]:
     """Run the full prompt, fill the cache's first ``S`` rows, return the
-    last position's logits ``[B, 1, V]`` and the cache at length ``S``."""
-    h = _embed_inputs(params, batch, cfg)
-    b, s, _ = h.shape
+    last position's logits ``[B, 1, V]`` and the cache at length ``S``.
+    With the sequence split (the ``sequence_parallel`` hint) each rank
+    runs its rows, the cache filled from the gathered keys and values;
+    the last row, the last rank's, reaches every rank by an all-gather of
+    each rank's last row (``B x D`` a rank)."""
+    seq = _seq_split(batch)
+    h = _embed_inputs(params, batch, cfg, seq)
+    b, s = h.shape[0], _seq_len(batch)
     cos, sin = _rope_tables(cfg, _positions(batch, cfg, s, b, h.device))
     for i, p in enumerate(unbind_layers(params)):
         p = _layer(p)
-        h = h + attention_block(p, _norm(h, p["attn_norm"], cfg), cfg, cos,
-                                sin, fill=(cache.k[i], cache.v[i]))
-        h = h + _ffn(p, _norm(h, p["mlp_norm"], cfg), cfg)[0]
-    logits = _logits(params, h[:, -1:], cfg)
+        h = h + attention_block(p, _norm(h, p["attn_norm"], cfg, seq), cfg,
+                                cos, sin, fill=(cache.k[i], cache.v[i]),
+                                seq=seq)
+        h = h + _ffn(p, _norm(h, p["mlp_norm"], cfg, seq), cfg, seq)[0]
+    last = h[:, -1:]
+    if seq:
+        last = C.all_gather(last, 1, compute_axes().seq_group)[:, -1:]
+    logits = _logits(params, last, cfg)
     return logits, KVCache(k=cache.k, v=cache.v, length=s)
 
 
@@ -479,7 +572,7 @@ def decode_step(params: dict, tokens: torch.Tensor, cfg: ModelConfig,
     compute dtype.  The position is ``cache.length``, in all three streams
     under M-RoPE."""
     compute = dtype_of(cfg.compute_dtype)
-    h = _embed(params, tokens, cfg)
+    h = embed_tokens(params, tokens, cfg)
     if extra_embeds is not None:
         h = h + extra_embeds.to(compute)
     b, s, _ = h.shape

@@ -9,8 +9,9 @@ from this module: ``compute_axes()`` gives, while a partitioned step runs
 (``launch/steps.py`` enters ``active(...)`` around it), the model axis,
 its process group, size and this rank's index on it, the DP axes
 (``("pod", "data")`` flattened, all three under ``zero3``) and their
-group and size, each parameter leaf's ``partition.LeafPlan`` and which
-cache fields lie on the model axis.  Without an active
+group and size, each parameter leaf's ``partition.LeafPlan``, which
+cache fields lie on the model axis and, under the ``sequence_parallel``
+hint, the group the sequence splits over (``seq_split``).  Without an active
 mesh (or on an ``AbstractMesh``, which has no groups) it is ``None`` and
 every layer runs unpartitioned, as before.
 
@@ -50,7 +51,14 @@ class ComputeAxes:
     ``partition.LeafPlan``; ``cache_dims`` maps a cache field (its
     dataclass field names, nested ones joined by ``/``: ``"k"``,
     ``"cross_k"``, ``"ssm/conv"``) to the dim ``partition.cache_specs``
-    puts on the model axis, for the fields it splits there."""
+    puts on the model axis, for the fields it splits there.
+
+    ``seq_group`` is the model axis's group where the config takes the
+    ``sequence_parallel`` hint (``None`` otherwise), under ``zero3`` too:
+    JAX's ``shard(h, "dp", "model", None)`` puts the residual stream's
+    sequence on the model axis there, with the weights gathered whole
+    over every axis.  The transformer families read it
+    (``seq_split``); the others ignore the hint, as JAX's do."""
     model_group: object
     model_size: int
     model_rank: int
@@ -59,6 +67,9 @@ class ComputeAxes:
     dp_size: int
     plans: dict
     cache_dims: dict = dataclasses.field(default_factory=dict)
+    seq_group: object = None
+    seq_size: int = 1
+    seq_rank: int = 0
 
     def plan(self, path: tuple):
         return self.plans.get(tuple(path))
@@ -67,6 +78,19 @@ class ComputeAxes:
         """Whether the cache field ``field`` is split over the model
         axis."""
         return field in self.cache_dims
+
+    def seq_split(self, s: int) -> bool:
+        """Whether a sequence of ``s`` positions lies split over
+        ``seq_group``, ``s / seq_size`` rows a rank: where the hint gives
+        a group of more than one rank and ``s`` divides it (else JAX's
+        ``shard`` leaves the dim whole)."""
+        return self.seq_size > 1 and s % self.seq_size == 0
+
+    def own_rows(self, s: int) -> tuple:
+        """(first row, rows) of the rank's block of a split sequence of
+        ``s`` positions."""
+        n = s // self.seq_size
+        return self.seq_rank * n, n
 
 
 def activate(mesh, *, zero3: bool = False, compute: "ComputeAxes | None"

@@ -13,6 +13,16 @@ them on meta tensors in one process.
 A group of one rank (or ``None``) issues nothing: every function returns
 its input (or, where it makes a new tensor, a copy-free view of it).
 
+Two ranks on one card.  NCCL refuses two ranks on one device, so the
+model axis at 2 on the one card runs over gloo, and gloo's
+``all_gather_into_tensor`` on CUDA tensors kills the process (SIGSEGV,
+torch 2.11.0+cu128; PERF.md, Findings).  So where the group's
+backend is gloo and the tensor lies on a card, the plain collectives
+carry a host copy and copy the result back to the tensor's device: a
+transport, the compute staying on the card.  NCCL groups, CPU tensors
+and meta tensors (``meta.MetaPass``'s fake group, which counts each
+collective once) take the functional op directly.
+
 Plain (no gradient of their own):
 
   all_reduce(x, group, op)      sum / max over the group
@@ -21,6 +31,8 @@ Plain (no gradient of their own):
   all_to_all(x, split, cat, group)
                                 block j of dim ``split`` to rank j, the
                                 blocks received concatenated along ``cat``
+  counted_once(x, group)        identity forward, the gradient divided by
+                                the group's size backward (no collective)
 
 With autograd (the model axis's pairs, and FSDP's gather):
 
@@ -47,7 +59,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["size", "rank", "all_reduce", "all_gather", "reduce_scatter",
-           "all_to_all", "copy_to", "reduce_from", "gather_from",
+           "all_to_all", "host_staged", "counted_once", "copy_to",
+           "reduce_from", "gather_from",
            "gather_summed", "scatter_from", "KINDS", "OP_KINDS"]
 
 # JAX's collective kinds (``parse_collectives``), and the functional ops
@@ -81,13 +94,33 @@ def rank(group) -> int:
     return dist.get_rank(group)
 
 
+def _backend(group) -> str:
+    import torch.distributed as dist
+    return dist.get_backend(group)
+
+
+def host_staged(x: torch.Tensor, group) -> bool:
+    """Whether a collective of ``x`` over ``group`` runs on a host copy:
+    ``x`` on a card and ``group`` a gloo group (see the module
+    docstring)."""
+    return x.device.type == "cuda" and _backend(group) == "gloo"
+
+
+def _run(x: torch.Tensor, group, op) -> torch.Tensor:
+    """``op(x)`` (a functional collective, waited on), on a host copy of
+    ``x`` with the result copied back where ``host_staged``."""
+    if host_staged(x, group):
+        return op(x.cpu()).to(x.device)
+    return op(x)
+
+
 def all_reduce(x: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """``op`` ("sum" or "max") of ``x`` over ``group``, a new tensor."""
     if size(group) == 1:
         return x
     ops = _ops()
-    return ops.wait_tensor(ops.all_reduce(x.contiguous(), op,
-                                          group.group_name))
+    return _run(x.contiguous(), group, lambda t: ops.wait_tensor(
+        ops.all_reduce(t, op, group.group_name)))
 
 
 def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
@@ -97,8 +130,8 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     if m == 1:
         return x
     ops = _ops()
-    out = ops.wait_tensor(ops.all_gather_into_tensor(
-        x.contiguous(), m, group.group_name))
+    out = _run(x.contiguous(), group, lambda t: ops.wait_tensor(
+        ops.all_gather_into_tensor(t, m, group.group_name)))
     dim = dim % x.dim()
     shape = list(x.shape)
     out = out.view(m, *shape).movedim(0, dim)
@@ -121,8 +154,8 @@ def reduce_scatter(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     shape[dim] //= m
     blocks = x.reshape(*x.shape[:dim], m, shape[dim], *x.shape[dim + 1:])
     blocks = blocks.movedim(dim, 0).contiguous()
-    out = ops.wait_tensor(ops.reduce_scatter_tensor(
-        blocks.view(m, -1), "sum", m, group.group_name))
+    out = _run(blocks.view(m, -1), group, lambda t: ops.wait_tensor(
+        ops.reduce_scatter_tensor(t, "sum", m, group.group_name)))
     return out.view(shape)
 
 
@@ -139,8 +172,8 @@ def all_to_all(x: torch.Tensor, split_dim: int, cat_dim: int, group
     n = x.shape[split_dim] // m
     blocks = x.reshape(*x.shape[:split_dim], m, n, *x.shape[split_dim + 1:])
     blocks = blocks.movedim(split_dim, 0).contiguous()
-    out = ops.wait_tensor(ops.all_to_all_single(
-        blocks, [1] * m, [1] * m, group.group_name))
+    out = _run(blocks, group, lambda t: ops.wait_tensor(
+        ops.all_to_all_single(t, [1] * m, [1] * m, group.group_name)))
     # out[i] is rank i's block j; put i beside cat_dim and merge them
     rest = list(x.shape)
     rest[split_dim] = n
@@ -209,8 +242,29 @@ class _ScatterFrom(torch.autograd.Function):
         return all_gather(g, ctx.dim, ctx.group), None, None
 
 
+class _CountedOnce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, m):
+        ctx.m = m
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.m, None
+
+
 def _differentiable(x: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and x.requires_grad
+
+
+def counted_once(x: torch.Tensor, group) -> torch.Tensor:
+    """``x``, its gradient divided by the group's size: a value every rank
+    of ``group`` uses alike, whose (whole, equal) gradient joins the
+    ranks' partial ones into a reduce-scatter's sum, which then counts it
+    once (the MoE router's input under sequence parallelism)."""
+    if size(group) == 1 or not _differentiable(x):
+        return x
+    return _CountedOnce.apply(x, size(group))
 
 
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:

@@ -68,7 +68,8 @@ from repro_torch.device import resolve_device
 __all__ = ["PartitionSpec", "AbstractMesh", "NamedSharding", "mesh_axes",
            "param_specs", "batch_specs", "cache_specs", "fsdp_axes",
            "dp_size", "shardings_for", "opt_state_specs",
-           "logical_to_sharding", "logits_spec", "spec_leaves",
+           "logical_to_sharding", "logits_spec", "sequence_axis",
+           "spec_leaves",
            "map_specs", "LeafPlan", "leaf_plans", "FleetMesh", "fleet_mesh", "padded_lane_count",
            "LaneSharding", "fleet_sharding", "LaneChunks",
            "shard_fleet_tick", "rec_map"]
@@ -450,6 +451,29 @@ def cache_specs(cache_shape: Any, cfg, mesh, cell=None):
         return P()
 
     return _map_with_path(spec, cache_shape)
+
+
+def sequence_axis(cfg, mesh, batch: int, seq: int):
+    """The mesh axis JAX's ``shard(h, "dp", "model", None)`` puts the
+    sequence of a ``[batch, seq, D]`` residual stream on under the
+    ``sequence_parallel`` hint: ``"model"`` where the mesh has that axis
+    and ``seq`` divides it, else ``None`` (no hint, no axis, or the dim
+    left whole).  Raises ``ValueError`` where the batch's DP axes take the
+    model axis as well (``zero3``, whose DP axes end in it, and a batch
+    that divides all of them): JAX's constraint names the axis twice
+    there and raises ``DuplicateSpecError``."""
+    mesh = mesh_axes(mesh)
+    if not cfg.sequence_parallel or "model" not in mesh.axis_names \
+            or seq % mesh.shape["model"]:
+        return None
+    lead = _best_prefix(mesh, batch, _dp(mesh, cfg))
+    if lead is not None and "model" in lead:
+        raise ValueError(
+            f"sequence_parallel under zero3: the batch of {batch} splits "
+            f"over {lead}, the model axis among them, and the hint puts "
+            f"the sequence of {seq} on the model axis too (JAX's spec "
+            f"({lead}, 'model', None) names it twice: DuplicateSpecError)")
+    return "model"
 
 
 def logits_spec(logits_shape, cfg, mesh) -> PartitionSpec:

@@ -154,22 +154,27 @@ def compute_axes(mesh, cfg, params_shape, *, cache_specs=None):
     """This rank's ``api.ComputeAxes`` on ``mesh`` (a ``DeviceMesh``) for
     ``cfg``'s parameter tree ``params_shape``: the model axis's group
     (``None`` under ``zero3``, which folds it into DP), the DP axes' group,
-    every leaf's ``LeafPlan`` and, for a serving step, which fields of its
-    cache (``cache_specs``, the cache's spec tree) the model axis
-    splits."""
+    every leaf's ``LeafPlan``, for a serving step which fields of its
+    cache (``cache_specs``, the cache's spec tree) the model axis splits,
+    and under the ``sequence_parallel`` hint the model axis's group as the
+    sequence's (``zero3`` too)."""
     from repro_torch.sharding.api import ComputeAxes
     from repro_torch.sharding.collectives import rank, size
     names = tuple(mesh.mesh_dim_names)
     dp = partition.fsdp_axes(mesh, cfg)
-    model = None
-    if "model" in names and not cfg.zero3:
-        model = mesh.get_group("model")
+    model = seq = None
+    if "model" in names:
+        axis = mesh.get_group("model")
+        model = None if cfg.zero3 else axis
+        seq = axis if cfg.sequence_parallel else None
     dpg = _dp_group_cached(mesh, dp) if dp else None
     return ComputeAxes(model_group=model, model_size=size(model),
                        model_rank=rank(model), dp=dp, dp_group=dpg,
                        dp_size=size(dpg),
                        plans=partition.leaf_plans(params_shape, cfg, mesh),
-                       cache_dims=_cache_dims(cache_specs))
+                       cache_dims=_cache_dims(cache_specs),
+                       seq_group=seq, seq_size=size(seq),
+                       seq_rank=rank(seq))
 
 
 def fsdp_gather(tree, axes, prefix: tuple = ()):

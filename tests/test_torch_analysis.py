@@ -255,6 +255,23 @@ def test_race_guard_hostlog_soak_is_clean_and_patches_restored():
     assert HostLog.__init__ is init_log and CamBroker.__init__ is init_cam
 
 
+@pytest.mark.parametrize("value", ["1", "0", None])
+def test_race_guard_from_env_matches_jax(monkeypatch, value):
+    """``from_env`` gives one guard (strict, nothing recorded) where
+    ``MEZLINT_RACE_GUARD=1`` and ``None`` otherwise, as the JAX package's
+    does."""
+    from repro.analysis import race_guard as jrg
+    if value is None:
+        monkeypatch.delenv("MEZLINT_RACE_GUARD", raising=False)
+    else:
+        monkeypatch.setenv("MEZLINT_RACE_GUARD", value)
+    got, want = rg.from_env(), jrg.from_env()
+    assert (got is None) == (want is None) == (value != "1")
+    if got is not None:
+        assert isinstance(got, rg.race_guard) and got.strict
+        assert got.violations == []
+
+
 def test_trace_guard_needs_cache_size():
     with pytest.raises(TypeError, match="cache_size"):
         with trace_guard(object()):

@@ -16,6 +16,10 @@ CPU.
   * At model axis 1 a step issues no model-axis collective, and a rank's
     temporaries at model axis 4 are below those at 1 (qwen3, rwkv6,
     enc-dec and zamba2).
+  * The ``sequence_parallel`` hint on a 2-layer cut of ``llama3-8b``
+    ``train_4k`` on the fake ``(16, 16)`` group: lower temporaries, and
+    the all-reduces it turns into reduce-scatters and all-gathers,
+    counted from the code's sites.
   * Every family's record is marked ``"compute"``, and its rank's step on
     the fake ``(2, 4)`` group takes the argument bytes of JAX's specs.
 
@@ -262,6 +266,57 @@ def test_model_axis_one_issues_no_model_collective(kind):
     assert got == {"all-gather": 2 + cfg.num_layers * _fsdp_leaves(cfg),
                    "all-reduce": 0, "reduce-scatter": 0, "all-to-all": 0,
                    "collective-permute": 0}
+
+
+def test_sequence_parallel_trades_all_reduces_for_reduce_scatters():
+    """The ``sequence_parallel`` hint on a 2-layer cut of ``llama3-8b``
+    ``train_4k`` on the fake ``(16, 16)`` group (its 32 query heads divide
+    16, so ``wo`` is row-parallel; the 8 KV heads do not, and are gathered
+    as without the hint): a rank's temporaries fall, and the collectives
+    move by the counts of the code's sites.
+
+    Per microbatch (8 of them, each 2 of the 256 rows a rank) and layer,
+    under ``remat="full"`` (the forward's collectives issued again in the
+    backward's recomputation, but for the FFN's last one, which nothing
+    saved reads):
+
+      * the ``wo`` all-reduce (twice) and the FFN's (once) become
+        reduce-scatters; the attention's and the FFN's ``copy_to`` (an
+        all-reduce each in the backward pass) become ``gather_summed``:
+        an all-gather forward (twice) and a reduce-scatter backward; each
+        ``scatter_from``'s backward is an all-gather;
+      * the two norms' scales, used on the rank's rows, have their
+        gradients all-reduced (``seq_weight``);
+
+    and once a microbatch: the embedding's all-reduce becomes a
+    reduce-scatter (an all-gather backward), the head's ``copy_to`` a
+    ``gather_summed`` (an all-gather forward, a reduce-scatter backward),
+    and the final norm's scale adds an all-reduce."""
+    cfg = D.depth_cut(get_config("llama3-8b"), 2)
+    n, mb = cfg.num_layers, 8
+    cell = SHAPE_CELLS["train_4k"]
+    assert TS.microbatch_count(cfg, cell.global_batch, 16) == mb
+    recs = {}
+    for hint in (False, True):
+        with fake_mesh(*MESHES["single"]) as mesh:
+            recs[hint] = D.account_mesh(dataclasses.replace(
+                cfg, sequence_parallel=hint), cell, mesh)
+    off, on = (_counts(recs[h]) for h in (False, True))
+    assert recs[True]["memory"]["temp_bytes"] < \
+        recs[False]["memory"]["temp_bytes"]
+    row_parallel = 2 * n + n      # wo's sums twice, the FFN's once
+    entries = 2 * n               # the attention's and the FFN's input
+    # all-reduces: the sums, the entries' backward, the norms' scales
+    # (+2n), the embedding (-1), the head's input (-1), the final norm
+    ar = -row_parallel - entries + 2 * n - 1 - 1 + 1
+    # reduce-scatters: the sums, the entries' backward, embedding, head
+    rs = row_parallel + entries + 1 + 1
+    # all-gathers: the entries forward and recomputed, the sums' backward,
+    # the embedding's backward, the head's input
+    ag = 2 * entries + 2 * n + 1 + 1
+    assert {k: on[k] - off[k] for k in off} == {
+        "all-reduce": mb * ar, "reduce-scatter": mb * rs,
+        "all-gather": mb * ag, "all-to-all": 0, "collective-permute": 0}
 
 
 # (arch, kind): qwen3's cases keep their ids from before the other
